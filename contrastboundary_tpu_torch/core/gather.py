@@ -1,0 +1,23 @@
+"""Batched gathers with shadow-row semantics (counterpart of
+contrastboundary_tpu/core/gather.py): an index equal to N marks an invalid
+slot, which reads as ``fill``."""
+from __future__ import annotations
+
+import torch
+
+
+def batch_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, N, ...], idx [B, ...] in [0, N) → [B, *idx.shape[1:], *x.shape[2:]]."""
+    b = x.shape[0]
+    bidx = torch.arange(b, device=x.device).reshape((b,) + (1,) * (idx.ndim - 1))
+    return x[bidx, idx.long()]
+
+
+def shadow_gather(x: torch.Tensor, idx: torch.Tensor, fill: float = 0.0):
+    """Gather where idx == N (or beyond) reads ``fill``. Returns (gathered,
+    valid) with valid shaped like idx."""
+    n = x.shape[1]
+    valid = idx < n
+    out = batch_gather(x, torch.where(valid, idx, torch.zeros_like(idx)))
+    mask = valid.reshape(valid.shape + (1,) * (out.ndim - valid.ndim))
+    return out.masked_fill(~mask, fill), valid

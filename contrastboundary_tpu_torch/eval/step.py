@@ -1,0 +1,43 @@
+"""The eval step: pyramid, model forward, predictions in the caller's row
+order, confusion (counterpart of contrastboundary_tpu/train/trainer.py::
+make_eval_step, output='probs')."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping
+
+import torch
+
+from ..core.gather import batch_gather
+from ..device import resolve_device
+from ..ops.pyramid import PyramidSpec, build_pyramid
+from .metrics import confusion_matrix
+
+
+def make_eval_step(model: torch.nn.Module, spec: PyramidSpec, device="cuda", *,
+                   num_classes: int = 13, ignore_label: int = -1) -> Callable:
+    """Move ``model`` to ``device`` in eval mode and return
+    step(batch) → (probs [B, N, C] f32, confusion [C, C] f32), both on the
+    device. ``batch`` maps points [B, N, 3], features [B, N, F] and labels
+    [B, N] to arrays or tensors in the caller's row order. The eval pyramid
+    has no contrast or sub-scene searches."""
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    eval_spec = dataclasses.replace(spec, k_contrast=None, with_subscene=False)
+
+    @torch.no_grad()
+    def step(batch: Mapping):
+        points = torch.as_tensor(batch["points"], dtype=torch.float32, device=dev)
+        features = torch.as_tensor(batch["features"], dtype=torch.float32, device=dev)
+        labels = torch.as_tensor(batch["labels"], device=dev)
+        pyramid = build_pyramid(points, eval_spec)
+        order0 = pyramid.order0
+        logits = model(batch_gather(features, order0), pyramid)
+        probs = torch.softmax(logits, -1)
+        inv0 = torch.empty_like(order0)
+        inv0.scatter_(1, order0, torch.arange(order0.shape[1], device=dev).expand_as(order0))
+        probs = batch_gather(probs, inv0)
+        conf = confusion_matrix(probs.argmax(-1), labels, num_classes, ignore_label)
+        return probs, conf
+
+    return step
