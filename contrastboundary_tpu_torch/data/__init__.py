@@ -1,3 +1,3 @@
-from .synthetic import SyntheticSceneDataset, voxelize
+from .synthetic import SyntheticSceneDataset, train_batch, voxelize
 
-__all__ = ["SyntheticSceneDataset", "voxelize"]
+__all__ = ["SyntheticSceneDataset", "train_batch", "voxelize"]

@@ -4,7 +4,9 @@ data/pipeline.py::voxelize that give the same arrays from the same seed).
 
 SyntheticSceneDataset generates rooms with S3DIS's 13-class layout
 (floor/ceiling/walls + furniture boxes, rgb = class colour + noise),
-deterministic per (seed, room index).
+deterministic per (seed, room index). ``train_batch`` cuts training crops
+from them as data/pipeline.py::prepare_crop and ::pad_to_fixed_size do
+(without the augmentations).
 """
 from __future__ import annotations
 
@@ -154,3 +156,33 @@ class SyntheticSceneDataset:
             label = np.where(drop, -1, label)
         self._cache[i] = (coord, color, label)
         return coord.copy(), color.copy(), label.copy()
+
+
+def train_batch(dataset: SyntheticSceneDataset, batch_size: int, n_points: int,
+                rng: np.random.Generator, voxel_size: float = 0.04,
+                voxel_max: int = 80_000) -> Dict[str, np.ndarray]:
+    """``batch_size`` training crops of random rooms: voxelize (a random
+    point per voxel), keep the ``voxel_max`` points nearest a random centre,
+    shuffle, zero-min coordinates, colours/255, then exactly ``n_points``
+    rows (a random subset, or padded by repeating random rows) → points
+    [B, N, 3] f32, features [B, N, 3] f32, labels [B, N] int32."""
+    out = {"points": [], "features": [], "labels": []}
+    for _ in range(batch_size):
+        coord, feat, label = dataset.room(int(rng.integers(dataset.num_rooms)))
+        coord = coord - coord.min(0)
+        pick = voxelize(coord, voxel_size, rng)
+        coord, feat, label = coord[pick], feat[pick], label[pick]
+        if len(coord) > voxel_max:
+            d2 = ((coord - coord[rng.integers(len(coord))]) ** 2).sum(1)
+            crop = np.argpartition(d2, voxel_max - 1)[:voxel_max]
+            coord, feat, label = coord[crop], feat[crop], label[crop]
+        n = len(coord)
+        if n >= n_points:
+            idx = rng.permutation(n)[:n_points]
+        else:
+            idx = np.concatenate([rng.permutation(n), rng.integers(0, n, n_points - n)])
+        coord = coord[idx]
+        out["points"].append((coord - coord.min(0)).astype(np.float32))
+        out["features"].append(feat[idx].astype(np.float32) / 255.0)
+        out["labels"].append(label[idx].astype(np.int32))
+    return {k: np.stack(v) for k, v in out.items()}

@@ -20,20 +20,27 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("win_topk.cu", "tile_gather.cu")
+SOURCES = ("win_topk.cu", "tile_gather.cu", "window_gather_bwd.cu", "cbl_dense.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 )
 BUILD_TIMEOUT_S = 600
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes; every entry returns cudaGetLastError() as an int
 SIGNATURES = {
     # query, support, idx, val, b, m, ns, k, tile, width, window, gs, mode, stream
     "cbl_win_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, li, starts, out, b, ns, m, k, c, tile, width, stream
     "cbl_window_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # g, li, starts, dx, b, ns, m, k, c, tile, width, stream
+    "cbl_window_gather_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # features, meta, li, stats, b, m, k, c, tile, width, window, inv_t, stream
+    "cbl_stats_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # features, meta, li, g_stats, dx, b, m, k, c, tile, width, window, inv_t,
+    # stream
+    "cbl_stats_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

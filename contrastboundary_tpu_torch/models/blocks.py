@@ -1,15 +1,16 @@
-"""Point-transformer blocks for inference (counterpart of
+"""Point-transformer blocks (counterpart of
 contrastboundary_tpu/models/blocks.py:177-458, the XLA path of
-PointTransformerLayer, not the fused ``pt_attn`` kernel).
+PointTransformerLayer, not the fused ``pt_attn`` kernel, which the reference
+runs only under bn_mode='stale').
 
 Submodule names are the flax names of the JAX modules, so a flax variable
 path maps onto a state_dict key one to one (models/convert.py). Neighbour
 indices are window-relative in Morton-sorted space (ops/pyramid.py) and every
 neighbour read is a tile gather (ops/tile_gather.py).
 
-BatchNorm is eval-only: it normalizes with the running statistics, as flax
-``nn.BatchNorm(use_running_average=True)`` does (eps 1e-5, over the last
-axis). Training BN waits for the training slice of the port.
+BatchNorm is flax ``nn.BatchNorm`` over the last axis (eps 1e-5, momentum
+0.9, the reference's bn_mode='batch'): in eval mode it normalizes with the
+running statistics; in train mode with the batch statistics.
 """
 from __future__ import annotations
 
@@ -23,8 +24,17 @@ from ..ops.tile_gather import cross_window_gather, tile_window_gather
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis: (x − mean)·(scale/√(var + eps))
-    + bias, in the order flax computes it."""
+    """BatchNorm over the last axis as flax computes it: (x − mean)·(scale /
+    √(var + eps)) + bias.
+
+    Train mode uses flax's fast variance: mean and E[x²] in float32 over
+    every axis but the last, var = max(0, E[x²] − mean²), the biased
+    variance both to normalize and for the running update ra ← 0.9·ra +
+    0.1·batch, done in place without gradient. (``F.batch_norm`` keeps the
+    unbiased variance and the other momentum convention, so it is not used.)
+    Eval mode normalizes with the running statistics."""
+
+    momentum = 0.9  # flax's, the reference's
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -35,8 +45,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.ndim - 1))
+            xf = x.float()
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class PointTransformerLayer(nn.Module):

@@ -1,4 +1,4 @@
-"""flax variables → PyTorch state_dict, and the repo's checkpoint pickles.
+"""flax variables ↔ PyTorch state_dict, and the repo's checkpoint pickles.
 
 The port's modules carry the flax module names, so each flax leaf maps to one
 state_dict key: ``params/<path>/kernel`` [in, out] → ``<path>.weight``
@@ -66,6 +66,32 @@ def load_jax_variables(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module
             )
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def to_jax_variables(model: torch.nn.Module) -> dict:
+    """The model's parameters and running statistics as a {"params",
+    "batch_stats"} flax tree of float32 numpy arrays (the inverse of
+    from_jax_variables: Linear weights transposed to kernels)."""
+    inv_stats = {v: k for k, v in _STAT_LEAVES.items()}
+    tree = {"params": {}, "batch_stats": {}}
+    for key, v in model.state_dict().items():
+        *path, leaf = key.split(".")
+        a = v.detach().float().cpu().numpy().copy()  # not a view of the live tensor
+        if leaf in inv_stats:
+            coll, name = "batch_stats", inv_stats[leaf]
+        elif leaf == "bias":
+            coll, name = "params", "bias"
+        elif leaf == "weight" and isinstance(model.get_submodule(".".join(path)), torch.nn.Linear):
+            coll, name, a = "params", "kernel", a.T
+        elif leaf == "weight":
+            coll, name = "params", "scale"
+        else:
+            raise ValueError(f"no flax leaf for {key}")
+        node = tree[coll]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(a)
+    return tree
 
 
 class _NumpyUnpickler(pickle.Unpickler):

@@ -1,5 +1,5 @@
-"""Point-transformer segmentation backbone with the flagship MultiHead, for
-inference (counterpart of contrastboundary_tpu/models/pointtransformer.py:30-411).
+"""Point-transformer segmentation backbone with the flagship MultiHead
+(counterpart of contrastboundary_tpu/models/pointtransformer.py:30-411).
 
 Only the flagship head is ported: ``multi-Ua-concat-latent`` (a latent tower
 per up stage, each stage's latent taken to level 0 by its nearest point,
@@ -7,7 +7,8 @@ concatenated, one linear classifier). Submodule names are the flax names.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -15,6 +16,16 @@ from torch import nn
 from ..ops.pyramid import Pyramid
 from ..ops.tile_gather import cross_window_gather
 from .blocks import MLPTower, PointTransformerBlock, TransitionDown, TransitionUp
+
+
+@dataclasses.dataclass
+class ModelOutput:
+    """The two JAX ModelOutput fields that the flagship's training reads:
+    logits [B, N0, classes] and the per-stage latents [B, N_i, base_fdim],
+    on which the CBL runs."""
+
+    logits: torch.Tensor
+    latents: Tuple
 
 
 class MultiHead(nn.Module):
@@ -29,9 +40,11 @@ class MultiHead(nn.Module):
         self.cls = nn.Linear(base_fdim * len(planes), num_classes)
 
     def forward(self, up_feats, pyramid: Pyramid):
-        collected = []
+        """→ (logits, per-stage latents at their own level)."""
+        collected, latents = [], []
         for i in range(self.num_levels):
             lat = getattr(self, f"latent{i}")(up_feats[i])
+            latents.append(lat)
             if i > 0:
                 t, width, window = pyramid.near0_meta[i]
                 li = pyramid.near0_local[i][..., None]
@@ -39,7 +52,7 @@ class MultiHead(nn.Module):
                     ..., 0, :
                 ]
             collected.append(lat)
-        return self.cls(torch.cat(collected, -1))
+        return self.cls(torch.cat(collected, -1)), tuple(latents)
 
 
 class PointTransformerSeg(nn.Module):
@@ -73,9 +86,10 @@ class PointTransformerSeg(nn.Module):
             self.add_module(f"dec{l}_blk", PointTransformerBlock(planes[l], share_planes))
         self.multihead = MultiHead(planes, num_classes, base_fdim)
 
-    def forward(self, features: torch.Tensor, pyramid: Pyramid) -> torch.Tensor:
+    def forward(self, features: torch.Tensor, pyramid: Pyramid):
         """features [B, N0, in_features] in the pyramid's sorted row order →
-        logits [B, N0, num_classes]."""
+        in eval mode logits [B, N0, num_classes]; in train mode (batch
+        statistics in BatchNorm) a ModelOutput with the latents too."""
         nl = len(self.planes)
         pts = pyramid.points
 
@@ -112,4 +126,7 @@ class PointTransformerSeg(nn.Module):
             )
             x = block(f"dec{l}_blk", l, x)
             up_feats[l] = x
-        return self.multihead(up_feats, pyramid)
+        logits, latents = self.multihead(up_feats, pyramid)
+        if not self.training:
+            return logits
+        return ModelOutput(logits=logits, latents=latents)

@@ -51,11 +51,11 @@ def _geometry(query, support, tile, width, mode):
     return b, m, ns
 
 
-def window_topk_plain(query, support, k: int, *, tile: int, width: int,
-                      window: int, mode: str = "plain"):
-    """Plain PyTorch version: the same elementwise arithmetic in the same
-    order as the kernel, then k passes of (max, first index of the max,
-    mask)."""
+def window_neg_d2(query, support, *, tile: int, width: int, window: int,
+                  mode: str = "plain"):
+    """The kernel's window scores: −d² [B, G, T, W] in the kernel's
+    elementwise order (−inf at the excluded self), and the window-relative
+    self position [G, T]."""
     b, m, ns = _geometry(query, support, tile, width, mode)
     gq, gs, w_sz = m // tile, ns // tile, width * tile
     dev = query.device
@@ -69,14 +69,28 @@ def window_topk_plain(query, support, k: int, *, tile: int, width: int,
     sn = sx * sx + sy * sy + sz * sz
     qs = qx * sx + qy * sy + qz * sz  # [B, G, T, W]
     neg = -torch.clamp_min((qn + sn) - 2.0 * qs, 0.0)
-    iota = torch.arange(w_sz, device=dev, dtype=torch.int32)
     self_pos = (
         torch.arange(gq, device=dev)[:, None] * tile
         + torch.arange(tile, device=dev)[None, :]
         - (starts * tile)[:, None]
     ).to(torch.int32)  # [G, T]
     if mode == "exclude_self":
+        iota = torch.arange(w_sz, device=dev, dtype=torch.int32)
         neg = neg.masked_fill(iota == self_pos[..., None], float("-inf"))
+    return neg, self_pos
+
+
+def window_topk_plain(query, support, k: int, *, tile: int, width: int,
+                      window: int, mode: str = "plain"):
+    """Plain PyTorch version: the same elementwise arithmetic in the same
+    order as the kernel, then k passes of (max, first index of the max,
+    mask)."""
+    b, m, _ = query.shape
+    w_sz = width * tile
+    neg, self_pos = window_neg_d2(
+        query, support, tile=tile, width=width, window=window, mode=mode
+    )
+    iota = torch.arange(w_sz, device=query.device, dtype=torch.int32)
     vals, idxs = [], []
     for _ in range(k):
         v = neg.amax(-1, keepdim=True)

@@ -1,12 +1,14 @@
 """Multi-resolution index pyramid for the Morton-sorted, strided layout
 (counterpart of contrastboundary_tpu/ops/pyramid.py::build_pyramid).
 
-Ported for the eval pyramid of the flagship: ``layout='sorted'``,
-``sampler='strided'``, no contrast or sub-scene searches, no radius masks.
-Every level is stored Morton-sorted (``order0`` maps the caller's level-0
-rows to sorted rows), each level is a strided row pick of the previous one,
-and every search is a tile-window search (ops/knn.py), so each neighbour
-index has a window-relative twin for the tile gathers (ops/tile_gather.py).
+Ported for the flagship: ``layout='sorted'``, ``sampler='strided'``, no
+radius masks; the training fields (``k_contrast``: the merged self+contrast
+search; ``with_subscene``: the kr = 4^l searches over level 0) as well as
+the eval ones. Every level is stored Morton-sorted (``order0`` maps the
+caller's level-0 rows to sorted rows), each level is a strided row pick of
+the previous one, and every search is a tile-window search (ops/knn.py), so
+each neighbour index has a window-relative twin for the tile gathers
+(ops/tile_gather.py).
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from .tile_gather import cross_window_gather, cross_window_starts, tile_window_g
 @dataclasses.dataclass(frozen=True)
 class PyramidSpec:
     """Static description of the pyramid; field names and defaults as in the
-    JAX PyramidSpec (only the sorted + strided eval path is built)."""
+    JAX PyramidSpec (only the sorted + strided path is built, and the
+    contrast search shares the self search's tile and window)."""
 
     strides: Tuple[int, ...] = (1, 4, 4, 4, 4)
     k_self: Tuple[int, ...] = (8, 16, 16, 16, 16)
@@ -43,6 +46,11 @@ class PyramidSpec:
     def num_levels(self) -> int:
         return len(self.strides)
 
+    def subscene_k(self, level: int) -> int:
+        """kr of the sub-scene labels: the product of the strides up to
+        ``level``."""
+        return int(np.prod(self.strides[1: level + 1], dtype=np.int64))
+
 
 @dataclasses.dataclass
 class Pyramid:
@@ -50,7 +58,9 @@ class Pyramid:
     field names and meanings of the JAX Pyramid. Neighbour and sample
     indices are int32 (``order0`` int64); ``*_local`` are window-relative
     twins with shadow tile·width, and ``*_meta`` the matching (tile, width,
-    window)."""
+    window). ``contrast_idx`` (window-relative, self excluded, with
+    ``contrast_local`` = (tile, width)) and ``subscene_idx`` (global level-0
+    rows) are None per level unless the spec asks for them."""
 
     points: Tuple
     sample_idx: Tuple
@@ -69,6 +79,9 @@ class Pyramid:
     down_meta: Tuple
     up_meta: Tuple
     near0_meta: Tuple
+    contrast_idx: Tuple
+    contrast_local: Tuple
+    subscene_idx: Tuple
 
 
 def strided_pick(n_prev: int, m: int) -> np.ndarray:
@@ -89,8 +102,8 @@ def strided_pick(n_prev: int, m: int) -> np.ndarray:
 def _check_spec(spec: PyramidSpec):
     if spec.layout != "sorted" or spec.sampler != "strided":
         raise ValueError("only layout='sorted', sampler='strided' is ported")
-    if spec.k_contrast is not None or spec.with_subscene:
-        raise ValueError("contrast and sub-scene searches are not ported")
+    if spec.k_contrast is not None and len(spec.k_contrast) != spec.num_levels:
+        raise ValueError(f"k_contrast {spec.k_contrast} needs {spec.num_levels} levels")
 
 
 def _tile(spec: PyramidSpec, *sizes: int) -> int:
@@ -113,6 +126,34 @@ def _cross(spec, query, support, k):
     return idx, d2, (t, width, spec.self_window), local.to(torch.int32)
 
 
+def _merged_self_contrast(spec, p, level, tile):
+    """One window search of top-max(k_self, k_contrast) serves both the
+    backbone and the CBL (JAX ``_merged_self_contrast``): self_idx is its
+    first k_self slots with slot 0 forced to the query itself, contrast_idx
+    its first k_contrast slots with the self entry dropped (the first
+    k_contrast − 1 when self is not among them). → (self_idx, width,
+    contrast_idx), window-relative."""
+    b, m, _ = p.shape
+    ks, kc = spec.k_self[level], spec.k_contrast[level]
+    _, li, width = tile_self_knn(
+        p, max(ks, kc), tile=tile, window=spec.self_window,
+        exclude_self=False, ensure_self=False, assume_sorted=True,
+    )
+    starts = cross_window_starts(m // tile, m // tile, width, spec.self_window)
+    self_pos = torch.as_tensor(
+        np.arange(m) - np.repeat(starts * tile, tile), dtype=torch.int32,
+        device=p.device,
+    )[None, :, None]
+    s_idx = torch.cat([self_pos.expand(b, m, 1), li[..., 1:ks]], -1)
+    is_self = li[..., :kc] == self_pos
+    slot = torch.where(
+        is_self.any(-1), is_self.to(torch.int32).argmax(-1), kc
+    )[..., None]
+    j = torch.arange(kc - 1, device=p.device)
+    c_idx = torch.where(j < slot, li[..., : kc - 1], li[..., 1:kc])
+    return s_idx.to(torch.int32), width, c_idx.to(torch.int32)
+
+
 def _masked_rel(nb, p_query, li, shadow):
     valid = (li < shadow)[..., None]
     return torch.where(valid, nb - p_query[:, :, None, :], 0.0)
@@ -120,21 +161,27 @@ def _masked_rel(nb, p_query, li, shadow):
 
 @torch.no_grad()
 def build_pyramid(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
-    """Build the eval pyramid from level-0 points [B, N, 3] (f32, on the
-    device the searches should run on)."""
+    """Build the pyramid from level-0 points [B, N, 3] (f32, on the device
+    the searches should run on)."""
     _check_spec(spec)
     b, n, _ = points.shape
     dev = points.device
     order0 = serialized_order(points)
     points = batch_gather(points.float(), order0)
 
+    contrast_idx = [None] * spec.num_levels
+
     def level_self(p, level):
         t = _tile(spec, p.shape[1])
-        _, li, width = tile_self_knn(
-            p, spec.k_self[level], tile=t, window=spec.self_window,
-            exclude_self=False, ensure_self=True, assume_sorted=True,
-        )
-        return li, (t, width)
+        if spec.k_contrast is None:
+            _, li, width = tile_self_knn(
+                p, spec.k_self[level], tile=t, window=spec.self_window,
+                exclude_self=False, ensure_self=True, assume_sorted=True,
+            )
+            return li, (t, width)
+        s_idx, width, c_idx = _merged_self_contrast(spec, p, level, t)
+        contrast_idx[level] = c_idx
+        return s_idx, (t, width)
 
     pts = [points]
     ident = torch.arange(n, device=dev, dtype=torch.int32)[None].expand(b, n)
@@ -174,6 +221,11 @@ def build_pyramid(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
         near0_meta.append(n_meta)
         near0_local.append(n_loc[..., 0])
 
+    subscene_idx = [None] * spec.num_levels
+    if spec.with_subscene:
+        for l in range(1, spec.num_levels):
+            subscene_idx[l] = _cross(spec, pts[l], points, spec.subscene_k(l))[0]
+
     self_rel = []
     for l in range(spec.num_levels):
         t, width = self_local[l]
@@ -205,4 +257,9 @@ def build_pyramid(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
         down_meta=tuple(down_meta),
         up_meta=tuple(up_meta),
         near0_meta=tuple(near0_meta),
+        contrast_idx=tuple(contrast_idx),
+        contrast_local=tuple(
+            None if c is None else self_local[l] for l, c in enumerate(contrast_idx)
+        ),
+        subscene_idx=tuple(subscene_idx),
     )

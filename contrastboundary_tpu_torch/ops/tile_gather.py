@@ -1,7 +1,9 @@
-"""Tile-window gathers in Morton-sorted space (counterpart of the forward of
+"""Tile-window gathers in Morton-sorted space (counterpart of
 contrastboundary_tpu/ops/tile_gather.py): out[b, q, k] = x[b, starts[q //
 tile]·tile + idx] for a window-relative idx < W, zeros for the shadow index
-W. Both geometries run ops/cuda/tile_gather.py::window_gather."""
+W. Both geometries are one autograd Function: its forward is
+ops/cuda/tile_gather.py::window_gather, its backward ::window_gather_bwd
+(each slot's gradient row added onto its support row)."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,9 +25,24 @@ def cross_window_starts(gq: int, gs: int, width: int, window: int) -> np.ndarray
     return window_start_tiles(gq, gs, width, window)
 
 
+class _WindowGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, local_idx, starts, tile, width):
+        ctx.save_for_backward(local_idx, starts)
+        ctx.geometry = (tile, width, x.shape[1])
+        return _tg.window_gather(x, local_idx, starts, tile, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        local_idx, starts = ctx.saved_tensors
+        tile, width, n_support = ctx.geometry
+        dx = _tg.window_gather_bwd(g, local_idx, starts, tile, width, n_support)
+        return dx, None, None, None, None
+
+
 def _gather(x, local_idx, starts, tile, width):
     st = torch.as_tensor(starts, dtype=torch.int32, device=x.device)
-    return _tg.window_gather(x, local_idx, st, tile, width)
+    return _WindowGather.apply(x, local_idx, st, tile, width)
 
 
 def tile_window_gather(x: torch.Tensor, local_idx: torch.Tensor, tile: int,

@@ -55,3 +55,16 @@ def test_missing_nvcc_raises(tmp_path, build_root, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
     assert not build_root.exists()
+
+
+def test_every_source_is_built_and_every_entry_is_bound():
+    """The one nvcc call covers every .cu file, and each C entry point a
+    wrapper calls has its ctypes signature."""
+    assert sorted(build.SOURCES) == sorted(p.name for p in build.CSRC.glob("*.cu"))
+    text = "".join((build.CSRC / s).read_text() for s in build.SOURCES)
+    for name in build.SIGNATURES:
+        assert f'extern "C" int {name}(' in text, name
+    assert set(build.SIGNATURES) == {
+        "cbl_win_topk", "cbl_window_gather", "cbl_window_gather_bwd",
+        "cbl_stats_fwd", "cbl_stats_bwd",
+    }

@@ -84,3 +84,43 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     meta = torch.empty(1, 64, 3, device="meta")
     with pytest.raises(ValueError):
         win_topk.window_topk(meta, meta, 4, tile=16, width=3, window=1)
+
+
+def test_train_kernel_wrappers_take_the_plain_version_only_on_cpu():
+    from contrastboundary_tpu_torch.ops.cuda import cbl_dense, tile_gather
+
+    counts = lambda: (tile_gather.bwd_launches, cbl_dense.fwd_launches, cbl_dense.bwd_launches)
+    before = counts()
+    li = torch.zeros(1, 64, 2, dtype=torch.int32)
+    starts = torch.zeros(4, dtype=torch.int32)
+    tile_gather.window_gather_bwd(torch.rand(1, 64, 2, 8), li, starts, 16, 3, 64)
+    feats, meta = torch.rand(1, 64, 32), torch.zeros(1, 64, 8)
+    cbl_dense.cbl_stats_fwd(feats, meta, li, 1.0, 16, 3, 1)
+    cbl_dense.cbl_stats_bwd(feats, meta, li, torch.rand(1, 64, 8), 1.0, 16, 3, 1)
+    assert counts() == before  # plain: no launch
+    on_meta = lambda *shape: torch.empty(*shape, device="meta")
+    with pytest.raises(ValueError):
+        tile_gather.window_gather_bwd(on_meta(1, 64, 2, 8), li, starts, 16, 3, 64)
+    with pytest.raises(ValueError):
+        cbl_dense.cbl_stats_fwd(on_meta(1, 64, 32), meta, li, 1.0, 16, 3, 1)
+    with pytest.raises(ValueError):
+        cbl_dense.cbl_stats_bwd(on_meta(1, 64, 32), meta, li, torch.rand(1, 64, 8), 1.0, 16, 3, 1)
+
+
+def test_train_entry_point_needs_cuda_unless_cpu(monkeypatch):
+    from contrastboundary_tpu_torch.models import PointTransformerSeg
+    from contrastboundary_tpu_torch.ops.pyramid import PyramidSpec
+    from contrastboundary_tpu_torch.train import TrainStepConfig, make_optimizer, make_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = PointTransformerSeg(planes=(16,) * 5, blocks=(1,) * 5)
+    cfg = TrainStepConfig(num_classes=13, spec=PyramidSpec(k_contrast=(36, 24, 24, 24, 24), with_subscene=True))
+    opt = make_optimizer(model.parameters(), 0.05)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(model, cfg, opt)
+    metrics = make_train_step(model, cfg, opt, device="cpu")({
+        "points": np.random.RandomState(0).rand(1, 512, 3).astype(np.float32),
+        "features": np.random.RandomState(1).rand(1, 512, 3).astype(np.float32),
+        "labels": np.zeros((1, 512), np.int32),
+    })
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["confusion"].sum()) == 512
