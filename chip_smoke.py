@@ -12,13 +12,16 @@ is not 0:
            versions on the card, at every geometry of a B=2 x N=65536
            request: integer-grid clouds with duplicated rows (exact) and
            synthetic crops (values 1e-5, index disagreement <= 1e-4 of
-           slots, which allows for near-ties).
+           slots, which allows for near-ties); and window top-k where no
+           path takes it (k > W in the self and cross geometries,
+           exclude_self), exact on the integer grid.
 3. serve   the trained flagship (full width, float32) on B=2 x N=65536
            crops of synthetic val room 0: one request with the launch counts
-           reset just before and read just after (both must be > 0), three
-           timed requests, and one with both kernels swapped for their plain
-           versions (probs within 1e-3, argmax agreeing on >= 99.9% of
-           points); crop overall accuracy must be >= 0.5.
+           reset just before and read just after (both must be > 0) and the
+           running statistics untouched, three timed requests, and one with
+           both kernels swapped for their plain versions (probs within 1e-3,
+           argmax agreeing on >= 99.9% of points); crop overall accuracy
+           must be >= 0.5.
 4. timing  every kernel launch of that request replayed: kernel, plain
            version and one PyTorch library call, each with L2 flushed, beside
            its bound (bytes at 3.35 TB/s or FP32 operations at 67 TFLOP/s,
@@ -27,7 +30,15 @@ is not 0:
            and one torch.profiler trace: device time by kernel and the
            device's busy share of the request.
 6. voting  VotingEvaluator over room 0 for three requests.
-7. train   the flagship train step (train/trainer.py::make_train_step: the
+7. stale-serve the same checkpoint in a bn_mode='stale' model, whose 18
+           attention layers run the fused attention kernel: one request with
+           the counts reset (pt_attn_fwd exactly 18), the running statistics
+           untouched, three timed requests beside phase serve's median,
+           probs against the plain versions' and against phase serve's
+           batch-BN probs (eval-mode BN is the same function: 1e-3, argmax
+           >= 99.9%), crop OA >= 0.5, three voting requests; each
+           pt_attn_fwd launch timed.
+8. train   the flagship train step (train/trainer.py::make_train_step: the
            training pyramid, the model in train mode, CE + 5-stage CBL,
            backward, SGD lr 0.05) from the checkpoint on B=2 x N=65536 crops
            of synthetic train rooms: one step with every launch count reset
@@ -35,22 +46,35 @@ is not 0:
            searches wider than 2048 rows, plain PyTorch by the reference's
            width rule, are counted apart); one step with the kernels and one
            with the plain versions from the same weights and batch (loss rel
-           <= 1e-4, global gradient norm rel <= 1e-3); five steps on that
-           batch (every loss finite, the last below the first), the median
-           of the three warm ones on the host clock, points/s and
-           max_memory_allocated; one step under torch.profiler.
-8. train-kernels every kernel call of that step against its plain version:
+           <= 1e-4, global gradient norm rel <= 1e-3, running statistics rel
+           <= 1e-4); five steps on that batch (every loss finite, the last
+           below the first), the median of the three warm ones on the host
+           clock, points/s and max_memory_allocated; one step under
+           torch.profiler.
+9. train-kernels every kernel call of that step against its plain version:
            window_topk and window_gather as in phase 2, window_gather_bwd
            max-abs <= 1e-5 of the output's scale (atomics reorder the sums)
            and exact on integer cotangents, cbl_stats_fwd counts exact and
            sums rel <= 1e-5, cbl_stats_bwd max-abs <= 1e-4 of the output's
            scale; the same on one step over integer-grid clouds. Then each
            call timed as in phase 4 (5 runs each).
+10. stale-train phase 8 with bn_mode='stale': pt_attn_fwd and pt_attn_bwd
+           exactly 18 launches each, window_gather and window_gather_bwd 18
+           fewer than in phase 8 (the attention layers' gathers are inside
+           the kernel), the same kernel-vs-plain, five-step, timing, memory
+           and profile checks.
+11. stale-kernels every pt_attn call of that step against its plain version
+           (out, both statistic pairs, dq, dkv and each of the 12 parameter
+           gradients within 1e-4 of scale), and of one stale step on
+           integer-grid clouds, whose backward calls also give dkv exactly on
+           integer cotangents (with W4 = 0, so that the softmax weights are
+           exact); then each call timed as in phase 4 (5 runs each).
 
 It prints the card's name and power limit, one JSON line of per-kernel
-numbers (times are sums over the launches of one run of a path: the two
-serving kernels' numbers are per serving request, with those of one train
-step under "train"; the three training kernels' numbers are per train step),
+numbers (times are sums over the launches of one run of a path: the numbers
+of the kernels a request runs, window_topk, window_gather and pt_attn_fwd,
+are per serving request, with those of one train step under "train"; the
+training kernels' numbers are per train step),
 and as its last line {"ok": true, "device": {...}}. Without CUDA it exits with 2
 before doing anything.
 """
@@ -80,6 +104,7 @@ from contrastboundary_tpu_torch.models import (
 from contrastboundary_tpu_torch.losses import ContrastConfig
 from contrastboundary_tpu_torch.ops import PyramidSpec, build_pyramid, knn
 from contrastboundary_tpu_torch.ops.cuda import cbl_dense as cd
+from contrastboundary_tpu_torch.ops.cuda import pt_attn as pa
 from contrastboundary_tpu_torch.ops.cuda import tile_gather as tg
 from contrastboundary_tpu_torch.ops.cuda import win_topk as wt
 from contrastboundary_tpu_torch.train import TrainStepConfig, make_optimizer, make_train_step
@@ -110,6 +135,14 @@ KERNELS = {
         source="contrastboundary_tpu_torch/csrc/cbl_dense.cu",
         replaces="contrastboundary_tpu/ops/pallas/cbl_dense.py:272",
     ),
+    "pt_attn_fwd": dict(
+        source="contrastboundary_tpu_torch/csrc/pt_attn.cu",
+        replaces="contrastboundary_tpu/ops/pallas/pt_attn.py:406",
+    ),
+    "pt_attn_bwd": dict(
+        source="contrastboundary_tpu_torch/csrc/pt_attn.cu",
+        replaces="contrastboundary_tpu/ops/pallas/pt_attn.py:830",
+    ),
 }
 # each kernel's wrapper (module, attribute) and its plain version
 WRAPPERS = {
@@ -118,8 +151,17 @@ WRAPPERS = {
     "window_gather_bwd": (tg, "window_gather_bwd", tg.window_gather_bwd_plain),
     "cbl_stats_fwd": (cd, "cbl_stats_fwd", cd.cbl_stats_fwd_plain),
     "cbl_stats_bwd": (cd, "cbl_stats_bwd", cd.cbl_stats_bwd_plain),
+    "pt_attn_fwd": (pa, "pt_attn_fwd", pa.pt_attn_plain),
+    "pt_attn_bwd": (pa, "pt_attn_bwd", pa.pt_attn_bwd_plain),
 }
 SERVE_KERNELS = ("window_topk", "window_gather")
+TRAIN_KERNELS = ("window_topk", "window_gather", "window_gather_bwd", "cbl_stats_fwd",
+                 "cbl_stats_bwd")
+STALE_SERVE_KERNELS = SERVE_KERNELS + ("pt_attn_fwd",)
+STALE_KERNELS = tuple(WRAPPERS)
+# attention layers of the flagship: 13 encoder blocks (blocks (2, 3, 4, 6, 3)
+# less one transition a level) and 5 decoder blocks
+ATTENTION_LAYERS = 18
 TRAIN_SPEC = PyramidSpec(k_contrast=(36, 24, 24, 24, 24), with_subscene=True)
 TRAIN_LR = 0.05
 
@@ -144,16 +186,26 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def frozen(x):
+    """A copy of a call's tensor arguments (the attention layer passes views
+    of weights that the optimizer then updates in place)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(frozen(v) for v in x)
+    return x
+
+
 @contextmanager
 def recording():
-    """Record every call (arguments and the kernel's outputs) of the five
-    kernel wrappers made through the ops modules while active."""
+    """Record every call (arguments as they were and the kernel's outputs)
+    of the kernel wrappers made through the ops modules while active."""
     calls = {name: [] for name in WRAPPERS}
     with ExitStack() as stack:
         for name, (mod, attr, _) in WRAPPERS.items():
             def rec(*args, _fn=getattr(mod, attr), _name=name, **kw):
                 out = _fn(*args, **kw)
-                calls[_name].append((args, kw, out))
+                calls[_name].append((frozen(args), kw, out))
                 return out
             stack.enter_context(mock.patch.object(mod, attr, rec))
         yield calls
@@ -171,13 +223,15 @@ def plain_kernels():
 def reset_counts():
     wt.launches = tg.launches = tg.bwd_launches = 0
     cd.fwd_launches = cd.bwd_launches = 0
+    pa.fwd_launches = pa.bwd_launches = 0
     knn.wide_calls = 0
 
 
 def read_counts() -> dict:
     return {"window_topk": wt.launches, "window_gather": tg.launches,
             "window_gather_bwd": tg.bwd_launches, "cbl_stats_fwd": cd.fwd_launches,
-            "cbl_stats_bwd": cd.bwd_launches}
+            "cbl_stats_bwd": cd.bwd_launches, "pt_attn_fwd": pa.fwd_launches,
+            "pt_attn_bwd": pa.bwd_launches}
 
 
 def grid_cloud(rng, b, n, side=64):
@@ -244,7 +298,55 @@ def compare_stats_fwd(call) -> float:
     return err
 
 
+def compare_pt_attn_fwd(call) -> float:
+    """out and both statistic pairs within 1e-4 of their scale (the kernel
+    sums over slots and blocks in another order, and rounds exp otherwise)."""
+    args, _, (out, s1, s2) = call
+    r_out, r_s1, r_s2 = pa.pt_attn_plain(*args)
+    return max(compare_scaled(f"pt_attn_fwd {what}", got, ref, 1e-4)
+               for what, got, ref in (("out", out, r_out), ("s1", s1, r_s1), ("s2", s2, r_s2)))
+
+
+PT_GRADS = ("dq", "dkv", "dA1", "dc1", "dW2", "db2", "dg1", "dh1", "dW3", "db3", "dg2", "dh2",
+            "dW4", "db4")
+
+
+def compare_pt_attn_bwd(call) -> float:
+    """dq, dkv and the 12 parameter gradients within 1e-4 of their scale.
+    db4 is zero in exact arithmetic (b4 shifts every slot's score alike,
+    which a softmax ignores), so both values are rounding noise: it is held
+    to 1e-4 of dW4's scale."""
+    args, _, (dq, dkv, grads) = call
+    r_dq, r_dkv, r_grads = pa.pt_attn_bwd_plain(*args)
+    got, ref = (dq, dkv, *grads), (r_dq, r_dkv, *r_grads)
+    err = 0.0
+    for name, a, b in zip(PT_GRADS, got, ref):
+        scale_of = ref[PT_GRADS.index("dW4")] if name == "db4" else b
+        e = float((a - b).abs().max())
+        require(e <= 1e-4 * float(scale_of.abs().max()),
+                f"pt_attn_bwd {name} {tuple(a.shape)}: max|d|={e:.3g}, scale {float(scale_of.abs().max()):.3g}")
+        err = max(err, e)
+    return err
+
+
+def check_pt_attn_bwd_exact(call):
+    """dkv exact on integer-valued cotangents: with W4 = 0 every score is
+    b4, so att = 1/K and d(v + pe) = g/K are exact dyadic numbers, and the
+    atomics' sums of them are exact in any order (dk is then exactly 0)."""
+    (q, kv, rel, li, starts, tile, width, params, g), _, _ = call
+    ps = list(params)
+    ps[10] = torch.zeros_like(ps[10])
+    g_int = torch.randint_like(g, -3, 4)
+    dkv = pa.pt_attn_bwd(q, kv, rel, li, starts, tile, width, ps, g_int)[1]
+    ref = pa.pt_attn_bwd_plain(q, kv, rel, li, starts, tile, width, ps, g_int)[1]
+    require(torch.equal(dkv, ref), f"pt_attn_bwd dkv {tuple(dkv.shape)} not exact on integer cotangents")
+
+
 def compare_call(name, call, exact_topk=False) -> float:
+    if name == "pt_attn_fwd":
+        return compare_pt_attn_fwd(call)
+    if name == "pt_attn_bwd":
+        return compare_pt_attn_bwd(call)
     if name == "window_topk":
         return compare_topk(call, exact_topk)
     if name == "window_gather":
@@ -274,6 +376,28 @@ def check_kernels(dev, points_sets) -> float:
     return err
 
 
+def check_topk_modes(dev, pts) -> float:
+    """window_topk where no eval or train geometry takes it (the train and
+    serve paths use the plain and ensure_self modes with k <= W): k > W in
+    the self and cross geometries, and exclude_self with k <= W and k > W,
+    on an integer-grid cloud, held to exact equality."""
+    p = torch.as_tensor(pts, device=dev)
+    small = p[:, :2048].contiguous()
+    cases = (
+        ("exclude_self", p, p, 16, dict(tile=256, width=3, window=1)),
+        ("plain", small, small, 12, dict(tile=8, width=1, window=0)),
+        ("exclude_self", small, small, 12, dict(tile=8, width=1, window=0)),
+        ("plain", p[:, ::4].contiguous(), p, 300, dict(tile=256, width=1, window=0)),
+    )
+    for mode, query, support, k, geo in cases:
+        kw = dict(geo, mode=mode)
+        out = wt.window_topk(query, support, k, **kw)
+        compare_topk(((query, support, k), kw, out), exact=True)
+        print(f"  window_topk mode={mode} k={k} W={geo['tile'] * geo['width']} "
+              f"M={query.shape[1]} Ns={support.shape[1]}: equal to the plain version", flush=True)
+    return 0.0
+
+
 def random_flax_tree(model, seed: int) -> dict:
     """Seeded random weights as a flax tree for the converter (used only when
     the checkpoint file is absent)."""
@@ -299,8 +423,8 @@ def random_flax_tree(model, seed: int) -> dict:
     return tree
 
 
-def load_model():
-    model = PointTransformerSeg(num_classes=NUM_CLASSES)
+def load_model(bn_mode="batch"):
+    model = PointTransformerSeg(num_classes=NUM_CLASSES, bn_mode=bn_mode)
     if CKPT.exists():
         return load_jax_variables(model, load_checkpoint(str(CKPT))), True
     print(f"checkpoint {CKPT} is absent: seeded random weights, no accuracy floor",
@@ -393,6 +517,27 @@ def call_costs(name, call):
         n_bytes = 4 * (g.numel() + li.numel() + starts.numel() + 2 * out.numel())
         shape = dict(g=list(g.shape), Ns=ns, W=tile * width)
         return kern, plain, gather_bwd_library_call(*args), n_bytes, float(g.numel()), shape
+    if name in ("pt_attn_fwd", "pt_attn_bwd"):
+        # inputs read once, outputs written once; FP32 operations per slot:
+        # PE tower 18 + 6C, w_pre and the bn1 affine 4C, relu C, fc1 2C·Cs,
+        # bn2 affine and relu 3Cs, fc2 2Cs², statistics 4C, softmax and the
+        # weighted sum ~6C; the backward recomputes the forward and about
+        # doubles it (a gradient for each operand of each product): 3×
+        q, kv, rel, li, starts, tile, width, params = args[:8]
+        b, m, c = q.shape
+        k, cs = li.shape[-1], params[6].shape[-1]
+        per_slot = 18 + 21 * c + 2 * c * cs + 3 * cs + 2 * cs * cs
+        numel = lambda ts: sum(t.numel() for t in ts)
+        n_bytes = 4 * (numel((q, kv, rel, li, starts)) + numel(params))
+        if name == "pt_attn_fwd":
+            n_bytes += 4 * numel(out)
+            n_ops = b * m * k * per_slot
+        else:
+            dq, dkv, grads = out
+            n_bytes += 4 * (args[8].numel() + dq.numel() + dkv.numel() + numel(grads))
+            n_ops = 3 * b * m * k * per_slot
+        shape = dict(B=b, M=m, C=c, K=k, W=tile * width)
+        return kern, plain, None, n_bytes, float(n_ops), shape
     # stats: inputs read once, outputs written once (dx read and written by
     # the backward's atomics); per valid listed slot about 4C + 12 FP32
     # operations forward and 8C + 16 backward
@@ -487,9 +632,15 @@ def grad_norm(model) -> float:
                                 for p in model.parameters() if p.grad is not None)))
 
 
-def run_train(dev) -> dict:
-    """Phase 7: the flagship train step at B x N from the checkpoint."""
-    model, trained = load_model()
+def buffers(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.named_buffers()}
+
+
+def run_train(dev, bn_mode="batch") -> dict:
+    """Phases 8 and 10: the flagship train step at B x N from the
+    checkpoint, with flax batch BN or stale BN."""
+    kernels = TRAIN_KERNELS if bn_mode == "batch" else STALE_KERNELS
+    model, trained = load_model(bn_mode)
     opt = make_optimizer(model.parameters(), TRAIN_LR)
     cfg = TrainStepConfig(num_classes=NUM_CLASSES, spec=TRAIN_SPEC, contrast=ContrastConfig())
     step = make_train_step(model, cfg, opt, device=dev)
@@ -511,9 +662,10 @@ def run_train(dev) -> dict:
         print("  step: " + ", ".join(f"{k} {float(v):.6f}" for k, v in m.items()
                                       if k != "confusion"), flush=True)
     med = statistics.median(secs[2:])
-    print(f"train step median of 3 warm steps {med * 1e3:.3f} ms over "
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train step ({bn_mode} BN) median of 3 warm steps {med * 1e3:.3f} ms over "
           f"{[round(x * 1e3, 3) for x in secs]}, {B * N / med:.1f} points/s, "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B", flush=True)
+          f"max_memory_allocated {peak} B", flush=True)
     require(all(np.isfinite(losses)), f"losses {losses}")
     require(losses[-1] < losses[0], f"5 steps on one batch did not lower the loss: {losses}")
     busy_ms = profile_request(step, batch, what="train step")
@@ -536,29 +688,34 @@ def run_train(dev) -> dict:
         m = step(batch)
         torch.cuda.synchronize()
     launches, wide = read_counts(), knn.wide_calls
-    print(f"launches in one train step: {launches}; wide-window searches "
+    launches = {k: launches[k] for k in kernels}
+    print(f"launches in one train step ({bn_mode} BN): {launches}; wide-window searches "
           f"(plain PyTorch): {wide}", flush=True)
     require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
     for args, kw in wide_args:
         t = time_ms(lambda: wide_fn(*args, **kw), reps=3)
         print(f"  wide-window search k={args[2]} M={args[0].shape[1]} "
               f"W={kw['width'] * kw['tile']}: {t:.4f} ms", flush=True)
-    loss_k, gn_k = float(m["loss"]), grad_norm(model)
+    loss_k, gn_k, stats_k = float(m["loss"]), grad_norm(model), buffers(model)
     require(np.isfinite(loss_k) and np.isfinite(gn_k), f"loss {loss_k}, grad norm {gn_k}")
     restore(model, opt, snap0)
     with plain_kernels():
         m = step(batch)
-    loss_p, gn_p = float(m["loss"]), grad_norm(model)
+    loss_p, gn_p, stats_p = float(m["loss"]), grad_norm(model), buffers(model)
+    stats_rel = max(float((stats_k[n] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                    for n, v in stats_p.items())
     print(f"kernels vs plain, same weights and batch: loss {loss_k:.7f} vs {loss_p:.7f} "
           f"(rel {abs(loss_k - loss_p) / abs(loss_p):.3g}), gradient norm {gn_k:.7f} vs "
-          f"{gn_p:.7f} (rel {abs(gn_k - gn_p) / gn_p:.3g})", flush=True)
+          f"{gn_p:.7f} (rel {abs(gn_k - gn_p) / gn_p:.3g}), running statistics rel "
+          f"{stats_rel:.3g}", flush=True)
     require(abs(loss_k - loss_p) <= 1e-4 * abs(loss_p), "train losses disagree")
     require(abs(gn_k - gn_p) <= 1e-3 * gn_p, "gradient norms disagree")
-    return dict(calls=calls, launches=launches, model=model, step=step)
+    require(stats_rel <= 1e-4, "running statistics disagree")
+    return dict(calls=calls, launches=launches, model=model, step=step, peak=peak)
 
 
 def check_train_kernels(dev, train) -> list:
-    """Phase 8: every kernel call of one train step on integer-grid clouds
+    """Phase 9: every kernel call of one train step on integer-grid clouds
     (exact top-k) against the plain versions; then every call of the
     recorded step compared and timed."""
     rng = np.random.default_rng(2)
@@ -575,7 +732,103 @@ def check_train_kernels(dev, train) -> list:
                 max_err[name] = max(max_err[name], compare_call(name, c, exact_topk=True))
             print(f"  integer grid: {len(cs)} {name} calls agree", flush=True)
     del calls
-    return time_calls(train["calls"], dev, train["launches"], max_err, tuple(WRAPPERS), reps=5)
+    return time_calls(train["calls"], dev, train["launches"], max_err, TRAIN_KERNELS, reps=5)
+
+
+def check_stale_kernels(dev, stale) -> list:
+    """Phase 11: every pt_attn call of the recorded stale step against the
+    plain versions; one stale step on integer-grid clouds, each of its
+    backward calls also exact on integer cotangents; then each call of the
+    recorded step timed as in phase 4."""
+    max_err = {name: 0.0 for name in ("pt_attn_fwd", "pt_attn_bwd")}
+    rng = np.random.default_rng(3)
+    grid = {"points": grid_cloud(rng, B, N),
+            "features": rng.random((B, N, 3)).astype(np.float32),
+            "labels": rng.integers(0, NUM_CLASSES, (B, N)).astype(np.int32)}
+    with recording() as calls:
+        stale["step"](grid)
+        torch.cuda.synchronize()
+    with torch.no_grad():
+        for name in max_err:
+            for c in calls[name]:
+                max_err[name] = max(max_err[name], compare_call(name, c))
+        for c in calls["pt_attn_bwd"]:
+            check_pt_attn_bwd_exact(c)
+    print(f"  integer grid: {len(calls['pt_attn_fwd'])} pt_attn_fwd and "
+          f"{len(calls['pt_attn_bwd'])} pt_attn_bwd calls agree, dkv exact on integer "
+          f"cotangents", flush=True)
+    del calls
+    return time_calls(stale["calls"], dev, stale["launches"], max_err, tuple(max_err), reps=5)
+
+
+def serve(dev, batch, bn_mode="batch", ref_probs=None) -> dict:
+    """Phases 3 and 7: the checkpoint served with flax batch BN or stale BN
+    on one B x N batch: one request with the launch counts reset just before
+    and read just after (each kernel of the path > 0) and its calls
+    recorded, the running statistics untouched, three timed requests, probs
+    against the plain versions' (and against ``ref_probs`` where given:
+    eval-mode BN is the same function in both modes), crop OA."""
+    kernels = SERVE_KERNELS if bn_mode == "batch" else STALE_SERVE_KERNELS
+    model, trained = load_model(bn_mode)
+    step = make_eval_step(model, PyramidSpec(), device=dev, num_classes=NUM_CLASSES)
+
+    def predict(bt):
+        probs, _ = step(bt)
+        return probs.cpu().numpy()
+
+    before = buffers(model)
+    predict(batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    with recording() as calls:
+        probs, conf = step(batch)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if k in kernels}
+    print(f"launches in one request ({bn_mode} BN): {launches}", flush=True)
+    require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    require(bool(torch.isfinite(probs).all()) and probs.shape == (B, N, NUM_CLASSES),
+            f"probs {tuple(probs.shape)} not finite")
+    require(all(torch.equal(v, before[k]) for k, v in buffers(model).items()),
+            "a request changed the running statistics")
+
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        predict(batch)
+        lat.append(time.perf_counter() - t0)
+    med = statistics.median(lat)
+    print(f"request latency ({bn_mode} BN) median {med * 1e3:.3f} ms over "
+          f"{[round(x * 1e3, 3) for x in lat]}, {B * N / med:.1f} points/s, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B", flush=True)
+
+    with plain_kernels():
+        p_plain, _ = step(batch)
+    refs = {"plain versions": p_plain}
+    if ref_probs is not None:
+        refs["batch-BN model"] = ref_probs
+    for what, ref in refs.items():
+        d = float((probs - ref).abs().max())
+        agree = float((probs.argmax(-1) == ref.argmax(-1)).float().mean())
+        print(f"kernels vs {what}: max|dprobs| {d:.3g}, argmax agreement {agree:.6f}", flush=True)
+        require(d <= 1e-3 and agree >= 0.999, f"probs disagree with the {what}")
+    conf = conf.cpu().numpy()
+    oa = float(np.trace(conf) / conf.sum())
+    print(f"crop OA {oa:.4f} ({'trained' if trained else 'random'} weights)", flush=True)
+    if trained:
+        require(oa >= 0.5, f"crop OA {oa:.4f} < 0.5")
+    return dict(step=step, predict=predict, calls=calls, launches=launches, probs=probs, med=med)
+
+
+def voting(predict, what="request") -> None:
+    """Phase 6: VotingEvaluator over room 0 for three requests."""
+    ev = VotingEvaluator(room0(), predict, NUM_CLASSES, N, batch_size=B,
+                         voxel_size=0.04, num_votes=20, seed=0)
+    t0 = time.perf_counter()
+    m = ev.run(max_steps=3)
+    per = (time.perf_counter() - t0) / 3
+    print(f"voting: {per * 1e3:.3f} ms per {what} over 3 requests "
+          f"(sub mIoU so far {m['sub']['mIoU']:.4f})", flush=True)
 
 
 def main() -> int:
@@ -594,57 +847,20 @@ def main() -> int:
         build.library()
         print(f"built {lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.3f} s", flush=True)
 
-    ds = room0()
-    ev_serve = VotingEvaluator(ds, None, NUM_CLASSES, N, batch_size=B, voxel_size=0.04, seed=0)
-    crops, batch = ev_serve.next_batch(np.random.default_rng(0), ev_serve.clouds)
+    ev_serve = VotingEvaluator(room0(), None, NUM_CLASSES, N, batch_size=B, voxel_size=0.04, seed=0)
+    _, batch = ev_serve.next_batch(np.random.default_rng(0), ev_serve.clouds)
+    del ev_serve
 
     with phase("kernels"):
         grid = grid_cloud(np.random.default_rng(1), B, N)
         topk_err = check_kernels(dev, [("integer grid", grid, True),
                                        ("synthetic crop", batch["points"], False)])
+        check_topk_modes(dev, grid)
 
     with phase("serve"):
-        model, trained = load_model()
-        step = make_eval_step(model, PyramidSpec(), device=dev, num_classes=NUM_CLASSES)
-
-        def predict(bt):
-            probs, _ = step(bt)
-            return probs.cpu().numpy()
-
-        predict(batch)  # warm-up
-        torch.cuda.synchronize()
-        reset_counts()
-        with recording() as calls:
-            probs, conf = step(batch)
-            torch.cuda.synchronize()
-        launches = {k: v for k, v in read_counts().items() if k in SERVE_KERNELS}
-        print(f"launches in one request: {launches}", flush=True)
-        require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
-        require(bool(torch.isfinite(probs).all()) and probs.shape == (B, N, NUM_CLASSES),
-                f"probs {tuple(probs.shape)} not finite")
-
-        torch.cuda.reset_peak_memory_stats()
-        lat = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            predict(batch)
-            lat.append(time.perf_counter() - t0)
-        med = statistics.median(lat)
-        print(f"request latency median {med * 1e3:.3f} ms over {[round(x * 1e3, 3) for x in lat]}, "
-              f"{B * N / med:.1f} points/s, max_memory_allocated "
-              f"{torch.cuda.max_memory_allocated()} B", flush=True)
-
-        with plain_kernels():
-            p_plain, _ = step(batch)
-        d = float((probs - p_plain).abs().max())
-        agree = float((probs.argmax(-1) == p_plain.argmax(-1)).float().mean())
-        print(f"kernels vs plain: max|dprobs| {d:.3g}, argmax agreement {agree:.6f}", flush=True)
-        require(d <= 1e-3 and agree >= 0.999, "kernel and plain runs disagree")
-        conf = conf.cpu().numpy()
-        oa = float(np.trace(conf) / conf.sum())
-        print(f"crop OA {oa:.4f} ({'trained' if trained else 'random'} weights)", flush=True)
-        if trained:
-            require(oa >= 0.5, f"crop OA {oa:.4f} < 0.5")
+        served = serve(dev, batch)
+        step, predict, launches = served["step"], served["predict"], served["launches"]
+        calls = served.pop("calls")
 
     with phase("timing"):
         max_err = {"window_topk": topk_err, "window_gather": 0.0}
@@ -659,29 +875,55 @@ def main() -> int:
         profile_request(step, batch)
 
     with phase("voting"):
-        ev = VotingEvaluator(room0(), predict, NUM_CLASSES, N, batch_size=B,
-                             voxel_size=0.04, num_votes=20, seed=0)
-        t0 = time.perf_counter()
-        m = ev.run(max_steps=3)
-        per = (time.perf_counter() - t0) / 3
-        print(f"voting: {per * 1e3:.3f} ms per request over 3 requests "
-              f"(sub mIoU so far {m['sub']['mIoU']:.4f})", flush=True)
+        voting(predict)
 
-    del model, step, ev, ev_serve
+    with phase("stale-serve"):
+        stale_served = serve(dev, batch, "stale", served["probs"])
+        n_fwd = stale_served["launches"]["pt_attn_fwd"]
+        require(n_fwd == ATTENTION_LAYERS, f"pt_attn_fwd: {n_fwd} launches, not {ATTENTION_LAYERS}")
+        print(f"stale request median {stale_served['med'] * 1e3:.3f} ms beside the batch-BN "
+              f"request's {served['med'] * 1e3:.3f} ms", flush=True)
+        voting(stale_served["predict"], "stale request")
+        stale_summary = time_calls(stale_served.pop("calls"), dev, stale_served["launches"],
+                                   {"pt_attn_fwd": 0.0}, ("pt_attn_fwd",))
+    del served, stale_served, step, predict
     torch.cuda.empty_cache()
+
     with phase("train"):
         train = run_train(dev)
 
     with phase("train-kernels"):
-        summary = []
-        for entry in check_train_kernels(dev, train):
-            serve = next((e for e in serve_summary if e["name"] == entry["name"]), None)
-            if serve is None:
-                summary.append(entry)
-            else:
-                summary.append({**serve, "train": {k: entry[k] for k in (
-                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}})
+        train_summary = check_train_kernels(dev, train)
+    batch_launches, batch_peak = train["launches"], train["peak"]
+    del train
+    torch.cuda.empty_cache()
+
+    with phase("stale-train"):
+        stale = run_train(dev, "stale")
+        launches = stale["launches"]
+        for name in ("pt_attn_fwd", "pt_attn_bwd"):
+            require(launches[name] == ATTENTION_LAYERS,
+                    f"{name}: {launches[name]} launches, not {ATTENTION_LAYERS}")
+        for name in ("window_gather", "window_gather_bwd"):
+            require(launches[name] == batch_launches[name] - ATTENTION_LAYERS,
+                    f"{name}: {launches[name]} launches under stale BN vs "
+                    f"{batch_launches[name]} under batch BN")
+        print(f"peak memory of the stale step {stale['peak']} B vs the batch step {batch_peak} B",
+              flush=True)
+
+    with phase("stale-kernels"):
+        train_summary += check_stale_kernels(dev, stale)
+
+    summary = []
+    for entry in train_summary:
+        per_request = next(
+            (e for e in serve_summary + stale_summary if e["name"] == entry["name"]), None)
+        if per_request is None:
+            summary.append(entry)
+        else:
+            summary.append({**per_request, "train": {k: entry[k] for k in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}})
 
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     print(f"card: {card_line()}", flush=True)

@@ -20,7 +20,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("win_topk.cu", "tile_gather.cu", "window_gather_bwd.cu", "cbl_dense.cu")
+SOURCES = (
+    "win_topk.cu", "tile_gather.cu", "window_gather_bwd.cu", "cbl_dense.cu", "pt_attn.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -41,6 +43,12 @@ SIGNATURES = {
     # features, meta, li, g_stats, dx, b, m, k, c, tile, width, window, inv_t,
     # stream
     "cbl_stats_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, kv, rel, li, starts, params (12 pointers), out, stats, b, m, k, c,
+    # tile, width, grid, rows per block, stream
+    "cbl_pt_attn_fwd": (_P,) * 8 + (_I,) * 8 + (_P,),
+    # q, kv, rel, li, starts, params, g_out, dq, dkv, dparams, b, m, k, c,
+    # tile, width, grid, rows per block, stream
+    "cbl_pt_attn_bwd": (_P,) * 10 + (_I,) * 8 + (_P,),
 }
 
 

@@ -32,11 +32,12 @@ class MultiHead(nn.Module):
     """Latent tower per up stage (``latent<i>``: Dense+BN+ReLU to
     ``base_fdim``), nearest-point upsample to level 0, concat, linear ``cls``."""
 
-    def __init__(self, planes: Sequence[int], num_classes: int, base_fdim: int = 32):
+    def __init__(self, planes: Sequence[int], num_classes: int, base_fdim: int = 32,
+                 bn_mode: str = "batch"):
         super().__init__()
         self.num_levels = len(planes)
         for i, c in enumerate(planes):
-            self.add_module(f"latent{i}", MLPTower(c, (base_fdim,)))
+            self.add_module(f"latent{i}", MLPTower(c, (base_fdim,), bn_mode))
         self.cls = nn.Linear(base_fdim * len(planes), num_classes)
 
     def forward(self, up_feats, pyramid: Pyramid):
@@ -64,27 +65,30 @@ class PointTransformerSeg(nn.Module):
     def __init__(self, num_classes: int = 13,
                  planes: Sequence[int] = (32, 64, 128, 256, 512),
                  blocks: Sequence[int] = (2, 3, 4, 6, 3),
-                 share_planes: int = 8, base_fdim: int = 32, in_features: int = 3):
+                 share_planes: int = 8, base_fdim: int = 32, in_features: int = 3,
+                 bn_mode: str = "batch"):
         super().__init__()
         self.planes, self.blocks = tuple(planes), tuple(blocks)
         nl = len(planes)
         c_in = 3 + in_features
         for l in range(nl):
             stride = 1 if l == 0 else 4
-            self.add_module(f"enc{l}_down", TransitionDown(c_in, planes[l], stride))
+            self.add_module(f"enc{l}_down", TransitionDown(c_in, planes[l], stride, bn_mode))
             for b in range(1, blocks[l]):
                 self.add_module(
-                    f"enc{l}_blk{b}", PointTransformerBlock(planes[l], share_planes)
+                    f"enc{l}_blk{b}", PointTransformerBlock(planes[l], share_planes, bn_mode)
                 )
             c_in = planes[l]
         self.add_module(
-            f"dec{nl - 1}_up", TransitionUp(planes[-1], planes[-1], is_head=True)
+            f"dec{nl - 1}_up", TransitionUp(planes[-1], planes[-1], True, bn_mode)
         )
-        self.add_module(f"dec{nl - 1}_blk", PointTransformerBlock(planes[-1], share_planes))
+        self.add_module(
+            f"dec{nl - 1}_blk", PointTransformerBlock(planes[-1], share_planes, bn_mode)
+        )
         for l in range(nl - 2, -1, -1):
-            self.add_module(f"dec{l}_up", TransitionUp(planes[l + 1], planes[l]))
-            self.add_module(f"dec{l}_blk", PointTransformerBlock(planes[l], share_planes))
-        self.multihead = MultiHead(planes, num_classes, base_fdim)
+            self.add_module(f"dec{l}_up", TransitionUp(planes[l + 1], planes[l], False, bn_mode))
+            self.add_module(f"dec{l}_blk", PointTransformerBlock(planes[l], share_planes, bn_mode))
+        self.multihead = MultiHead(planes, num_classes, base_fdim, bn_mode)
 
     def forward(self, features: torch.Tensor, pyramid: Pyramid):
         """features [B, N0, in_features] in the pyramid's sorted row order →

@@ -66,5 +66,5 @@ def test_every_source_is_built_and_every_entry_is_bound():
         assert f'extern "C" int {name}(' in text, name
     assert set(build.SIGNATURES) == {
         "cbl_win_topk", "cbl_window_gather", "cbl_window_gather_bwd",
-        "cbl_stats_fwd", "cbl_stats_bwd",
+        "cbl_stats_fwd", "cbl_stats_bwd", "cbl_pt_attn_fwd", "cbl_pt_attn_bwd",
     }
