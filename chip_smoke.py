@@ -70,11 +70,36 @@ is not 0:
            integer cotangents (with W4 = 0, so that the softmax weights are
            exact); then each call timed as in phase 4 (5 runs each).
 
+12. cbl-xla the flagship train step of phase 8 with CBL_DENSE=off and
+           ContrastConfig(impl='xla'), the reference's XLA tile route: the
+           label pack and the latents gathered by window_gather (its backward
+           by window_gather_bwd), exactly 5 more launches of each than phase
+           8 (one a stage) and none of a CBL kernel; kernel vs plain step,
+           five steps, step time, memory and profile as in phase 8.
+13. cbl-pallas the same with impl='pallas', the fused v2 kernel:
+           cbl_tile2_fwd and cbl_tile2_bwd exactly 5 launches each (the
+           backward reads the forward's statistics), the dense CBL kernels
+           none, the gathers as in phase 8; the same step checks; and the CBL
+           losses of one step of phases 8 and 13 against phase 12's on the
+           same weights and batch, each stage within the tolerance the CPU
+           tests state (dense 3e-5, v2 1e-5).
+14. cbl-kernels every v2 call of phase 13's step against its plain version
+           (counts and mask exact, the rest and the gradient 1e-4 of scale)
+           and timed, the level-0 calls also 20 times alone for the spread
+           of a launch's time; v1 (cbl_tile_fwd, cbl_tile_bwd), which no path runs,
+           at that step's level-0 shape ([soft labels | latents], K = 35)
+           against its plain version and against v2 on the same inputs;
+           gather_rows, which no path runs either, equal to x[idx] at x
+           [131072, 128] f32 with 131072 random rows, timed beside
+           torch.index_select.
+
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
 of the kernels a request runs, window_topk, window_gather and pt_attn_fwd,
 are per serving request, with those of one train step under "train"; the
-training kernels' numbers are per train step),
+training kernels' numbers are per train step; v1 and gather_rows, which
+no path runs, have the launches read from phase 13's step, which must be
+0 as in every train run, and their direct calls under "direct_launches"),
 and as its last line {"ok": true, "device": {...}}. Without CUDA it exits with 2
 before doing anything.
 """
@@ -82,6 +107,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -102,8 +128,12 @@ from contrastboundary_tpu_torch.models import (
     PointTransformerSeg, load_checkpoint, load_jax_variables,
 )
 from contrastboundary_tpu_torch.losses import ContrastConfig
+from contrastboundary_tpu_torch.losses import contrast as cbl_losses
 from contrastboundary_tpu_torch.ops import PyramidSpec, build_pyramid, knn
 from contrastboundary_tpu_torch.ops.cuda import cbl_dense as cd
+from contrastboundary_tpu_torch.ops.cuda import cbl_tile as c1
+from contrastboundary_tpu_torch.ops.cuda import cbl_tile2 as c2
+from contrastboundary_tpu_torch.ops.cuda import gather_dma as gd
 from contrastboundary_tpu_torch.ops.cuda import pt_attn as pa
 from contrastboundary_tpu_torch.ops.cuda import tile_gather as tg
 from contrastboundary_tpu_torch.ops.cuda import win_topk as wt
@@ -143,6 +173,26 @@ KERNELS = {
         source="contrastboundary_tpu_torch/csrc/pt_attn.cu",
         replaces="contrastboundary_tpu/ops/pallas/pt_attn.py:830",
     ),
+    "cbl_tile2_fwd": dict(
+        source="contrastboundary_tpu_torch/csrc/cbl_tile2.cu",
+        replaces="contrastboundary_tpu/ops/pallas/cbl_tile2.py:317",
+    ),
+    "cbl_tile2_bwd": dict(
+        source="contrastboundary_tpu_torch/csrc/cbl_tile2.cu",
+        replaces="contrastboundary_tpu/ops/pallas/cbl_tile2.py:350",
+    ),
+    "cbl_tile_fwd": dict(
+        source="contrastboundary_tpu_torch/csrc/cbl_tile2.cu",
+        replaces="contrastboundary_tpu/ops/pallas/cbl_tile.py:233",
+    ),
+    "cbl_tile_bwd": dict(
+        source="contrastboundary_tpu_torch/csrc/cbl_tile2.cu",
+        replaces="contrastboundary_tpu/ops/pallas/cbl_tile.py:259",
+    ),
+    "gather_rows": dict(
+        source="contrastboundary_tpu_torch/csrc/gather_rows.cu",
+        replaces="contrastboundary_tpu/ops/pallas/gather_dma.py:52",
+    ),
 }
 # each kernel's wrapper (module, attribute) and its plain version
 WRAPPERS = {
@@ -153,12 +203,31 @@ WRAPPERS = {
     "cbl_stats_bwd": (cd, "cbl_stats_bwd", cd.cbl_stats_bwd_plain),
     "pt_attn_fwd": (pa, "pt_attn_fwd", pa.pt_attn_plain),
     "pt_attn_bwd": (pa, "pt_attn_bwd", pa.pt_attn_bwd_plain),
+    "cbl_tile2_fwd": (c2, "cbl_tile2_fwd", c2.cbl_tile2_fwd_plain),
+    "cbl_tile2_bwd": (c2, "cbl_tile2_bwd", c2.cbl_tile2_bwd_plain),
+    "cbl_tile_fwd": (c1, "cbl_tile_fwd", c1.cbl_tile_fwd_plain),
+    "cbl_tile_bwd": (c1, "cbl_tile_bwd", c1.cbl_tile_bwd_plain),
+    "gather_rows": (gd, "gather_rows", gd.gather_rows_plain),
 }
 SERVE_KERNELS = ("window_topk", "window_gather")
-TRAIN_KERNELS = ("window_topk", "window_gather", "window_gather_bwd", "cbl_stats_fwd",
-                 "cbl_stats_bwd")
+PATH_KERNELS = ("window_topk", "window_gather", "window_gather_bwd")
+# the train step's CBL routes (losses/contrast.py): CBL_DENSE, ContrastConfig.impl
+# and the CBL kernels each launches (the XLA tile route only adds gathers)
+CBL_ROUTES = {
+    "dense": (None, "xla", ("cbl_stats_fwd", "cbl_stats_bwd")),
+    "xla": ("off", "xla", ()),
+    "pallas": ("off", "pallas", ("cbl_tile2_fwd", "cbl_tile2_bwd")),
+}
+CBL_KERNELS = ("cbl_stats_fwd", "cbl_stats_bwd", "cbl_tile2_fwd", "cbl_tile2_bwd")
+# kernels no path runs (as in the reference): every train run reads 0 of them
+NO_PATH_KERNELS = ("cbl_tile_fwd", "cbl_tile_bwd", "gather_rows")
+TRAIN_KERNELS = PATH_KERNELS + CBL_ROUTES["dense"][2]
 STALE_SERVE_KERNELS = SERVE_KERNELS + ("pt_attn_fwd",)
-STALE_KERNELS = tuple(WRAPPERS)
+STAGES = 5  # CBL stages of the flagship, one launch of each CBL kernel a stage
+# the tolerances the CPU tests state between the routes' stage losses:
+# dense against the XLA tile route (tests/test_torch_cbl.py), v2 against it
+# (tests/test_torch_cbl_routes.py)
+ROUTE_RTOL = {"dense": 3e-5, "pallas": 1e-5}
 # attention layers of the flagship: 13 encoder blocks (blocks (2, 3, 4, 6, 3)
 # less one transition a level) and 5 decoder blocks
 ATTENTION_LAYERS = 18
@@ -177,6 +246,19 @@ def phase(name: str):
     print(f"[phase] {name} ...", flush=True)
     yield
     print(f"[phase] {name} ok {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+@contextmanager
+def cbl_route_env(route: str):
+    """The environment that selects a CBL route: CBL_DENSE as CBL_ROUTES
+    gives it, unset for None."""
+    value = CBL_ROUTES[route][0]
+    with mock.patch.dict(os.environ):
+        if value is None:
+            os.environ.pop("CBL_DENSE", None)
+        else:
+            os.environ["CBL_DENSE"] = value
+        yield
 
 
 def card_line() -> str:
@@ -224,6 +306,8 @@ def reset_counts():
     wt.launches = tg.launches = tg.bwd_launches = 0
     cd.fwd_launches = cd.bwd_launches = 0
     pa.fwd_launches = pa.bwd_launches = 0
+    c2.fwd_launches = c2.bwd_launches = c1.fwd_launches = c1.bwd_launches = 0
+    gd.launches = 0
     knn.wide_calls = 0
 
 
@@ -231,7 +315,9 @@ def read_counts() -> dict:
     return {"window_topk": wt.launches, "window_gather": tg.launches,
             "window_gather_bwd": tg.bwd_launches, "cbl_stats_fwd": cd.fwd_launches,
             "cbl_stats_bwd": cd.bwd_launches, "pt_attn_fwd": pa.fwd_launches,
-            "pt_attn_bwd": pa.bwd_launches}
+            "pt_attn_bwd": pa.bwd_launches, "cbl_tile2_fwd": c2.fwd_launches,
+            "cbl_tile2_bwd": c2.bwd_launches, "cbl_tile_fwd": c1.fwd_launches,
+            "cbl_tile_bwd": c1.bwd_launches, "gather_rows": gd.launches}
 
 
 def grid_cloud(rng, b, n, side=64):
@@ -342,7 +428,38 @@ def check_pt_attn_bwd_exact(call):
     require(torch.equal(dkv, ref), f"pt_attn_bwd dkv {tuple(dkv.shape)} not exact on integer cotangents")
 
 
+def compare_tile_stats(name, call) -> float:
+    """Per-row statistics of a CBL tile kernel call against its plain
+    version: the counts and the mask exact, the max, the sums and loss·mask
+    within 1e-4 of each lane's scale (the distances are rounded in one
+    order on both sides; exp and log may round otherwise on the card)."""
+    args, kw, out = call
+    ref = WRAPPERS[name][2](*args, **kw)
+    exact = [3, 4, 6]
+    require(torch.equal(out[..., exact], ref[..., exact]),
+            f"{name} {tuple(out.shape)}: counts or mask differ")
+    return max(compare_scaled(f"{name} lane {i}", out[..., i], ref[..., i], 1e-4)
+               for i in (0, 1, 2, 5))
+
+
+def compare_tile_grad(name, call) -> float:
+    """A CBL tile backward call against its plain version: 1e-4 of the
+    output's scale (atomics reorder the sums); v1's label columns zero."""
+    args, kw, out = call
+    if name == "cbl_tile_bwd":
+        require(not out[..., :args[4]].any(), "cbl_tile_bwd: a label column has a gradient")
+    return compare_scaled(name, out, WRAPPERS[name][2](*args, **kw), 1e-4)
+
+
 def compare_call(name, call, exact_topk=False) -> float:
+    if name in ("cbl_tile2_fwd", "cbl_tile_fwd"):
+        return compare_tile_stats(name, call)
+    if name in ("cbl_tile2_bwd", "cbl_tile_bwd"):
+        return compare_tile_grad(name, call)
+    if name == "gather_rows":
+        args, _, out = call
+        require(torch.equal(out, gd.gather_rows_plain(*args)), "gather_rows differs")
+        return 0.0
     if name == "pt_attn_fwd":
         return compare_pt_attn_fwd(call)
     if name == "pt_attn_bwd":
@@ -492,6 +609,51 @@ def gather_bwd_library_call(g, local_idx, starts, tile, width, n_support):
     return lambda: torch.zeros(b * n_support, c, device=g.device).index_add_(0, rows, src)
 
 
+def tile_costs(name, args, out):
+    """(bytes, FP32 operations, shape) that a CBL tile kernel call's function
+    needs on this call's data. Every row's li and label (v2: meta lanes 0
+    and 1; v1: its ncls label columns) decide the slot counts and so the
+    loss mask. Only the rows of the mask (in the backward: with a cotangent
+    != 0) need their features, the labels and features of the rows their
+    slots name (features of the valid ones), the distances and the sums.
+    The forward's outputs are the two [B] sums (not the statistics it keeps
+    for the backward); the backward reads every row's statistics and writes
+    its whole gradient. Operations: a label's argmax and sum 2·ncls a row
+    (v1), 4 a valid slot for the counts; per valid slot of a masked row the
+    distance 3C + 2 and the max, exp and sums ~26 forward, ~6C + 70
+    backward."""
+    v1, fwd = name.startswith("cbl_tile_"), name.endswith("fwd")
+    x, li = (args[0], args[1]) if v1 else (args[0], args[2])
+    ncls = (args[2] if fwd else args[4]) if v1 else 0
+    tile, width, window = args[-3:]
+    b, m, k = li.shape
+    c = x.shape[-1] - ncls
+    valid = x[..., :ncls].sum(-1) > 0 if v1 else args[1][..., 1] > 0
+    stats = out if fwd else args[2] if v1 else args[3]
+    mask = stats[..., 6] > 0
+    if not fwd:
+        mask &= (args[3] if v1 else args[4])[:, None] != 0
+    starts = torch.as_tensor(cd.self_window_starts(m, tile, width, window), device=x.device)
+    rows, member = tg._rows(li, starts, tile, width, m)
+    slot_ok = member & valid.reshape(-1)[rows]
+    m_rows, m_member, m_ok = rows[mask], member[mask], slot_ok[mask]
+    q_rows = torch.nonzero(mask.reshape(-1)).squeeze(1)
+    named = int(torch.unique(torch.cat([q_rows, m_rows[m_member]])).numel())
+    need = int(torch.unique(torch.cat([q_rows, m_rows[m_ok]])).numel())
+    n_mask, n_masked_slots = int(mask.sum()), float(m_ok.sum())
+    label_bytes = 4 * ncls if v1 else 8
+    if fwd:
+        n_bytes = b * m * (4 * k + label_bytes) + 4 * c * need + 8 * b
+        n_ops = b * m * 2 * ncls + 4 * float(slot_ok.sum()) + n_masked_slots * (3 * c + 28)
+    else:
+        n_bytes = (b * m * (32 + 4 * x.shape[-1]) + 4 * b + 4 * k * n_mask
+                   + label_bytes * named + 4 * c * need)
+        n_ops = named * 2 * ncls + n_masked_slots * (6 * c + 70)
+    shape = dict(rows=list(x.shape), K=k, ncls=ncls, masked_rows=n_mask,
+                 masked_valid_slots=int(n_masked_slots), rows_read=need)
+    return float(n_bytes), float(n_ops), shape
+
+
 def call_costs(name, call):
     """(kernel fn, plain fn, library fn or None, bytes, operations, shape)
     of one recorded call."""
@@ -514,9 +676,21 @@ def call_costs(name, call):
         return kern, plain, gather_library_call(*args), n_bytes, 0.0, shape
     if name == "window_gather_bwd":
         g, li, starts, tile, width, ns = args
-        n_bytes = 4 * (g.numel() + li.numel() + starts.numel() + 2 * out.numel())
+        n_bytes = 4 * (g.numel() + li.numel() + starts.numel() + out.numel())
         shape = dict(g=list(g.shape), Ns=ns, W=tile * width)
         return kern, plain, gather_bwd_library_call(*args), n_bytes, float(g.numel()), shape
+    if name in ("cbl_tile2_fwd", "cbl_tile2_bwd", "cbl_tile_fwd", "cbl_tile_bwd"):
+        n_bytes, n_ops, shape = tile_costs(name, args, out)
+        return kern, plain, None, n_bytes, n_ops, shape
+    if name == "gather_rows":
+        # idx read once, the distinct rows it names read once, out written once
+        x, idx = args[:2]
+        rows = int(torch.unique(idx).numel())
+        n_bytes = 4 * idx.numel() + x.element_size() * x.shape[1] * (rows + idx.numel())
+        idx_long = idx.long()
+        shape = dict(x=list(x.shape), M=idx.numel(), distinct_rows=rows)
+        return (kern, plain, lambda: torch.index_select(x, 0, idx_long), n_bytes, 0.0,
+                shape)
     if name in ("pt_attn_fwd", "pt_attn_bwd"):
         # inputs read once, outputs written once; FP32 operations per slot:
         # PE tower 18 + 6C, w_pre and the bn1 affine 4C, relu C, fc1 2C·Cs,
@@ -538,9 +712,8 @@ def call_costs(name, call):
             n_ops = 3 * b * m * k * per_slot
         shape = dict(B=b, M=m, C=c, K=k, W=tile * width)
         return kern, plain, None, n_bytes, float(n_ops), shape
-    # stats: inputs read once, outputs written once (dx read and written by
-    # the backward's atomics); per valid listed slot about 4C + 12 FP32
-    # operations forward and 8C + 16 backward
+    # stats: inputs read once, outputs written once; per valid listed slot
+    # about 4C + 12 FP32 operations forward and 8C + 16 backward
     features, meta, li = args[:3]
     temperature, tile, width, window = args[-4:]
     valid = float(cd.cbl_stats_fwd_plain(features, meta, li, temperature, tile, width, window)[..., 4].sum())
@@ -550,7 +723,7 @@ def call_costs(name, call):
         n_bytes += 4 * out.numel()
         n_ops = valid * (4 * c + 12)
     else:
-        n_bytes += 4 * (args[3].numel() + 2 * out.numel())
+        n_bytes += 4 * (args[3].numel() + out.numel())
         n_ops = valid * (8 * c + 16)
     shape = dict(features=list(features.shape), K=li.shape[-1], tile=tile, width=width,
                  valid_slots=int(valid))
@@ -636,13 +809,20 @@ def buffers(model) -> dict:
     return {k: v.detach().clone() for k, v in model.named_buffers()}
 
 
-def run_train(dev, bn_mode="batch") -> dict:
-    """Phases 8 and 10: the flagship train step at B x N from the
-    checkpoint, with flax batch BN or stale BN."""
-    kernels = TRAIN_KERNELS if bn_mode == "batch" else STALE_KERNELS
+def run_train(dev, bn_mode="batch", route="dense") -> dict:
+    """Phases 8, 10, 12 and 13: the flagship train step at B x N from the
+    checkpoint, with flax batch BN or stale BN, on one of the CBL routes
+    (the caller selects it with cbl_route_env)."""
+    _, impl, cbl_kernels = CBL_ROUTES[route]
+    require(cbl_losses.dense_route() == (route == "dense"), f"CBL_DENSE does not select {route}")
+    kernels = PATH_KERNELS + cbl_kernels
+    if bn_mode == "stale":
+        kernels += ("pt_attn_fwd", "pt_attn_bwd")
+    what = f"{bn_mode} BN" + ("" if route == "dense" else f", CBL route {route}")
     model, trained = load_model(bn_mode)
     opt = make_optimizer(model.parameters(), TRAIN_LR)
-    cfg = TrainStepConfig(num_classes=NUM_CLASSES, spec=TRAIN_SPEC, contrast=ContrastConfig())
+    cfg = TrainStepConfig(num_classes=NUM_CLASSES, spec=TRAIN_SPEC,
+                          contrast=ContrastConfig(impl=impl))
     step = make_train_step(model, cfg, opt, device=dev)
     rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
     batch = train_batch(rooms, B, N, np.random.default_rng(0))
@@ -663,7 +843,7 @@ def run_train(dev, bn_mode="batch") -> dict:
                                       if k != "confusion"), flush=True)
     med = statistics.median(secs[2:])
     peak = torch.cuda.max_memory_allocated()
-    print(f"train step ({bn_mode} BN) median of 3 warm steps {med * 1e3:.3f} ms over "
+    print(f"train step ({what}) median of 3 warm steps {med * 1e3:.3f} ms over "
           f"{[round(x * 1e3, 3) for x in secs]}, {B * N / med:.1f} points/s, "
           f"max_memory_allocated {peak} B", flush=True)
     require(all(np.isfinite(losses)), f"losses {losses}")
@@ -671,28 +851,42 @@ def run_train(dev, bn_mode="batch") -> dict:
     busy_ms = profile_request(step, batch, what="train step")
     print(f"device busy {busy_ms:.3f} ms of the unprofiled median step "
           f"{med * 1e3:.3f} ms: busy share {busy_ms / (med * 1e3):.3f}", flush=True)
-    pts_dev = torch.as_tensor(batch["points"], device=dev)
-    pyr_ms = time_ms(lambda: build_pyramid(pts_dev, TRAIN_SPEC), reps=3)
-    print(f"device time of the training pyramid alone {pyr_ms:.3f} ms", flush=True)
+    if route == "dense":  # the pyramid is the same on every route
+        pts_dev = torch.as_tensor(batch["points"], device=dev)
+        pyr_ms = time_ms(lambda: build_pyramid(pts_dev, TRAIN_SPEC), reps=3)
+        print(f"device time of the training pyramid alone {pyr_ms:.3f} ms", flush=True)
 
     restore(model, opt, snap0)
     torch.cuda.synchronize()
     reset_counts()
     wide_args, wide_fn = [], knn.window_topk_wide
+    stage_inputs, v2_fn = [], cbl_losses.cbl_tile_softnn2
 
     def rec_wide(*args, **kw):
         wide_args.append((args, kw))
         return wide_fn(*args, **kw)
 
-    with recording() as calls, mock.patch.object(knn, "window_topk_wide", rec_wide):
+    def rec_v2(*args, **kw):
+        stage_inputs.append(frozen(args))
+        return v2_fn(*args, **kw)
+
+    with recording() as calls, mock.patch.object(knn, "window_topk_wide", rec_wide), \
+            mock.patch.object(cbl_losses, "cbl_tile_softnn2", rec_v2):
         m = step(batch)
         torch.cuda.synchronize()
-    launches, wide = read_counts(), knn.wide_calls
-    launches = {k: launches[k] for k in kernels}
-    print(f"launches in one train step ({bn_mode} BN): {launches}; wide-window searches "
+    counts, wide = read_counts(), knn.wide_calls
+    launches = {k: counts[k] for k in kernels}
+    print(f"launches in one train step ({what}): {launches}; wide-window searches "
           f"(plain PyTorch): {wide}", flush=True)
     require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
-    for args, kw in wide_args:
+    require(all(launches[k] == STAGES for k in cbl_kernels),
+            f"not one launch of each CBL kernel a stage: {launches}")
+    others = {k: counts[k] for k in CBL_KERNELS if k not in cbl_kernels}
+    require(not any(others.values()), f"another route's CBL kernel was launched: {others}")
+    no_path = {k: counts[k] for k in NO_PATH_KERNELS}
+    require(not any(no_path.values()), f"a kernel of no path was launched: {no_path}")
+    metrics = {k: float(v) for k, v in m.items() if k != "confusion"}
+    for args, kw in wide_args if route == "dense" else ():
         t = time_ms(lambda: wide_fn(*args, **kw), reps=3)
         print(f"  wide-window search k={args[2]} M={args[0].shape[1]} "
               f"W={kw['width'] * kw['tile']}: {t:.4f} ms", flush=True)
@@ -711,7 +905,8 @@ def run_train(dev, bn_mode="batch") -> dict:
     require(abs(loss_k - loss_p) <= 1e-4 * abs(loss_p), "train losses disagree")
     require(abs(gn_k - gn_p) <= 1e-3 * gn_p, "gradient norms disagree")
     require(stats_rel <= 1e-4, "running statistics disagree")
-    return dict(calls=calls, launches=launches, model=model, step=step, peak=peak)
+    return dict(calls=calls, launches=launches, model=model, step=step, peak=peak, med=med,
+                metrics=metrics, stage_inputs=stage_inputs, no_path=no_path)
 
 
 def check_train_kernels(dev, train) -> list:
@@ -759,6 +954,127 @@ def check_stale_kernels(dev, stale) -> list:
           f"cotangents", flush=True)
     del calls
     return time_calls(stale["calls"], dev, stale["launches"], max_err, tuple(max_err), reps=5)
+
+
+def check_routes(metrics: dict) -> None:
+    """Phase 13: the CBL losses of one step on the same weights and batch
+    on the dense and v2 routes against the XLA tile route's, each stage
+    within the tolerance the CPU tests state for the pair."""
+    for route, rtol in ROUTE_RTOL.items():
+        rels = {k: abs(metrics[route][k] - metrics["xla"][k]) / abs(metrics["xla"][k])
+                for k in ["cbl"] + [f"cbl_stage{i}" for i in range(STAGES)]}
+        print(f"CBL losses, {route} route vs the XLA tile route: "
+              + ", ".join(f"{k} {metrics[route][k]:.7f} vs {metrics['xla'][k]:.7f} "
+                          f"(rel {v:.3g})" for k, v in rels.items()), flush=True)
+        require(all(v <= rtol for v in rels.values()),
+                f"the {route} route's CBL losses are not within rel {rtol} of the XLA route's")
+
+
+def bare_entry(name, args):
+    """A v2 kernel's C entry on operands prepared once, outside the timed
+    call: none of the wrapper's host work (operand checks, the window
+    starts copied to the card, the output allocated) is timed. The
+    backward's gradient is not zeroed between runs."""
+    if name == "cbl_tile2_fwd":
+        features, meta, li, temperature, tile, width, window = args
+        f, lii, starts, mt = c2.cuda_args(features, li, tile, width, window, meta)
+        out = torch.empty((*f.shape[:2], 8), device=f.device)
+        ptrs = (mt, lii, starts, out)
+    else:
+        features, meta, li, stats, g, temperature, tile, width, window = args
+        f, lii, starts, mt, st, gl = c2.cuda_args(features, li, tile, width, window, meta,
+                                                  stats, g)
+        out = torch.zeros_like(f)
+        ptrs = (mt, lii, starts, st, gl, out)
+    b, m, c = f.shape
+    entry, stream = getattr(build.library(), name), torch.cuda.current_stream(f.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (f, *ptrs)]
+    return lambda: build.check(entry(*ptrs, b, m, lii.shape[-1], c, tile, width,
+                                     float(temperature), stream), name)
+
+
+@torch.no_grad()
+def time_spread(calls, dev, names, reps=20):
+    """The spread of one launch's time: the level-0 (largest) recorded call
+    of each v2 kernel timed reps times alone, each after an L2 flush,
+    through its wrapper and through its bare C entry; and for the backward,
+    how many neighbour atomics land on one row."""
+    flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    for name in names:
+        args, kw, _ = max(calls[name], key=lambda call: call[0][0].shape[1])
+        mod, attr, _ = WRAPPERS[name]
+        for what, fn in (("wrapper", lambda: getattr(mod, attr)(*args, **kw)),
+                         ("bare C entry", bare_entry(name, args))):
+            ts = sorted(time_ms(fn, flush_buf, reps=1) for _ in range(reps))
+            print(f"  {name} {tuple(args[0].shape)}, {what}, {reps} runs: min {ts[0]:.4f} ms, median "
+                  f"{statistics.median(ts):.4f} ms, max {ts[-1]:.4f} ms", flush=True)
+        if name == "cbl_tile2_bwd":
+            features, meta, li, stats, g, _, tile, width, window = args
+            m = features.shape[1]
+            starts = torch.as_tensor(cd.self_window_starts(m, tile, width, window), device=dev)
+            rows, member = tg._rows(li, starts, tile, width, m)
+            hit = (member & (meta.reshape(-1, 8)[rows, 1] > 0) & (stats[..., 6:7] > 0)
+                   & (g[:, None, None] != 0))
+            per_row = torch.bincount(rows[hit])
+            per_row = per_row[per_row > 0].float()
+            print(f"  {name} {tuple(features.shape)}: {int(hit.sum())} neighbour atomics on {per_row.numel()} "
+                  f"rows of {features.shape[-1]} channels, per row mean {float(per_row.mean()):.2f},"
+                  f" max {int(per_row.max())}", flush=True)
+
+
+def check_cbl_kernels(dev, pallas) -> list:
+    """Phase 14: every v2 call of the recorded cbl-pallas step against its
+    plain version and timed; v1 at that step's level-0 shape ([its soft
+    labels | its latents], K = 35) against its plain version and against v2
+    on the same inputs; gather_rows exact on x [131072, 128] f32 with
+    131072 random rows, torch.index_select timed beside it. The launches
+    of v1 and gather_rows are those of the cbl-pallas step (0: no path runs
+    them); their direct calls here are counted apart."""
+    names = ("cbl_tile2_fwd", "cbl_tile2_bwd", "cbl_tile_fwd", "cbl_tile_bwd", "gather_rows")
+    max_err = {name: 0.0 for name in names}
+    summary = time_calls(pallas["calls"], dev, pallas["launches"], max_err, names[:2], reps=5)
+    time_spread(pallas["calls"], dev, names[:2])
+
+    features, label_soft, li, temperature, tile, width, window = pallas["stage_inputs"][0]
+    ncls = label_soft.shape[-1]
+    fused = torch.cat([label_soft, features], -1).contiguous()
+    g = torch.as_tensor(np.random.default_rng(4).standard_normal(B), dtype=torch.float32,
+                        device=dev)
+    reset_counts()
+    stats1 = c1.cbl_tile_fwd(fused, li, ncls, temperature, tile, width, window)
+    dfused = c1.cbl_tile_bwd(fused, li, stats1, g, ncls, temperature, tile, width, window)
+    torch.cuda.synchronize()
+    direct = read_counts()
+    meta = cd.row_meta(label_soft)
+    stats2 = c2.cbl_tile2_fwd(features, meta, li, temperature, tile, width, window)
+    dx2 = c2.cbl_tile2_bwd(features, meta, li, stats2, g, temperature, tile, width, window)
+    sums1, sums2 = stats1[..., 5].sum(-1), stats2[..., 5].sum(-1)
+    rel = float(((sums1 - sums2).abs() / sums2.abs()).max())
+    print(f"  v1 vs v2 kernels at {tuple(fused.shape)}, K={li.shape[-1]}: loss sums "
+          f"{sums1.tolist()} vs {sums2.tolist()} (rel {rel:.3g})", flush=True)
+    require(torch.equal(stats1[..., [3, 4, 6]], stats2[..., [3, 4, 6]]), "v1 and v2 counts differ")
+    require(rel <= 1e-5, "v1 and v2 loss sums differ")
+    compare_scaled("v1 vs v2 feature gradient", dfused[..., ncls:], dx2, 1e-4)
+    v1_calls = {
+        "cbl_tile_fwd": [((fused, li, ncls, temperature, tile, width, window), {}, stats1)],
+        "cbl_tile_bwd": [((fused, li, stats1, g, ncls, temperature, tile, width, window), {},
+                          dfused)],
+    }
+    summary += time_calls(v1_calls, dev, pallas["no_path"], max_err, names[2:4], reps=5)
+
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((131072, 128), dtype=np.float32), device=dev)
+    idx = torch.as_tensor(rng.integers(0, 131072, 131072, dtype=np.int32), device=dev)
+    reset_counts()
+    out = gd.gather_rows(x, idx)
+    direct["gather_rows"] = read_counts()["gather_rows"]
+    require(torch.equal(out, x[idx.long()]), "gather_rows differs from x[idx]")
+    print(f"  gather_rows {tuple(out.shape)}: equal to x[idx]", flush=True)
+    summary += time_calls({"gather_rows": [((x, idx), {}, out)]}, dev, pallas["no_path"],
+                          max_err, names[4:])
+    for entry in summary[2:]:  # no path runs them: launches made here
+        entry["direct_launches"] = direct[entry["name"]]
+    return summary
 
 
 def serve(dev, batch, bn_mode="batch", ref_probs=None) -> dict:
@@ -889,16 +1205,17 @@ def main() -> int:
     del served, stale_served, step, predict
     torch.cuda.empty_cache()
 
-    with phase("train"):
+    with phase("train"), cbl_route_env("dense"):
         train = run_train(dev)
 
-    with phase("train-kernels"):
+    with phase("train-kernels"), cbl_route_env("dense"):
         train_summary = check_train_kernels(dev, train)
     batch_launches, batch_peak = train["launches"], train["peak"]
+    dense_med, dense_metrics = train["med"], train["metrics"]
     del train
     torch.cuda.empty_cache()
 
-    with phase("stale-train"):
+    with phase("stale-train"), cbl_route_env("dense"):
         stale = run_train(dev, "stale")
         launches = stale["launches"]
         for name in ("pt_attn_fwd", "pt_attn_bwd"):
@@ -911,8 +1228,40 @@ def main() -> int:
         print(f"peak memory of the stale step {stale['peak']} B vs the batch step {batch_peak} B",
               flush=True)
 
-    with phase("stale-kernels"):
+    with phase("stale-kernels"), cbl_route_env("dense"):
         train_summary += check_stale_kernels(dev, stale)
+    del stale
+    torch.cuda.empty_cache()
+
+    route_metrics = {"dense": dense_metrics}
+    with phase("cbl-xla"), cbl_route_env("xla"):
+        xla = run_train(dev, route="xla")
+        for name in ("window_gather", "window_gather_bwd"):
+            require(xla["launches"][name] == batch_launches[name] + STAGES,
+                    f"{name}: {xla['launches'][name]} launches on the XLA tile route vs "
+                    f"{batch_launches[name]} on the dense route")
+        print(f"XLA tile route: step median {xla['med'] * 1e3:.3f} ms vs the dense route's "
+              f"{dense_med * 1e3:.3f} ms, peak memory {xla['peak']} B vs {batch_peak} B",
+              flush=True)
+        route_metrics["xla"] = xla["metrics"]
+    del xla
+    torch.cuda.empty_cache()
+
+    with phase("cbl-pallas"), cbl_route_env("pallas"):
+        pallas = run_train(dev, route="pallas")
+        for name in PATH_KERNELS:
+            require(pallas["launches"][name] == batch_launches[name],
+                    f"{name}: {pallas['launches'][name]} launches on the v2 route vs "
+                    f"{batch_launches[name]} on the dense route")
+        print(f"v2 route: step median {pallas['med'] * 1e3:.3f} ms vs the dense route's "
+              f"{dense_med * 1e3:.3f} ms, peak memory {pallas['peak']} B vs {batch_peak} B",
+              flush=True)
+        route_metrics["pallas"] = pallas["metrics"]
+        check_routes(route_metrics)
+
+    with phase("cbl-kernels"):
+        train_summary += check_cbl_kernels(dev, pallas)
+    del pallas
 
     summary = []
     for entry in train_summary:

@@ -22,6 +22,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = (
     "win_topk.cu", "tile_gather.cu", "window_gather_bwd.cu", "cbl_dense.cu", "pt_attn.cu",
+    "cbl_tile2.cu", "gather_rows.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,6 +50,20 @@ SIGNATURES = {
     # q, kv, rel, li, starts, params, g_out, dq, dkv, dparams, b, m, k, c,
     # tile, width, grid, rows per block, stream
     "cbl_pt_attn_bwd": (_P,) * 10 + (_I,) * 8 + (_P,),
+    # features, meta, li, starts, stats, b, m, k, c, tile, width, temperature,
+    # stream
+    "cbl_tile2_fwd": (_P,) * 5 + (_I,) * 6 + (_F, _P),
+    # features, meta, li, starts, stats, g_loss, dx, b, m, k, c, tile, width,
+    # temperature, stream
+    "cbl_tile2_bwd": (_P,) * 7 + (_I,) * 6 + (_F, _P),
+    # fused, li, starts, stats, b, m, k, c, ncls, tile, width, temperature,
+    # stream
+    "cbl_tile_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _P),
+    # fused, li, starts, stats, g_loss, dx, b, m, k, c, ncls, tile, width,
+    # temperature, stream
+    "cbl_tile_bwd": (_P,) * 6 + (_I,) * 7 + (_F, _P),
+    # x, idx, out, n, m, row bytes, stream
+    "cbl_gather_rows": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -33,7 +33,8 @@ def _inv_t(temperature: float) -> float:
     return float(np.float32(1.0) / np.float32(temperature))
 
 
-def _starts(m: int, tile: int, width: int, window: int) -> np.ndarray:
+def self_window_starts(m: int, tile: int, width: int, window: int) -> np.ndarray:
+    """Window start tiles of the self geometry over M rows."""
     g = m // tile
     return window_start_tiles(g, g, width, window)
 
@@ -61,7 +62,7 @@ def _slot_terms(features, meta, li, temperature, tile, width, window):
     """Per-slot terms of the plain versions ([B, M, K] unless noted)."""
     _check(features, meta, li, tile, width)
     b, m, c = features.shape
-    starts = torch.as_tensor(_starts(m, tile, width, window), device=features.device)
+    starts = torch.as_tensor(self_window_starts(m, tile, width, window), device=features.device)
     rows, member = _tg._rows(li, starts, tile, width, m)
     q = features.float()
     s = q.reshape(b * m, c)[rows]  # [B, M, K, C]

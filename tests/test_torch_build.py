@@ -67,4 +67,5 @@ def test_every_source_is_built_and_every_entry_is_bound():
     assert set(build.SIGNATURES) == {
         "cbl_win_topk", "cbl_window_gather", "cbl_window_gather_bwd",
         "cbl_stats_fwd", "cbl_stats_bwd", "cbl_pt_attn_fwd", "cbl_pt_attn_bwd",
+        "cbl_tile2_fwd", "cbl_tile2_bwd", "cbl_tile_fwd", "cbl_tile_bwd", "cbl_gather_rows",
     }

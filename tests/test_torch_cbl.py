@@ -152,10 +152,16 @@ def test_subscene_labels_and_cross_entropy_match_jax():
 
 def test_contrast_config_refuses_options_off_the_ported_route():
     assert ContrastConfig(temperature=0.5).temperature == 0.5
-    # options of other routes, the kernel choice included, are not fields
-    for kw in ({"contrast": "nce"}, {"pos": "kl"}, {"extra_neg_rand": 8}, {"dist": "norml2"},
-               {"label_infer": "nst"}, {"impl": "auto"}, {"kl_threshold": 0.3}):
+    # options of other option points are not fields
+    for kw in ({"contrast": "nce"}, {"pos": "kl"}, {"extra_neg_rand": 8},
+               {"label_infer": "nst"}, {"kl_threshold": 0.3}):
         with pytest.raises(TypeError):
+            ContrastConfig(**kw)
+    # dist and impl are fields, with the reference's defaults and the
+    # flagship's values only
+    assert (ContrastConfig().dist, ContrastConfig().impl) == (JaxContrast().dist, JaxContrast().impl)
+    for kw in ({"dist": "kl"}, {"dist": "l2square"}, {"impl": "mosaic"}):
+        with pytest.raises(ValueError):
             ContrastConfig(**kw)
     for t in (None, 0.0, -1.0):
         with pytest.raises(ValueError, match="temperature"):

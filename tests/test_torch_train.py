@@ -6,7 +6,10 @@ parameters and batch_stats through to_jax_variables). The JAX step takes
 its reference CBL route (CBL_DENSE unset: elementwise (q − s) distances);
 the port takes the dense-window route (the clamped expansion), so the CBL
 terms agree to the tolerance tests/test_cbl_dense.py holds the two routes
-to; everything else is float32 sums in another order."""
+to; everything else is float32 sums in another order. The port's first
+step on its other two CBL routes (CBL_DENSE=off with impl 'xla' and
+'pallas') is held against the same JAX step, whose route it then takes up
+to sum order."""
 import copy
 
 import numpy as np
@@ -140,14 +143,20 @@ def _jax_state(variables, momentum, tx):
     return state.replace(opt_state=opt_state)
 
 
-def small_setup(perturb_seed):
-    """The three seeded batches, the JAX pyramid spec and model, and the
-    starting variables of the small-width step comparison."""
+def train_batches():
+    """The three seeded batches of the small-width step comparison."""
     batches = []
     for seed in (5, 6, 7):
         pts, feats, labels = synthetic_crops(2, 2048, seed=seed)
         labels[:, ::97] = -1  # some ignored points
         batches.append({"points": pts, "features": feats, "labels": labels})
+    return batches
+
+
+def small_setup(perturb_seed):
+    """The three seeded batches, the JAX pyramid spec and model, and the
+    starting variables of the small-width step comparison."""
+    batches = train_batches()
     jspec = JaxSpec(k_contrast=K_CONTRAST, with_subscene=True, layout="sorted", sampler="strided")
     jmodel = JaxSeg(num_classes=13, planes=PLANES, blocks=BLOCKS, share_planes=8)
     jpyr = jax_build_pyramid(jnp.asarray(batches[0]["points"]), jspec)
@@ -241,3 +250,35 @@ def test_train_step_weights_match_jax(train_runs, steps, collection):
     got = _dist([port[k] for k in keys], [ref[k] for k in keys])
     change = _dist([ref[k] for k in keys], [before[k] for k in keys])
     assert got <= STEP_RTOL[collection] * change, (got, change)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_train_step_on_the_other_cbl_routes_matches_jax(train_runs, monkeypatch, impl):
+    """CBL_DENSE=off: the XLA tile route (impl='xla') and the fused v2 route
+    (impl='pallas') from the first step's state against JAX's first step,
+    whose CBL route (the XLA tile route) computes the same expressions:
+    the metrics to rtol 1e-5 (tests/test_torch_cbl_routes.py's tolerance
+    for the stage losses), the confusion as above, the weights to
+    STEP_RTOL."""
+    monkeypatch.setenv("CBL_DENSE", "off")
+    before, _, _, ref, ref_after = train_runs[0]
+    model = load_jax_variables(
+        PointTransformerSeg(num_classes=13, planes=PLANES, blocks=BLOCKS, share_planes=8), before)
+    step = make_train_step(
+        model, TrainStepConfig(num_classes=13, spec=PyramidSpec(k_contrast=K_CONTRAST, with_subscene=True),
+                               contrast=ContrastConfig(impl=impl)),
+        make_optimizer(model.parameters(), 0.05), device="cpu",
+    )
+    port = {k: v.numpy() for k, v in step(train_batches()[0]).items()}
+    for k in {"ce", "cbl", "loss"} | {f"cbl_stage{i}" for i in range(5)}:
+        np.testing.assert_allclose(float(port[k]), float(ref[k]), rtol=1e-5, err_msg=k)
+    tc, jc = port["confusion"], np.asarray(ref["confusion"])
+    np.testing.assert_array_equal(tc.sum(1), jc.sum(1))
+    assert np.abs(tc - jc).sum() <= 2 * 4, np.abs(tc - jc).sum()
+    after = to_jax_variables(model)
+    for collection in ("params", "batch_stats"):
+        b, p, r = (dict(_leaves(v[collection])) for v in (before, after, ref_after))
+        keys = sorted(r)
+        got = _dist([p[k] for k in keys], [r[k] for k in keys])
+        change = _dist([r[k] for k in keys], [b[k] for k in keys])
+        assert got <= STEP_RTOL[collection] * change, (collection, got, change)
