@@ -25,7 +25,9 @@ is not 0:
 4. timing  every kernel launch of that request replayed: kernel, plain
            version and one PyTorch library call, each with L2 flushed, beside
            its bound (bytes at 3.35 TB/s or FP32 operations at 67 TFLOP/s,
-           the H100 SXM data sheet, whichever is larger).
+           the H100 SXM data sheet, whichever is larger); the largest
+           window_topk call also 20 times through its wrapper and through
+           its bare C entry.
 5. profile the request split: pyramid alone and whole step (CUDA events),
            and one torch.profiler trace: device time by kernel and the
            device's busy share of the request.
@@ -53,11 +55,16 @@ is not 0:
            torch.profiler.
 9. train-kernels every kernel call of that step against its plain version:
            window_topk and window_gather as in phase 2, window_gather_bwd
-           max-abs <= 1e-5 of the output's scale (atomics reorder the sums)
-           and exact on integer cotangents, cbl_stats_fwd counts exact and
+           max-abs <= 1e-5 of the output's scale (the plain version's
+           index_add_ adds with atomics on the card), exact on integer
+           cotangents, the same bits when run again, and bit-equal to the
+           plain version on CPU copies (CPU index_add_ sums each row in slot
+           order, as the kernel does), cbl_stats_fwd counts exact and
            sums rel <= 1e-5, cbl_stats_bwd max-abs <= 1e-4 of the output's
            scale; the same on one step over integer-grid clouds. Then each
-           call timed as in phase 4 (5 runs each).
+           call timed as in phase 4 (5 runs each), and the largest
+           window_topk and window_gather_bwd calls 20 times through the
+           wrapper and through the bare C entry.
 10. stale-train phase 8 with bn_mode='stale': pt_attn_fwd and pt_attn_bwd
            exactly 18 launches each, window_gather and window_gather_bwd 18
            fewer than in phase 8 (the attention layers' gathers are inside
@@ -359,15 +366,23 @@ def compare_scaled(name, got, ref, tol) -> float:
 
 
 def compare_gather_bwd(call) -> float:
-    """Atomics reorder the sums: 1e-5 of the output's scale; and exact on
+    """Against the plain version on the card, whose index_add_ adds with
+    atomics in no fixed order: 1e-5 of the output's scale, and exact on
     integer-valued cotangents at the same geometry (small integers sum
-    exactly in any order)."""
+    exactly in any order). The kernel sums each row in slot order without
+    atomics: the call run again gives the same bits, and so does the plain
+    version on CPU copies (CPU index_add_ adds in index order)."""
     (g, li, starts, tile, width, ns), _, out = call
+    what = f"window_gather_bwd {tuple(g.shape)}"
     err = compare_scaled("window_gather_bwd", out, tg.window_gather_bwd_plain(*call[0]), 1e-5)
     g_int = torch.randint_like(g, -3, 4)
     require(torch.equal(tg.window_gather_bwd(g_int, li, starts, tile, width, ns),
                         tg.window_gather_bwd_plain(g_int, li, starts, tile, width, ns)),
-            f"window_gather_bwd {tuple(g.shape)} not exact on integer cotangents")
+            f"{what} not exact on integer cotangents")
+    bits = lambda t: t.cpu().view(torch.int32)
+    require(torch.equal(bits(tg.window_gather_bwd(*call[0])), bits(out)), f"{what} differs between runs")
+    cpu = tg.window_gather_bwd_plain(g.cpu(), li.cpu(), starts.cpu(), tile, width, ns)
+    require(torch.equal(bits(cpu), bits(out)), f"{what} is not the plain version's CPU sum bit for bit")
     return err
 
 
@@ -927,7 +942,9 @@ def check_train_kernels(dev, train) -> list:
                 max_err[name] = max(max_err[name], compare_call(name, c, exact_topk=True))
             print(f"  integer grid: {len(cs)} {name} calls agree", flush=True)
     del calls
-    return time_calls(train["calls"], dev, train["launches"], max_err, TRAIN_KERNELS, reps=5)
+    summary = time_calls(train["calls"], dev, train["launches"], max_err, TRAIN_KERNELS, reps=5)
+    time_spread(train["calls"], dev, ("window_topk", "window_gather_bwd"))
+    return summary
 
 
 def check_stale_kernels(dev, stale) -> list:
@@ -970,11 +987,30 @@ def check_routes(metrics: dict) -> None:
                 f"the {route} route's CBL losses are not within rel {rtol} of the XLA route's")
 
 
-def bare_entry(name, args):
-    """A v2 kernel's C entry on operands prepared once, outside the timed
-    call: none of the wrapper's host work (operand checks, the window
-    starts copied to the card, the output allocated) is timed. The
-    backward's gradient is not zeroed between runs."""
+def bare_entry(name, args, kw):
+    """A kernel's C entry on operands prepared once, outside the timed call:
+    none of the wrapper's host work (operand checks and conversions, the
+    window starts copied to the card, the output allocated) is timed. The
+    v2 backward's gradient is not zeroed between runs."""
+    lib, stream = build.library(), torch.cuda.current_stream(args[0].device).cuda_stream
+    if name == "window_topk":
+        query, support, k = args
+        b, m, _ = query.shape
+        ns, tile = support.shape[1], kw["tile"]
+        idx = torch.empty((b, m, k), dtype=torch.int32, device=query.device)
+        val = torch.empty((b, m, k), dtype=torch.float32, device=query.device)
+        ptrs = [t.data_ptr() for t in (query, support, idx, val)]
+        rest = (b, m, ns, k, tile, kw["width"], kw["window"], ns // tile,
+                wt.MODES[kw.get("mode", "plain")], stream)
+        return lambda: build.check(lib.cbl_win_topk(*ptrs, *rest), name)
+    if name == "window_gather_bwd":
+        g, li, starts, tile, width, ns = args
+        b, m, k, c = g.shape
+        dx = torch.empty((b, ns, c), dtype=torch.float32, device=g.device)
+        ptrs = [t.data_ptr() for t in (g, li.to(torch.int32).contiguous(),
+                                       starts.to(torch.int32).contiguous(), dx)]
+        rest = (b, ns, m, k, c, tile, width, stream)
+        return lambda: build.check(lib.cbl_window_gather_bwd(*ptrs, *rest), name)
     if name == "cbl_tile2_fwd":
         features, meta, li, temperature, tile, width, window = args
         f, lii, starts, mt = c2.cuda_args(features, li, tile, width, window, meta)
@@ -987,26 +1023,28 @@ def bare_entry(name, args):
         out = torch.zeros_like(f)
         ptrs = (mt, lii, starts, st, gl, out)
     b, m, c = f.shape
-    entry, stream = getattr(build.library(), name), torch.cuda.current_stream(f.device).cuda_stream
     ptrs = [t.data_ptr() for t in (f, *ptrs)]
+    entry = getattr(lib, name)
     return lambda: build.check(entry(*ptrs, b, m, lii.shape[-1], c, tile, width,
                                      float(temperature), stream), name)
 
 
 @torch.no_grad()
 def time_spread(calls, dev, names, reps=20):
-    """The spread of one launch's time: the level-0 (largest) recorded call
-    of each v2 kernel timed reps times alone, each after an L2 flush,
-    through its wrapper and through its bare C entry; and for the backward,
-    how many neighbour atomics land on one row."""
+    """The spread of one launch's time: the largest recorded call of each
+    kernel (level 0; window_topk by rows times k) timed reps times alone,
+    each after an L2 flush, through its wrapper and through its bare C
+    entry; and for the v2 CBL backward, how many neighbour atomics land on
+    one row."""
     flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     for name in names:
-        args, kw, _ = max(calls[name], key=lambda call: call[0][0].shape[1])
+        args, kw, _ = max(calls[name], key=lambda call: call[0][0].numel() * (
+            call[0][2] if name == "window_topk" else 1))
         mod, attr, _ = WRAPPERS[name]
         for what, fn in (("wrapper", lambda: getattr(mod, attr)(*args, **kw)),
-                         ("bare C entry", bare_entry(name, args))):
+                         ("bare C entry", bare_entry(name, args, kw))):
             ts = sorted(time_ms(fn, flush_buf, reps=1) for _ in range(reps))
-            print(f"  {name} {tuple(args[0].shape)}, {what}, {reps} runs: min {ts[0]:.4f} ms, median "
+            print(f"  {name} {tuple(args[0].shape)} {kw}, {what}, {reps} runs: min {ts[0]:.4f} ms, median "
                   f"{statistics.median(ts):.4f} ms, max {ts[-1]:.4f} ms", flush=True)
         if name == "cbl_tile2_bwd":
             features, meta, li, stats, g, _, tile, width, window = args
@@ -1181,6 +1219,7 @@ def main() -> int:
     with phase("timing"):
         max_err = {"window_topk": topk_err, "window_gather": 0.0}
         serve_summary = time_calls(calls, dev, launches, max_err, SERVE_KERNELS)
+        time_spread(calls, dev, ("window_topk",))
         del calls
 
     with phase("profile"):

@@ -1,85 +1,307 @@
 // Backward of the tile-window row gather: dx[b, starts[q / tile] * tile +
-// li[b, q, k], :] += g[b, q, k, :] for every slot whose li is inside [0, W);
-// shadow slots (li = W) add nothing. dx is zeroed by the caller.
+// li[b, q, k], :] = sum of g[b, q, k, :] over every slot whose li is inside
+// [0, W); shadow slots (li = W) add nothing. Every element of dx is written
+// once, rows no slot names as 0, so the caller allocates dx uninitialised.
 //
 // Replaces the backward of contrastboundary_tpu/ops/pallas/tile_gather_pl.py::
-// tile_window_gather_pl (_bwd_call, body _bwd_kernel), which builds per-tile
-// window grads with a transposed one-hot matmul in VMEM and overlap-adds the
-// windows in XLA. On Hopper the transpose of a row selection is a row
-// scatter-add, done in one pass: one thread per (slot, 4 channels) reads 16
-// bytes of g and adds them onto the support row with atomicAdd (one float
-// per thread where C % 4 != 0). `starts` (int32 [gq], in tiles) carries the
-// window geometry, so the same kernel serves the self and the cross-level
-// gathers. The order of the additions onto a row varies from run to run, so
-// dx agrees with a sequential sum to float rounding, not bit for bit; a
-// deterministic shared-memory design is later work.
+// tile_window_gather_pl (_bwd_call, body _bwd_kernel), which builds each
+// query tile's window gradient in VMEM with a transposed one-hot matmul and
+// overlap-adds the windows in XLA in a fixed order. On Hopper the one-hot
+// matmul wastes W/K of its work; what is kept is the accumulation local to a
+// window, and the fixed order.
 //
-// Bound: bytes. g (B*M*K*C floats) and li (B*M*K ints) are read once and dx
-// (B*Ns*C floats) is read and written once.
+// Bound: bytes. g (B*M*K*C floats) and li (B*M*K ints) read once, dx (B*Ns*C
+// floats) written once.
+//
+// Design: one block per (rows of a support tile, channel chunk, batch),
+// 8 warps.
+//   * `starts` (int32 [gq], in tiles) is non-decreasing in every geometry the
+//     wrapper serves (self, TransitionDown, interpolation), so the query
+//     tiles whose windows [starts[g], starts[g] + width) hold support tile s
+//     are one contiguous range [g_lo, g_hi), found by two binary searches.
+//     Their slots are one contiguous range of flat (q, k) indices.
+//   * The block walks that range in super-chunks of 4096 slots in slot order.
+//     Each thread reads 16 slots' li, keeps those landing in the block's rows
+//     (packed as slot << 8 | local row) and counts them per (bucket, warp) in
+//     shared memory, bucket = local row % NB. An exclusive scan of the counts
+//     (bucket-major) and a warp-ordered placement (__match_any_sync ranks)
+//     lay the entries out per bucket in ascending slot order: a stable
+//     counting sort, with no order left to scheduling.
+//   * Lane group b (LPG lanes, NB = 256 / LPG groups) owns the rows of bucket
+//     b; its lanes own channels. It walks its entries in order, loading 8
+//     gradient vectors a lane ahead (16 B each where C % 4 == 0, neighbouring
+//     lanes on neighbouring channels) and adding them onto the block's
+//     accumulator rows in shared memory. No two threads write one address and
+//     no global atomics are used, so each dx element is the sequential float32
+//     sum of its slots in ascending slot order, the same on every run: the
+//     order in which index_add_ adds on the CPU.
+//   * The accumulator holds the block's rows x one chunk of at most 256
+//     channels (64 KB at most), so the slots are sorted once for all the
+//     channels of the chunk; it is written out once, coalesced. Blocks split
+//     a tile's rows (down to 16) where the tiles and chunks alone would not
+//     fill two waves of the SMs: each such block scans the same slots, so
+//     the split trades that scan for parallel loads.
+//   * Where few support tiles take the slots of many query tiles (the K = 1
+//     gathers from a deep level onto level 0: every slot of a cloud lands in
+//     1-4 support tiles), the blocks scan far more slots than they keep; that
+//     scan, not the bytes, bounds those calls.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-template <int V>
-__global__ void window_gather_bwd_kernel(const float* __restrict__ g,
-                                         const int32_t* __restrict__ li,
-                                         const int32_t* __restrict__ starts,
-                                         float* __restrict__ dx,
-                                         long long rows, int m, int k, int ns,
-                                         int c, int tile, int w_sz) {
-  const int cv = c / V;  // channel groups of V floats
-  const long long total = rows * cv;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const long long r = e / cv;  // flat (b, q, kk)
-    const int cg = (int)(e - r * cv);
-    const int j = li[r];
-    if (j < 0 || j >= w_sz) continue;
-    const long long bq = r / k;  // flat (b, q)
-    const int b = (int)(bq / m);
-    const int q = (int)(bq - (long long)b * m);
-    const long long dst =
-        ((long long)b * ns + (long long)starts[q / tile] * tile + j) * c +
-        (long long)cg * V;
-    if constexpr (V == 4) {
-      const float4 v = reinterpret_cast<const float4*>(g)[e];
-      atomicAdd(dx + dst, v.x);
-      atomicAdd(dx + dst + 1, v.y);
-      atomicAdd(dx + dst + 2, v.z);
-      atomicAdd(dx + dst + 3, v.w);
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSteps = 16;                    // slots a thread per super-chunk
+constexpr int kSuper = kWarps * kSteps * 32;  // 4096 slots
+constexpr int kMaxChunk = 256;                // channels a block
+constexpr int kAccFloats = 16384;             // 64 KB accumulator
+constexpr int kMaxRows = 256;                 // rows a block (8-bit row)
+constexpr int kMinRows = 16;                  // rows a block, at least
+constexpr int kMaxSmem = (kAccFloats + kSuper) * 4;
+
+// first g in [0, n) with a[g] >= v (n if none)
+__device__ __forceinline__ int first_at_least(const int32_t* a, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v) {
+      lo = mid + 1;
     } else {
-      atomicAdd(dx + dst, g[e]);
+      hi = mid;
     }
   }
+  return lo;
 }
 
 template <int V>
-void launch(const float* g, const int32_t* li, const int32_t* starts,
-            float* dx, long long rows, int m, int k, int ns, int c, int tile,
-            int w_sz, cudaStream_t stream) {
-  const int threads = 256;
-  long long blocks = (rows * (c / V) + threads - 1) / threads;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;
-  if (blocks < 1) blocks = 1;
-  window_gather_bwd_kernel<V><<<(unsigned)blocks, threads, 0, stream>>>(
-      g, li, starts, dx, rows, m, k, ns, c, tile, w_sz);
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ void add(float* dst, const T& v) {
+    float4 a = *reinterpret_cast<float4*>(dst);
+    a.x += v.x;
+    a.y += v.y;
+    a.z += v.z;
+    a.w += v.w;
+    *reinterpret_cast<float4*>(dst) = a;
+  }
+};
+template <>
+struct Vec<1> {
+  using T = float;
+  static __device__ __forceinline__ void add(float* dst, const T& v) {
+    *dst += v;
+  }
+};
+
+// V floats a lane access (4 where C % 4 == 0), LPG lanes a row group, NT
+// vectors a lane of each gradient row.
+template <int V, int LPG, int NT>
+__global__ void __launch_bounds__(kThreads)
+    window_gather_bwd_kernel(const float* __restrict__ g,
+                             const int32_t* __restrict__ li,
+                             const int32_t* __restrict__ starts,
+                             float* __restrict__ dx, int m, int k, int ns,
+                             int c, int tile, int width, int rows, int chunk) {
+  using T = typename Vec<V>::T;
+  constexpr int NB = kThreads / LPG;            // buckets = lane groups
+  constexpr int AHEAD = NT >= 8 ? 1 : 8 / NT;   // gradient rows loaded ahead
+  extern __shared__ float4 smem[];              // float4: 16-byte aligned
+  float* acc = reinterpret_cast<float*>(smem);             // rows x chunk
+  int* list = reinterpret_cast<int*>(acc + rows * chunk);  // kSuper
+  __shared__ int cnt[kThreads], off[kThreads + 1], cur[kThreads], wsum[kWarps];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int splits = tile / rows;
+  const int s = blockIdx.x / splits;  // support tile
+  const int row0 = s * tile + (blockIdx.x - s * splits) * rows;
+  const int c0 = blockIdx.y * chunk;
+  const int nvec = min(chunk, c - c0) / V;
+  const int b = blockIdx.z;
+  const int gq = m / tile;
+  const int w_sz = width * tile;
+  const int kt = k * tile;  // slots a query tile
+  const int slot_lo = first_at_least(starts, gq, s - width + 1) * kt;
+  const int slot_hi = first_at_least(starts, gq, s + 1) * kt;
+
+  for (int i = tid; i < rows * chunk; i += kThreads) acc[i] = 0.0f;
+  cnt[tid] = 0;
+  __syncthreads();
+
+  const int32_t* li_b = li + (size_t)b * m * k;
+  const float* g_b = g + (size_t)b * m * k * c + c0;
+  const unsigned lower = (1u << lane) - 1u;
+  for (int base = slot_lo; base < slot_hi; base += kSuper) {
+    // 1. the slots landing in this block's rows, counted per (bucket, warp)
+    int ent[kSteps];
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const int slot = base + (warp * kSteps + st) * 32 + lane;
+      int e = -1;
+      if (slot < slot_hi) {
+        const int j = li_b[slot];
+        const int r = starts[slot / kt] * tile + j - row0;
+        if (j >= 0 && j < w_sz && r >= 0 && r < rows) e = (slot << 8) | r;
+      }
+      ent[st] = e;
+      if (e >= 0) atomicAdd(&cnt[(e & (NB - 1)) * kWarps + warp], 1);
+    }
+    __syncthreads();
+    // 2. exclusive scan of the counts, bucket-major then warp
+    {
+      const int v = cnt[tid];
+      cnt[tid] = 0;
+      int x = v;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      if (lane == 31) wsum[warp] = x;
+      __syncthreads();
+      if (warp == 0) {
+        const int w = lane < kWarps ? wsum[lane] : 0;
+        int y = w;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int z = __shfl_up_sync(kFull, y, o);
+          if (lane >= o) y += z;
+        }
+        if (lane < kWarps) wsum[lane] = y - w;
+      }
+      __syncthreads();
+      const int ex = x - v + wsum[warp];
+      off[tid] = ex;
+      cur[tid] = ex;
+      if (tid == kThreads - 1) off[kThreads] = ex + v;
+    }
+    __syncthreads();
+    if (off[kThreads] == 0) continue;  // nothing lands here (block-uniform)
+    // 3. each warp places its entries in slot order (step, then lane)
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const int e = ent[st];
+      if (!__any_sync(kFull, e >= 0)) continue;
+      const int bucket = e >= 0 ? (e & (NB - 1)) : -1;
+      const unsigned same = __match_any_sync(kFull, bucket);
+      const int at = e >= 0 ? cur[bucket * kWarps + warp] : 0;
+      __syncwarp();
+      if (e >= 0) {
+        list[at + __popc(same & lower)] = e;
+        if ((same & lower) == 0) cur[bucket * kWarps + warp] = at + __popc(same);
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    // 4. lane group gi adds its bucket's gradient rows in slot order
+    {
+      const int gi = tid / LPG, gl = tid % LPG;
+      const int e1 = off[(gi + 1) * kWarps];
+      for (int e = off[gi * kWarps]; e < e1; e += AHEAD) {
+        T val[AHEAD][NT];
+        int r[AHEAD];
+#pragma unroll
+        for (int u = 0; u < AHEAD; ++u) {
+          r[u] = -1;
+          if (e + u < e1) {
+            const int en = list[e + u];
+            r[u] = en & 255;
+            const T* src = reinterpret_cast<const T*>(g_b + (size_t)(en >> 8) * c);
+#pragma unroll
+            for (int t = 0; t < NT; ++t) {
+              const int cv = gl + t * LPG;
+              if (cv < nvec) val[u][t] = src[cv];
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < AHEAD; ++u) {
+          if (r[u] < 0) continue;
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            const int cv = gl + t * LPG;
+            if (cv < nvec) Vec<V>::add(acc + r[u] * chunk + cv * V, val[u][t]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // every element of the block's rows and channels written once
+  float* dx_b = dx + ((size_t)b * ns + row0) * c + c0;
+  for (int i = tid; i < rows * nvec; i += kThreads) {
+    const int r = i / nvec, cv = i - r * nvec;
+    reinterpret_cast<T*>(dx_b + (size_t)r * c)[cv] =
+        *reinterpret_cast<const T*>(acc + r * chunk + cv * V);
+  }
+}
+
+template <int V, int LPG, int NT>
+cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
+                   const float* g, const int32_t* li, const int32_t* starts,
+                   float* dx, int m, int k, int ns, int c, int tile,
+                   int width, int rows, int chunk) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        window_gather_bwd_kernel<V, LPG, NT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  window_gather_bwd_kernel<V, LPG, NT><<<grid, kThreads, smem, stream>>>(
+      g, li, starts, dx, m, k, ns, c, tile, width, rows, chunk);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// Limits (the wrapper raises before them): M * K < 2^23 (a slot and its
+// 8-bit row share one int), C > 0.
 extern "C" int cbl_window_gather_bwd(const float* g, const int32_t* li,
                                      const int32_t* starts, float* dx, int b,
                                      int ns, int m, int k, int c, int tile,
                                      int width, void* stream) {
-  const long long rows = (long long)b * m * k;
-  const int w_sz = width * tile;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (c % 4 == 0 && ((uintptr_t)g % 16) == 0) {
-    launch<4>(g, li, starts, dx, rows, m, k, ns, c, tile, w_sz, s);
-  } else {
-    launch<1>(g, li, starts, dx, rows, m, k, ns, c, tile, w_sz, s);
+  const bool vec = c % 4 == 0 && (uintptr_t)g % 16 == 0 && (uintptr_t)dx % 16 == 0;
+  // channels in chunks of at most 256, as even as the width allows
+  const int chunks = (c + kMaxChunk - 1) / kMaxChunk;
+  int chunk = (c + chunks - 1) / chunks;
+  if (vec) chunk = (chunk + 3) & ~3;
+  const int nvec = vec ? chunk / 4 : chunk;
+  const int lpg = nvec > 16 ? 32 : nvec > 8 ? 16 : 8;
+  const int nt = (nvec + lpg - 1) / lpg;
+  // rows: a power-of-two divisor of the tile whose accumulator fits, halved
+  // while the blocks would not fill two waves of the 132 SMs
+  int rows = tile & -tile;
+  if (rows > kMaxRows) rows = kMaxRows;
+  while (rows > 1 && rows * chunk > kAccFloats) rows >>= 1;
+  const int gs = ns / tile;
+  long long blocks = (long long)gs * (tile / rows) * chunks * b;
+  while (blocks < 2 * 132 && rows > kMinRows) {
+    rows >>= 1;
+    blocks <<= 1;
   }
-  return (int)cudaGetLastError();
+  const dim3 grid(gs * (tile / rows), chunks, b);
+  const size_t smem = (size_t)(rows * chunk + kSuper) * 4;
+  cudaStream_t s = (cudaStream_t)stream;
+#define CBL_BWD_CASE(V, L, N)                                                \
+  return (int)launch<V, L, N>(grid, smem, s, g, li, starts, dx, m, k, ns, c, \
+                              tile, width, rows, chunk)
+  if (vec) {
+    if (lpg == 8) CBL_BWD_CASE(4, 8, 1);
+    if (lpg == 16) CBL_BWD_CASE(4, 16, 1);
+    if (nt == 1) CBL_BWD_CASE(4, 32, 1);
+    CBL_BWD_CASE(4, 32, 2);
+  }
+  if (lpg == 8) CBL_BWD_CASE(1, 8, 1);
+  if (lpg == 16) CBL_BWD_CASE(1, 16, 1);
+  if (nt == 1) CBL_BWD_CASE(1, 32, 1);
+  if (nt == 2) CBL_BWD_CASE(1, 32, 2);
+  if (nt <= 4) CBL_BWD_CASE(1, 32, 4);
+  CBL_BWD_CASE(1, 32, 8);
+#undef CBL_BWD_CASE
 }

@@ -13,7 +13,9 @@ tiles → out [B, M, K, C] with out[b, q, k] = x[b, starts[q // tile]·tile +
 local_idx[b, q, k]] and a zero row wherever local_idx is outside [0, W),
 W = width·tile (the shadow index W). The backward takes g [B, M, K, C] to
 dx [B, Ns, C], adding each slot's row onto its support row; shadow slots add
-nothing.
+nothing. Each dx row is the float32 sum of its slots' rows taken in
+ascending slot order (q, then k), starting from 0: the order of CPU
+``index_add_``, and of the kernel on every run (no atomics).
 """
 from __future__ import annotations
 
@@ -91,7 +93,11 @@ def _rows(local_idx, starts, tile, width, n_support):
 
 def window_gather_bwd_plain(g, local_idx, starts, tile: int, width: int,
                             n_support: int):
-    """Plain PyTorch version: one index_add_ of the valid slots' rows."""
+    """Plain PyTorch version: one index_add_ of the valid slots' rows (a
+    shadow slot adds +0 onto row 0). On the CPU index_add_ adds in index
+    order, so each row is the sequential sum in ascending slot order that
+    the kernel computes; on the card it adds with atomics, in no fixed
+    order."""
     b, m, k, c = g.shape
     _check(b, n_support, local_idx, starts, tile, width)
     rows, valid = _rows(local_idx, starts, tile, width, n_support)
@@ -103,7 +109,13 @@ def window_gather_bwd_plain(g, local_idx, starts, tile: int, width: int,
 def window_gather_bwd(g, local_idx, starts, tile: int, width: int,
                       n_support: int):
     """Window-gather backward: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors. The kernel (``csrc/window_gather_bwd.cu``) gives
+    each support tile's rows to blocks that find the query tiles whose
+    windows hold them by a binary search over ``starts`` (non-decreasing in
+    every window geometry), sort those slots by row in slot order and sum
+    each row's gradient rows in that order in shared memory: no atomics,
+    the same bits on every run, every dx element written once. Bound:
+    bytes (g and li read once, dx written once). It takes M·K < 2^23."""
     global bwd_launches
     if g.device.type == "cpu":
         return window_gather_bwd_plain(g, local_idx, starts, tile, width, n_support)
@@ -117,11 +129,13 @@ def window_gather_bwd(g, local_idx, starts, tile: int, width: int,
     if local_idx.shape != (b, m, k):
         raise ValueError(f"g {tuple(g.shape)} vs idx {tuple(local_idx.shape)}")
     _check(b, n_support, local_idx, starts, tile, width)
+    if m * k >= 1 << 23:
+        raise ValueError(f"M·K = {m * k} slots a cloud ≥ 2^23, the kernel's limit")
     g = g.contiguous()
     li = local_idx.to(torch.int32).contiguous()
     st = starts.to(torch.int32).contiguous()
-    dx = torch.zeros((b, n_support, c), dtype=torch.float32, device=g.device)
-    if g.numel() == 0:
+    dx = torch.empty((b, n_support, c), dtype=torch.float32, device=g.device)
+    if dx.numel() == 0:
         return dx
     stream = torch.cuda.current_stream(g.device).cuda_stream
     rc = build.library().cbl_window_gather_bwd(

@@ -3,7 +3,11 @@
 Replaces contrastboundary_tpu/ops/pallas/win_topk.py::window_topk (the TPU
 kernel computes the [T, W] distance tile once in VMEM and runs k exact
 (max, first-index argmax, mask) passes on it). The CUDA kernel is
-``csrc/win_topk.cu``; its design and bound are noted there.
+``csrc/win_topk.cu``: a warp per query row scores each candidate once and
+selects the k slots by exact warp reductions over its lanes' best
+candidates; its design and bound (operations) are noted there. It takes
+windows of W ≤ 2048 rows (``MAX_WINDOW``; ops/knn.py sends wider ones to a
+plain search, as the reference does).
 
 Contract (both versions):
   query [B, M, 3] f32 and support [B, Ns, 3] f32, both Morton-sorted; query
@@ -29,6 +33,7 @@ from ...kernels import build
 launches = 0
 
 MODES = {"plain": 0, "exclude_self": 1, "ensure_self": 2}
+MAX_WINDOW = 2048  # rows a window of the kernel may hold (64 per lane)
 
 
 def window_start_tiles(gq: int, gs: int, width: int, window: int) -> np.ndarray:
@@ -121,13 +126,13 @@ def window_topk(query, support, k: int, *, tile: int, width: int, window: int,
     if query.dtype != torch.float32 or support.dtype != torch.float32:
         raise TypeError("window_topk takes float32 points")
     b, m, ns = _geometry(query, support, tile, width, mode)
-    if tile > 1024:
-        raise ValueError(f"tile={tile} > 1024 threads")
-    if 16 * width * tile > 227 * 1024:
-        raise ValueError(f"window of {width * tile} rows exceeds shared memory")
+    if width * tile > MAX_WINDOW:
+        raise ValueError(f"window of {width * tile} rows > {MAX_WINDOW}, the kernel's limit")
     query, support = query.contiguous(), support.contiguous()
     idx = torch.empty((b, m, k), dtype=torch.int32, device=query.device)
     val = torch.empty((b, m, k), dtype=torch.float32, device=query.device)
+    if idx.numel() == 0:
+        return idx, val
     lib = build.library()
     stream = torch.cuda.current_stream(query.device).cuda_stream
     rc = lib.cbl_win_topk(
