@@ -12,9 +12,12 @@ is not 0:
            versions on the card, at every geometry of a B=2 x N=65536
            request: integer-grid clouds with duplicated rows (exact) and
            synthetic crops (values 1e-5, index disagreement <= 1e-4 of
-           slots, which allows for near-ties); and window top-k where no
+           slots, which allows for near-ties); window top-k where no
            path takes it (k > W in the self and cross geometries,
-           exclude_self), exact on the integer grid.
+           exclude_self), exact on the integer grid; and window gather
+           directly at C in {1, 2, 3, 5, 35, 67, 131, 259, 1024} in the self
+           and cross geometries, and from a misaligned x (the scalar-read
+           path at C % 4 == 0), equal to the plain version.
 3. serve   the trained flagship (full width, float32) on B=2 x N=65536
            crops of synthetic val room 0: one request with the launch counts
            reset just before and read just after (both must be > 0) and the
@@ -61,10 +64,13 @@ is not 0:
            plain version on CPU copies (CPU index_add_ sums each row in slot
            order, as the kernel does), cbl_stats_fwd counts exact and
            sums rel <= 1e-5, cbl_stats_bwd max-abs <= 1e-4 of the output's
-           scale; the same on one step over integer-grid clouds. Then each
-           call timed as in phase 4 (5 runs each), and the largest
-           window_topk and window_gather_bwd calls 20 times through the
-           wrapper and through the bare C entry.
+           scale, the same bits when run again, and its first pass's slot
+           coefficients cd within 1e-5 of their scale of the plain
+           version's; the same on one step over integer-grid clouds. Then
+           each call timed as in phase 4 (5 runs each), and the largest
+           (level-0) window_topk, window_gather, window_gather_bwd and
+           cbl_stats_bwd calls 20 times through the wrapper and through the
+           bare C entry.
 10. stale-train phase 8 with bn_mode='stale': pt_attn_fwd and pt_attn_bwd
            exactly 18 launches each, window_gather and window_gather_bwd 18
            fewer than in phase 8 (the attention layers' gathers are inside
@@ -399,6 +405,23 @@ def compare_stats_fwd(call) -> float:
     return err
 
 
+def compare_stats_bwd(call) -> float:
+    """Against the plain version (1e-4 of the output's scale: the sums
+    over a row's slots meet in another order, and the plain version's
+    index_add_ adds with atomics on the card); the call run again gives the
+    same bits (no atomics); the first pass's slot coefficients cd within
+    1e-5 of their scale of the plain version's (the same roundings; exp may
+    round otherwise)."""
+    args, _, out = call
+    what = f"cbl_stats_bwd {tuple(out.shape)}"
+    err = compare_scaled(what, out, cd.cbl_stats_bwd_plain(*args), 1e-4)
+    again, coef = cd.cbl_stats_bwd_passes(*args)
+    bits = lambda t: t.cpu().view(torch.int32)
+    require(torch.equal(bits(again), bits(out)), f"{what} differs between runs")
+    compare_scaled(f"{what} pass-1 cd", coef, cd.cbl_bwd_cd_plain(*args)[0], 1e-5)
+    return err
+
+
 def compare_pt_attn_fwd(call) -> float:
     """out and both statistic pairs within 1e-4 of their scale (the kernel
     sums over slots and blocks in another order, and rounds exp otherwise)."""
@@ -487,8 +510,7 @@ def compare_call(name, call, exact_topk=False) -> float:
         return compare_gather_bwd(call)
     if name == "cbl_stats_fwd":
         return compare_stats_fwd(call)
-    args, _, out = call
-    return compare_scaled(name, out, cd.cbl_stats_bwd_plain(*args), 1e-4)
+    return compare_stats_bwd(call)
 
 
 def check_kernels(dev, points_sets) -> float:
@@ -527,6 +549,41 @@ def check_topk_modes(dev, pts) -> float:
         compare_topk(((query, support, k), kw, out), exact=True)
         print(f"  window_topk mode={mode} k={k} W={geo['tile'] * geo['width']} "
               f"M={query.shape[1]} Ns={support.shape[1]}: equal to the plain version", flush=True)
+    return 0.0
+
+
+GATHER_WIDTHS = (1, 2, 3, 5, 35, 67, 131, 259, 1024)
+
+
+def check_gather_widths(dev) -> float:
+    """window_gather at the widths of GATHER_WIDTHS, in the self geometry
+    (tile 256, width 3, K 16) and the cross one (16384 queries on 65536
+    support rows, width 6, K 3), with repeated and shadow slots, and at C =
+    1024 from an x that is not 16-byte aligned (the scalar-read path at C %
+    4 == 0): each equal to the plain version."""
+    rng = np.random.default_rng(6)
+    tile = 256
+    cases = []
+    for c in GATHER_WIDTHS:
+        for m, ns, k, width, window in ((4096, 4096, 16, 3, 1), (16384, 65536, 3, 6, 1)):
+            if c == 1024 and ns == 65536:
+                continue  # 2 GB of output; the self case covers the width
+            cases.append((c, m, ns, k, width, window, 0))
+    cases.append((1024, 4096, 4096, 16, 3, 1, 1))
+    for c, m, ns, k, width, window, shift in cases:
+        buf = torch.as_tensor(rng.standard_normal(B * ns * c + shift, dtype=np.float32), device=dev)
+        x = buf[shift:].view(B, ns, c)
+        w_sz = width * tile
+        li = rng.integers(0, w_sz + 1, (B, m, k)).astype(np.int32)
+        li[:, ::7, -1] = w_sz  # shadow slots
+        starts = wt.window_start_tiles(m // tile, ns // tile, width, window)
+        li_t = torch.as_tensor(li, device=dev)
+        st = torch.as_tensor(starts, dtype=torch.int32, device=dev)
+        out = tg.window_gather(x, li_t, st, tile, width)
+        compare_gather(((x, li_t, st, tile, width), {}, out))
+        plan = tg.gather_plan(B * m * k, c, x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+        print(f"  window_gather C={c} x {tuple(x.shape)}{' misaligned' if shift else ''} idx "
+              f"{tuple(li.shape)} W={w_sz} {plan}: equal to the plain version", flush=True)
     return 0.0
 
 
@@ -738,7 +795,8 @@ def call_costs(name, call):
         n_bytes += 4 * out.numel()
         n_ops = valid * (4 * c + 12)
     else:
-        n_bytes += 4 * (args[3].numel() + out.numel())
+        # the forward's m̂ (one lane of its stats), the cotangent, dx
+        n_bytes += 4 * (features.shape[0] * features.shape[1] + args[4].numel() + out.numel())
         n_ops = valid * (8 * c + 16)
     shape = dict(features=list(features.shape), K=li.shape[-1], tile=tile, width=width,
                  valid_slots=int(valid))
@@ -943,7 +1001,8 @@ def check_train_kernels(dev, train) -> list:
             print(f"  integer grid: {len(cs)} {name} calls agree", flush=True)
     del calls
     summary = time_calls(train["calls"], dev, train["launches"], max_err, TRAIN_KERNELS, reps=5)
-    time_spread(train["calls"], dev, ("window_topk", "window_gather_bwd"))
+    time_spread(train["calls"], dev,
+                ("window_topk", "window_gather", "window_gather_bwd", "cbl_stats_bwd"))
     return summary
 
 
@@ -991,42 +1050,59 @@ def bare_entry(name, args, kw):
     """A kernel's C entry on operands prepared once, outside the timed call:
     none of the wrapper's host work (operand checks and conversions, the
     window starts copied to the card, the output allocated) is timed. The
-    v2 backward's gradient is not zeroed between runs."""
+    v2 backward's gradient is not zeroed between runs. The returned call
+    keeps its operands alive."""
     lib, stream = build.library(), torch.cuda.current_stream(args[0].device).cuda_stream
+
+    def call(entry, tensors, *rest):
+        ptrs = [t.data_ptr() for t in tensors]
+        return lambda _keep=tensors: build.check(entry(*ptrs, *rest, stream), name)
+
     if name == "window_topk":
         query, support, k = args
         b, m, _ = query.shape
         ns, tile = support.shape[1], kw["tile"]
         idx = torch.empty((b, m, k), dtype=torch.int32, device=query.device)
         val = torch.empty((b, m, k), dtype=torch.float32, device=query.device)
-        ptrs = [t.data_ptr() for t in (query, support, idx, val)]
-        rest = (b, m, ns, k, tile, kw["width"], kw["window"], ns // tile,
-                wt.MODES[kw.get("mode", "plain")], stream)
-        return lambda: build.check(lib.cbl_win_topk(*ptrs, *rest), name)
+        return call(lib.cbl_win_topk, (query, support, idx, val), b, m, ns, k, tile,
+                    kw["width"], kw["window"], ns // tile, wt.MODES[kw.get("mode", "plain")])
+    if name == "window_gather":
+        x, li, starts, tile, width = args
+        b, ns, c = x.shape
+        m, k = li.shape[1:]
+        out = torch.empty((b, m, k, c), dtype=torch.float32, device=x.device)
+        plan = tg.gather_plan(b * m * k, c, x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+        ops = (x, li.to(torch.int32).contiguous(), starts.to(torch.int32).contiguous(), out)
+        return call(lib.cbl_window_gather, ops, b, ns, m, k, c, tile, width, plan.lpg, plan.nt,
+                    plan.rw)
     if name == "window_gather_bwd":
         g, li, starts, tile, width, ns = args
         b, m, k, c = g.shape
         dx = torch.empty((b, ns, c), dtype=torch.float32, device=g.device)
-        ptrs = [t.data_ptr() for t in (g, li.to(torch.int32).contiguous(),
-                                       starts.to(torch.int32).contiguous(), dx)]
-        rest = (b, ns, m, k, c, tile, width, stream)
-        return lambda: build.check(lib.cbl_window_gather_bwd(*ptrs, *rest), name)
+        ops = (g, li.to(torch.int32).contiguous(), starts.to(torch.int32).contiguous(), dx)
+        return call(lib.cbl_window_gather_bwd, ops, b, ns, m, k, c, tile, width)
+    if name == "cbl_stats_bwd":
+        features, meta, li, stats, g, temperature, tile, width, window = args
+        f, mt, lii = cd._cuda_args(features, meta, li, tile, width)
+        b, m, c = f.shape
+        k = lii.shape[-1]
+        coef = torch.empty((b, m, k), dtype=torch.float32, device=f.device)
+        lands = torch.empty((b, m, k), dtype=torch.int32, device=f.device)
+        ops = (f, mt, lii, stats.contiguous(), g.contiguous(), coef, lands, torch.empty_like(f))
+        return call(lib.cbl_stats_bwd, ops, b, m, k, c, tile, width, window,
+                    cd._inv_t(temperature), cd.bwd_plan(b, m, tile)[1])
     if name == "cbl_tile2_fwd":
         features, meta, li, temperature, tile, width, window = args
         f, lii, starts, mt = c2.cuda_args(features, li, tile, width, window, meta)
-        out = torch.empty((*f.shape[:2], 8), device=f.device)
-        ptrs = (mt, lii, starts, out)
+        ops = (f, mt, lii, starts, torch.empty((*f.shape[:2], 8), device=f.device))
     else:
         features, meta, li, stats, g, temperature, tile, width, window = args
         f, lii, starts, mt, st, gl = c2.cuda_args(features, li, tile, width, window, meta,
                                                   stats, g)
-        out = torch.zeros_like(f)
-        ptrs = (mt, lii, starts, st, gl, out)
+        ops = (f, mt, lii, starts, st, gl, torch.zeros_like(f))
     b, m, c = f.shape
-    ptrs = [t.data_ptr() for t in (f, *ptrs)]
-    entry = getattr(lib, name)
-    return lambda: build.check(entry(*ptrs, b, m, lii.shape[-1], c, tile, width,
-                                     float(temperature), stream), name)
+    return call(getattr(lib, name), ops, b, m, lii.shape[-1], c, tile, width,
+                float(temperature))
 
 
 @torch.no_grad()
@@ -1034,8 +1110,9 @@ def time_spread(calls, dev, names, reps=20):
     """The spread of one launch's time: the largest recorded call of each
     kernel (level 0; window_topk by rows times k) timed reps times alone,
     each after an L2 flush, through its wrapper and through its bare C
-    entry; and for the v2 CBL backward, how many neighbour atomics land on
-    one row."""
+    entry; for the v2 CBL backward, how many neighbour atomics land on one
+    row; for the dense CBL backward, how its scatter's terms (slots with cd
+    != 0) spread over the support tiles, one block's work each at level 0."""
     flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     for name in names:
         args, kw, _ = max(calls[name], key=lambda call: call[0][0].numel() * (
@@ -1046,6 +1123,16 @@ def time_spread(calls, dev, names, reps=20):
             ts = sorted(time_ms(fn, flush_buf, reps=1) for _ in range(reps))
             print(f"  {name} {tuple(args[0].shape)} {kw}, {what}, {reps} runs: min {ts[0]:.4f} ms, median "
                   f"{statistics.median(ts):.4f} ms, max {ts[-1]:.4f} ms", flush=True)
+        if name == "cbl_stats_bwd":
+            features, meta, li, _, _, _, tile, width, window = args
+            m = features.shape[1]
+            starts = torch.as_tensor(cd.self_window_starts(m, tile, width, window), device=dev)
+            rows, member = tg._rows(li, starts, tile, width, m)
+            hit = member & (cd.cbl_bwd_cd_plain(*args)[0] != 0)
+            per_tile = torch.bincount(rows[hit] // tile, minlength=features.shape[0] * m // tile)
+            print(f"  {name} {tuple(features.shape)}: {int(hit.sum())} scatter terms on "
+                  f"{per_tile.numel()} support tiles, per tile min {int(per_tile.min())}, mean "
+                  f"{float(per_tile.float().mean()):.1f}, max {int(per_tile.max())}", flush=True)
         if name == "cbl_tile2_bwd":
             features, meta, li, stats, g, _, tile, width, window = args
             m = features.shape[1]
@@ -1210,6 +1297,7 @@ def main() -> int:
         topk_err = check_kernels(dev, [("integer grid", grid, True),
                                        ("synthetic crop", batch["points"], False)])
         check_topk_modes(dev, grid)
+        check_gather_widths(dev)
 
     with phase("serve"):
         served = serve(dev, batch)

@@ -26,7 +26,8 @@
 //     shared memory, bucket = local row % NB. An exclusive scan of the counts
 //     (bucket-major) and a warp-ordered placement (__match_any_sync ranks)
 //     lay the entries out per bucket in ascending slot order: a stable
-//     counting sort, with no order left to scheduling.
+//     counting sort, with no order left to scheduling (window_sort.cuh, which
+//     the CBL stats backward shares).
 //   * Lane group b (LPG lanes, NB = 256 / LPG groups) owns the rows of bucket
 //     b; its lanes own channels. It walks its entries in order, loading 8
 //     gradient vectors a lane ahead (16 B each where C % 4 == 0, neighbouring
@@ -48,32 +49,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "window_sort.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSteps = 16;                    // slots a thread per super-chunk
-constexpr int kSuper = kWarps * kSteps * 32;  // 4096 slots
+using namespace cbl_window_sort;
+
 constexpr int kMaxChunk = 256;                // channels a block
 constexpr int kAccFloats = 16384;             // 64 KB accumulator
 constexpr int kMaxRows = 256;                 // rows a block (8-bit row)
 constexpr int kMinRows = 16;                  // rows a block, at least
 constexpr int kMaxSmem = (kAccFloats + kSuper) * 4;
-
-// first g in [0, n) with a[g] >= v (n if none)
-__device__ __forceinline__ int first_at_least(const int32_t* a, int n, int v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
 
 template <int V>
 struct Vec;
@@ -112,9 +98,9 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ float4 smem[];              // float4: 16-byte aligned
   float* acc = reinterpret_cast<float*>(smem);             // rows x chunk
   int* list = reinterpret_cast<int*>(acc + rows * chunk);  // kSuper
-  __shared__ int cnt[kThreads], off[kThreads + 1], cur[kThreads], wsum[kWarps];
+  __shared__ Counts counts;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int splits = tile / rows;
   const int s = blockIdx.x / splits;  // support tile
   const int row0 = s * tile + (blockIdx.x - s * splits) * rows;
@@ -124,83 +110,28 @@ __global__ void __launch_bounds__(kThreads)
   const int gq = m / tile;
   const int w_sz = width * tile;
   const int kt = k * tile;  // slots a query tile
-  const int slot_lo = first_at_least(starts, gq, s - width + 1) * kt;
-  const int slot_hi = first_at_least(starts, gq, s + 1) * kt;
+  const int2 range =
+      slot_range([&](int t) { return starts[t]; }, gq, width, s, kt);
 
   for (int i = tid; i < rows * chunk; i += kThreads) acc[i] = 0.0f;
-  cnt[tid] = 0;
+  counts.cnt[tid] = 0;
   __syncthreads();
 
   const int32_t* li_b = li + (size_t)b * m * k;
   const float* g_b = g + (size_t)b * m * k * c + c0;
-  const unsigned lower = (1u << lane) - 1u;
-  for (int base = slot_lo; base < slot_hi; base += kSuper) {
-    // 1. the slots landing in this block's rows, counted per (bucket, warp)
-    int ent[kSteps];
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-      const int slot = base + (warp * kSteps + st) * 32 + lane;
-      int e = -1;
-      if (slot < slot_hi) {
-        const int j = li_b[slot];
-        const int r = starts[slot / kt] * tile + j - row0;
-        if (j >= 0 && j < w_sz && r >= 0 && r < rows) e = (slot << 8) | r;
-      }
-      ent[st] = e;
-      if (e >= 0) atomicAdd(&cnt[(e & (NB - 1)) * kWarps + warp], 1);
-    }
-    __syncthreads();
-    // 2. exclusive scan of the counts, bucket-major then warp
-    {
-      const int v = cnt[tid];
-      cnt[tid] = 0;
-      int x = v;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, x, o);
-        if (lane >= o) x += y;
-      }
-      if (lane == 31) wsum[warp] = x;
-      __syncthreads();
-      if (warp == 0) {
-        const int w = lane < kWarps ? wsum[lane] : 0;
-        int y = w;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int z = __shfl_up_sync(kFull, y, o);
-          if (lane >= o) y += z;
-        }
-        if (lane < kWarps) wsum[lane] = y - w;
-      }
-      __syncthreads();
-      const int ex = x - v + wsum[warp];
-      off[tid] = ex;
-      cur[tid] = ex;
-      if (tid == kThreads - 1) off[kThreads] = ex + v;
-    }
-    __syncthreads();
-    if (off[kThreads] == 0) continue;  // nothing lands here (block-uniform)
-    // 3. each warp places its entries in slot order (step, then lane)
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-      const int e = ent[st];
-      if (!__any_sync(kFull, e >= 0)) continue;
-      const int bucket = e >= 0 ? (e & (NB - 1)) : -1;
-      const unsigned same = __match_any_sync(kFull, bucket);
-      const int at = e >= 0 ? cur[bucket * kWarps + warp] : 0;
-      __syncwarp();
-      if (e >= 0) {
-        list[at + __popc(same & lower)] = e;
-        if ((same & lower) == 0) cur[bucket * kWarps + warp] = at + __popc(same);
-      }
-      __syncwarp();
-    }
-    __syncthreads();
+  // the slot's entry: slot << 8 | local row where it lands in this block
+  const auto entry = [&](int slot) {
+    const int j = li_b[slot];
+    const int r = starts[slot / kt] * tile + j - row0;
+    return j >= 0 && j < w_sz && r >= 0 && r < rows ? (slot << 8) | r : -1;
+  };
+  for (int base = range.x; base < range.y; base += kSuper) {
+    if (sort_chunk<NB>(base, range.y, entry, list, counts) == 0) continue;
     // 4. lane group gi adds its bucket's gradient rows in slot order
     {
       const int gi = tid / LPG, gl = tid % LPG;
-      const int e1 = off[(gi + 1) * kWarps];
-      for (int e = off[gi * kWarps]; e < e1; e += AHEAD) {
+      const int e1 = counts.off[(gi + 1) * kWarps];
+      for (int e = counts.off[gi * kWarps]; e < e1; e += AHEAD) {
         T val[AHEAD][NT];
         int r[AHEAD];
 #pragma unroll

@@ -2,7 +2,8 @@
 
 Every source under ``csrc/`` is compiled by one ``nvcc`` call into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
-seconds), at first use, into ``_build/<hash of the sources and flags>/``
+seconds), at first use, into ``_build/<hash of the sources, the headers they
+include and the flags>/``
 inside the package. A finished library is found again by its hash; a build
 writes to a temporary name and renames it into place, so a cut build leaves
 no library behind. A failed or timed-out build raises.
@@ -24,6 +25,7 @@ SOURCES = (
     "win_topk.cu", "tile_gather.cu", "window_gather_bwd.cu", "cbl_dense.cu", "pt_attn.cu",
     "cbl_tile2.cu", "gather_rows.cu",
 )
+HEADERS = ("window_sort.cuh",)  # included by sources; part of the hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -35,15 +37,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # query, support, idx, val, b, m, ns, k, tile, width, window, gs, mode, stream
     "cbl_win_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, li, starts, out, b, ns, m, k, c, tile, width, stream
-    "cbl_window_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, li, starts, out, b, ns, m, k, c, tile, width, lanes a row, pieces a
+    # lane, rows a warp, stream
+    "cbl_window_gather": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),
     # g, li, starts, dx, b, ns, m, k, c, tile, width, stream
     "cbl_window_gather_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # features, meta, li, stats, b, m, k, c, tile, width, window, inv_t, stream
     "cbl_stats_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    # features, meta, li, g_stats, dx, b, m, k, c, tile, width, window, inv_t,
-    # stream
-    "cbl_stats_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # features, meta, li, stats, g_stats, cd, lands, dx, b, m, k, c, tile,
+    # width, window, inv_t, scatter rows a block, stream
+    "cbl_stats_bwd": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
     # q, kv, rel, li, starts, params (12 pointers), out, stats, b, m, k, c,
     # tile, width, grid, rows per block, stream
     "cbl_pt_attn_fwd": (_P,) * 8 + (_I,) * 8 + (_P,),
@@ -79,7 +82,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

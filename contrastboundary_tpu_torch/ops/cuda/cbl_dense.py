@@ -10,7 +10,10 @@ valid members, the −50 fill, the cancellation floor of the backward), but it
 is evaluated on the K listed slots only: the slots of a row are distinct by
 construction (window top-k), which the TPU kernel's membership mask also
 assumes. The plain versions round every product and sum of the distances in
-the kernel's order.
+the kernel's order. The backward takes the forward's max-shift m̂ (stats lane
+0), held constant, and runs as two passes: the per-row slot coefficients cd
+and the row-local part dq (``cbl_bwd_cd_plain``), then the transposed sum of
+cd·(s − q) onto the support rows in ascending slot order.
 """
 from __future__ import annotations
 
@@ -27,6 +30,13 @@ fwd_launches = 0
 bwd_launches = 0
 
 CHANNELS = 32  # the feature width the kernels are built for (base_fdim)
+MAX_SCATTER_ROWS = 256  # rows a block of the backward's scatter (8-bit row)
+MIN_SCATTER_ROWS = 16
+# blocks the scatter splits a level's rows into, at least where the tile
+# allows: the fastest split of each flagship level on an H100 (rows a block
+# swept from 16 to 256)
+MIN_SCATTER_BLOCKS = 256
+MAX_K = 256  # slots a row the backward's first pass holds in shared memory
 
 
 def _inv_t(temperature: float) -> float:
@@ -58,8 +68,9 @@ def _seq_dot(a, b):
     return acc
 
 
-def _slot_terms(features, meta, li, temperature, tile, width, window):
-    """Per-slot terms of the plain versions ([B, M, K] unless noted)."""
+def _slot_terms(features, meta, li, temperature, tile, width, window, m_hat=None):
+    """Per-slot terms of the plain versions ([B, M, K] unless noted); the
+    max-shift m̂ [B, M] is computed unless given."""
     _check(features, meta, li, tile, width)
     b, m, c = features.shape
     starts = torch.as_tensor(self_window_starts(m, tile, width, window), device=features.device)
@@ -75,7 +86,9 @@ def _slot_terms(features, meta, li, temperature, tile, width, window):
     d2 = torch.clamp_min(scale2 - 2.0 * _seq_dot(qe, s), 0.0)
     dist = torch.sqrt(d2 + 1e-12)
     valid = mv > 0
-    m_hat = torch.where(valid, -dist, -INF).amax(-1, keepdim=True)
+    if m_hat is None:
+        m_hat = torch.where(valid, -dist, -INF).amax(-1)
+    m_hat = m_hat[..., None]
     arg = torch.where(valid, (-dist - m_hat) * _inv_t(temperature), -50.0)
     e = torch.exp(arg) * mv
     return dict(q=q, s=s, mv=mv, posmv=posmv, d2=d2, scale2=scale2, dist=dist,
@@ -95,19 +108,57 @@ def cbl_stats_fwd_plain(features, meta, li, temperature: float, tile: int,
     ], -1)
 
 
-def cbl_stats_bwd_plain(features, meta, li, g_stats, temperature: float,
-                        tile: int, width: int, window: int):
-    """Plain PyTorch version of the backward → dfeatures [B, M, C] from the
-    stats cotangent's lanes 1 (pos) and 2 (under); m̂ is held constant."""
-    t = _slot_terms(features, meta, li, temperature, tile, width, window)
+def cbl_bwd_cd_plain(features, meta, li, stats, g_stats, temperature: float,
+                     tile: int, width: int, window: int):
+    """Plain version of the backward's first pass → (cd [B, M, K], dq
+    [B, M, C], the slot terms): each slot's coefficient cd (0 for a
+    non-member or shadow slot and below the cancellation floor) from the
+    stats cotangent's lanes 1 (pos) and 2 (under) with the forward's m̂
+    (stats lane 0) held constant, and the row-local part dq = Σₖ cd·q −
+    Σₖ cd·s."""
+    t = _slot_terms(features, meta, li, temperature, tile, width, window, stats[..., 0])
     g = g_stats.float()
     coef = (g[..., 1:2] * t["posmv"] + g[..., 2:3]) * t["e"] * -_inv_t(temperature)
     cd = torch.where(t["d2"] > 1e-5 * t["scale2"], coef / t["dist"], 0.0)
     q, s = t["q"], t["s"]
     dq = cd.sum(-1, keepdim=True) * q - (cd[..., None] * s).sum(2)
+    return cd, dq, t
+
+
+def cbl_stats_bwd_plain(features, meta, li, stats, g_stats, temperature: float,
+                        tile: int, width: int, window: int):
+    """Plain PyTorch version of the backward → dfeatures [B, M, C] =
+    dq + the window-gather transpose of cd·(s − q) (``cbl_bwd_cd_plain``)."""
+    cd, dq, t = cbl_bwd_cd_plain(features, meta, li, stats, g_stats, temperature,
+                                 tile, width, window)
+    q, s = t["q"], t["s"]
     ds = cd[..., None] * (s - q[:, :, None, :])
     m = q.shape[1]
     return dq + _tg.window_gather_bwd_plain(ds, li, t["starts"], tile, width, m)
+
+
+def scatter_slot_ranges(m: int, k: int, tile: int, width: int, window: int) -> np.ndarray:
+    """[M / tile, 2] slot ranges [lo, hi) of the backward's scatter: the
+    flat (q, k) slots of the query tiles whose windows hold each support
+    tile, as the kernel finds them (two binary searches over the self
+    geometry's non-decreasing window starts)."""
+    starts = self_window_starts(m, tile, width, window)
+    s = np.arange(m // tile)
+    lo = np.searchsorted(starts, s - width + 1, side="left")
+    hi = np.searchsorted(starts, s + 1, side="left")
+    return np.stack([lo, hi], 1) * (k * tile)
+
+
+def bwd_plan(b: int, m: int, tile: int):
+    """Launch geometry of the backward → (pass-1 blocks of 256 threads, 8
+    lanes a row; scatter rows a block; scatter grid (blocks, clouds)). The
+    scatter's rows are a power-of-two divisor of the tile, at most 256,
+    halved (down to 16) while it would have fewer than MIN_SCATTER_BLOCKS
+    blocks."""
+    rows = min(tile & -tile, MAX_SCATTER_ROWS)
+    while rows > MIN_SCATTER_ROWS and (m // rows) * b < MIN_SCATTER_BLOCKS:
+        rows //= 2
+    return -(-b * m * 8 // 256), rows, ((m // tile) * (tile // rows), b)
 
 
 def _cuda_args(features, meta, li, tile, width):
@@ -145,42 +196,61 @@ def cbl_stats_fwd(features, meta, li, temperature: float, tile: int,
     return stats
 
 
-def cbl_stats_bwd(features, meta, li, g_stats, temperature: float, tile: int,
-                  width: int, window: int):
-    """Stats backward: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+def cbl_stats_bwd_passes(features, meta, li, stats, g_stats, temperature: float,
+                         tile: int, width: int, window: int):
+    """The backward kernel on CUDA tensors → (dfeatures, cd): the pass-1
+    coefficients come back from their scratch tensor."""
     global bwd_launches
-    if features.device.type == "cpu":
-        return cbl_stats_bwd_plain(
-            features, meta, li, g_stats, temperature, tile, width, window
-        )
     f, mt, lii = _cuda_args(features, meta, li, tile, width)
-    if g_stats.shape != mt.shape or g_stats.device != f.device:
-        raise ValueError(f"stats cotangent {tuple(g_stats.shape)} on {g_stats.device}")
-    gs = g_stats.float().contiguous()
+    for name, x in (("stats", stats), ("stats cotangent", g_stats)):
+        if x.shape != mt.shape or x.device != f.device:
+            raise ValueError(f"{name} {tuple(x.shape)} on {x.device}")
     b, m, c = f.shape
-    dx = torch.zeros_like(f)
+    k = lii.shape[-1]
+    if m * k >= 1 << 23 or k > MAX_K:
+        raise ValueError(f"M·K = {m * k} slots a cloud (limit 2^23), K = {k} (limit {MAX_K})")
+    st = stats.float().contiguous()
+    gs = g_stats.float().contiguous()
+    _, rows, _ = bwd_plan(b, m, tile)
+    cd = torch.empty((b, m, k), dtype=torch.float32, device=f.device)
+    lands = torch.empty((b, m, k), dtype=torch.int32, device=f.device)
+    dx = torch.empty_like(f)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = build.library().cbl_stats_bwd(
-        f.data_ptr(), mt.data_ptr(), lii.data_ptr(), gs.data_ptr(), dx.data_ptr(),
-        b, m, lii.shape[-1], c, tile, width, window, _inv_t(temperature), stream,
+        f.data_ptr(), mt.data_ptr(), lii.data_ptr(), st.data_ptr(), gs.data_ptr(),
+        cd.data_ptr(), lands.data_ptr(), dx.data_ptr(), b, m, k, c, tile, width, window,
+        _inv_t(temperature), rows, stream,
     )
     bwd_launches += 1
     build.check(rc, "cbl_stats_bwd")
-    return dx
+    return dx, cd
+
+
+def cbl_stats_bwd(features, meta, li, stats, g_stats, temperature: float, tile: int,
+                  width: int, window: int):
+    """Stats backward: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. ``stats`` is the forward's output (its m̂ is used)."""
+    if features.device.type == "cpu":
+        return cbl_stats_bwd_plain(
+            features, meta, li, stats, g_stats, temperature, tile, width, window
+        )
+    return cbl_stats_bwd_passes(
+        features, meta, li, stats, g_stats, temperature, tile, width, window
+    )[0]
 
 
 class _CblDenseStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, features, meta, li, temperature, tile, width, window):
-        ctx.save_for_backward(features, meta, li)
+        stats = cbl_stats_fwd(features, meta, li, temperature, tile, width, window)
+        ctx.save_for_backward(features, meta, li, stats)
         ctx.args = (temperature, tile, width, window)
-        return cbl_stats_fwd(features, meta, li, temperature, tile, width, window)
+        return stats
 
     @staticmethod
     def backward(ctx, g_stats):
-        features, meta, li = ctx.saved_tensors
-        dx = cbl_stats_bwd(features, meta, li, g_stats, *ctx.args)
+        features, meta, li, stats = ctx.saved_tensors
+        dx = cbl_stats_bwd(features, meta, li, stats, g_stats, *ctx.args)
         return dx, None, None, None, None, None, None
 
 

@@ -19,6 +19,8 @@ ascending slot order (q, then k), starting from 0: the order of CPU
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ...kernels import build
@@ -26,6 +28,48 @@ from ...kernels import build
 # kernel launches made by the wrappers below (plain-version calls not counted)
 launches = 0
 bwd_launches = 0
+
+WARPS_PER_BLOCK = 8  # 256 threads
+# bytes of output a warp moves: the sizes that timed fastest over the
+# flagship step's calls on an H100 (rows a warp swept from 1 to 32)
+VEC_WARP_BYTES = 2048
+SCALAR_WARP_BYTES = 4096
+
+
+class GatherPlan(NamedTuple):
+    """Launch geometry of the forward gather kernel (``csrc/tile_gather.cu``)."""
+    lpg: int  # lanes a row on the vector path; 0: the scalar-read path
+    nt: int  # 16-byte pieces a lane (vector path)
+    rw: int  # output rows a warp
+    grid: tuple  # (blocks of 256 threads, channel chunks)
+
+
+def gather_plan(rows: int, c: int, aligned: bool) -> GatherPlan:
+    """The path and launch geometry for ``rows`` = B·M·K output rows of C
+    floats. The vector path (C % 4 == 0 and x and out 16-byte aligned):
+    the smallest power-of-two lane group (4 to 32) that covers the row's
+    C/4 pieces, or 32 lanes with 2 or 4 pieces each, in channel chunks
+    beyond 128 pieces. Other widths take the scalar-read path, whose warp
+    rows are a multiple of 4 (its runs then start 16-byte aligned). Rows a
+    warp: 32, halved while the warp would move more than VEC_WARP_BYTES
+    (SCALAR_WARP_BYTES), down to one row a lane group (vector) or 4
+    (scalar)."""
+    if c % 4 == 0 and aligned:
+        cv = c // 4
+        lpg = min(32, max(4, 1 << (cv - 1).bit_length()))
+        nt = min(4, 1 << (-(-cv // lpg) - 1).bit_length())
+        chunks = -(-cv // (lpg * nt))
+        row_bytes = 16 * min(cv, lpg * nt)
+        min_rw, target = 32 // lpg, VEC_WARP_BYTES
+    else:
+        lpg, nt, chunks = 0, 1, 1
+        row_bytes = 4 * c
+        min_rw, target = 4, SCALAR_WARP_BYTES
+    rw = 32
+    while rw > min_rw and rw * row_bytes > target:
+        rw //= 2
+    warps = -(-rows // rw)
+    return GatherPlan(lpg, nt, rw, (-(-warps // WARPS_PER_BLOCK), chunks))
 
 
 def _check(b, ns, local_idx, starts, tile, width):
@@ -51,7 +95,9 @@ def window_gather_plain(x, local_idx, starts, tile: int, width: int):
 
 def window_gather(x, local_idx, starts, tile: int, width: int):
     """Window gather: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors. The kernel (``csrc/tile_gather.cu``) gives each warp
+    consecutive output rows, reads their indices once and copies the rows
+    on the path and geometry ``gather_plan`` chooses."""
     global launches
     if x.device.type == "cpu":
         return window_gather_plain(x, local_idx, starts, tile, width)
@@ -64,16 +110,19 @@ def window_gather(x, local_idx, starts, tile: int, width: int):
     b, ns, c = x.shape
     _check(b, ns, local_idx, starts, tile, width)
     m, k = local_idx.shape[1:]
+    if b * m * k >= 2**31 - 64 or b * ns >= 2**31:
+        raise ValueError(f"window_gather: {b * m * k} rows or {b * ns} support rows ≥ 2^31")
     x = x.contiguous()
     li = local_idx.to(torch.int32).contiguous()
     st = starts.to(torch.int32).contiguous()
     out = torch.empty((b, m, k, c), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    plan = gather_plan(b * m * k, c, x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = build.library().cbl_window_gather(
         x.data_ptr(), li.data_ptr(), st.data_ptr(), out.data_ptr(),
-        b, ns, m, k, c, tile, width, stream,
+        b, ns, m, k, c, tile, width, plan.lpg, plan.nt, plan.rw, stream,
     )
     launches += 1
     build.check(rc, "cbl_window_gather")

@@ -58,9 +58,11 @@ def test_missing_nvcc_raises(tmp_path, build_root, monkeypatch):
 
 
 def test_every_source_is_built_and_every_entry_is_bound():
-    """The one nvcc call covers every .cu file, and each C entry point a
-    wrapper calls has its ctypes signature."""
+    """The one nvcc call covers every .cu file, the hash every .cuh header,
+    and each C entry point a wrapper calls has its ctypes signature."""
     assert sorted(build.SOURCES) == sorted(p.name for p in build.CSRC.glob("*.cu"))
+    # the headers the sources include are part of the library's hash
+    assert sorted(build.HEADERS) == sorted(p.name for p in build.CSRC.glob("*.cuh"))
     text = "".join((build.CSRC / s).read_text() for s in build.SOURCES)
     for name in build.SIGNATURES:
         assert f'extern "C" int {name}(' in text, name
@@ -69,3 +71,15 @@ def test_every_source_is_built_and_every_entry_is_bound():
         "cbl_stats_fwd", "cbl_stats_bwd", "cbl_pt_attn_fwd", "cbl_pt_attn_bwd",
         "cbl_tile2_fwd", "cbl_tile2_bwd", "cbl_tile_fwd", "cbl_tile_bwd", "cbl_gather_rows",
     }
+
+
+def test_a_header_change_rebuilds(tmp_path, monkeypatch):
+    """Editing a header the sources include changes the library's hash."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in build.SOURCES + build.HEADERS:
+        (csrc / name).write_bytes((build.CSRC / name).read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.source_hash()
+    (csrc / build.HEADERS[0]).write_text((csrc / build.HEADERS[0]).read_text() + "\n// edited\n")
+    assert build.source_hash() != before

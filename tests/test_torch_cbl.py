@@ -61,7 +61,8 @@ def test_plain_stats_and_vjp_match_pallas_interpret(duplicates, temperature):
     ref, dref = np.asarray(out), np.asarray(vjp(jnp.asarray(g))[0])
     args = (_t(feats), _t(meta), _t(li))
     got = cbl_dense.cbl_stats_fwd_plain(*args, temperature, tile, width, window).numpy()
-    dgot = cbl_dense.cbl_stats_bwd_plain(*args, torch.as_tensor(g), temperature, tile, width, window).numpy()
+    dgot = cbl_dense.cbl_stats_bwd_plain(*args, torch.as_tensor(got), torch.as_tensor(g), temperature,
+                                         tile, width, window).numpy()
 
     np.testing.assert_array_equal(got[..., 3:], ref[..., 3:])
     clear = ref[..., 0] < -1e-2

@@ -95,8 +95,8 @@ def test_train_kernel_wrappers_take_the_plain_version_only_on_cpu():
     starts = torch.zeros(4, dtype=torch.int32)
     tile_gather.window_gather_bwd(torch.rand(1, 64, 2, 8), li, starts, 16, 3, 64)
     feats, meta = torch.rand(1, 64, 32), torch.zeros(1, 64, 8)
-    cbl_dense.cbl_stats_fwd(feats, meta, li, 1.0, 16, 3, 1)
-    cbl_dense.cbl_stats_bwd(feats, meta, li, torch.rand(1, 64, 8), 1.0, 16, 3, 1)
+    stats = cbl_dense.cbl_stats_fwd(feats, meta, li, 1.0, 16, 3, 1)
+    cbl_dense.cbl_stats_bwd(feats, meta, li, stats, torch.rand(1, 64, 8), 1.0, 16, 3, 1)
     assert counts() == before  # plain: no launch
     on_meta = lambda *shape: torch.empty(*shape, device="meta")
     with pytest.raises(ValueError):
@@ -104,7 +104,8 @@ def test_train_kernel_wrappers_take_the_plain_version_only_on_cpu():
     with pytest.raises(ValueError):
         cbl_dense.cbl_stats_fwd(on_meta(1, 64, 32), meta, li, 1.0, 16, 3, 1)
     with pytest.raises(ValueError):
-        cbl_dense.cbl_stats_bwd(on_meta(1, 64, 32), meta, li, torch.rand(1, 64, 8), 1.0, 16, 3, 1)
+        cbl_dense.cbl_stats_bwd(on_meta(1, 64, 32), meta, li, stats, torch.rand(1, 64, 8), 1.0,
+                                16, 3, 1)
 
 
 def test_train_entry_point_needs_cuda_unless_cpu(monkeypatch):
