@@ -62,15 +62,16 @@ is not 0:
            index_add_ adds with atomics on the card), exact on integer
            cotangents, the same bits when run again, and bit-equal to the
            plain version on CPU copies (CPU index_add_ sums each row in slot
-           order, as the kernel does), cbl_stats_fwd counts exact and
-           sums rel <= 1e-5, cbl_stats_bwd max-abs <= 1e-4 of the output's
+           order, as the kernel does), cbl_stats_fwd counts exact, sums rel
+           <= 1e-5 and the same bits on every lane when run again,
+           cbl_stats_bwd max-abs <= 1e-4 of the output's
            scale, the same bits when run again, and its first pass's slot
            coefficients cd within 1e-5 of their scale of the plain
            version's; the same on one step over integer-grid clouds. Then
            each call timed as in phase 4 (5 runs each), and the largest
-           (level-0) window_topk, window_gather, window_gather_bwd and
-           cbl_stats_bwd calls 20 times through the wrapper and through the
-           bare C entry.
+           (level-0) window_topk, window_gather, window_gather_bwd,
+           cbl_stats_fwd and cbl_stats_bwd calls 20 times through the wrapper
+           and through the bare C entry.
 10. stale-train phase 8 with bn_mode='stale': pt_attn_fwd and pt_attn_bwd
            exactly 18 launches each, window_gather and window_gather_bwd 18
            fewer than in phase 8 (the attention layers' gathers are inside
@@ -81,7 +82,10 @@ is not 0:
            gradients within 1e-4 of scale), and of one stale step on
            integer-grid clouds, whose backward calls also give dkv exactly on
            integer cotangents (with W4 = 0, so that the softmax weights are
-           exact); then each call timed as in phase 4 (5 runs each).
+           exact); then each call timed as in phase 4 (5 runs each), the
+           backward's times summed per width (C, M, K, launches, ms,
+           bound), and its largest (level-0) call 20 times through the
+           wrapper and through the bare C entry.
 
 12. cbl-xla the flagship train step of phase 8 with CBL_DENSE=off and
            ContrastConfig(impl='xla'), the reference's XLA tile route: the
@@ -119,6 +123,7 @@ before doing anything.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import os
 import re
@@ -394,7 +399,8 @@ def compare_gather_bwd(call) -> float:
 
 def compare_stats_fwd(call) -> float:
     """Counts exact, the rest rel 1e-5 (the same arithmetic; exp and the
-    sums over slots may round differently)."""
+    sums over slots may round differently); the call run again gives the
+    same bits on every lane (lane 0, m̂, is what the backward reads)."""
     args, _, out = call
     out = out.detach()
     ref = cd.cbl_stats_fwd_plain(*args)
@@ -402,6 +408,9 @@ def compare_stats_fwd(call) -> float:
     err = float((out[..., :3] - ref[..., :3]).abs().max())
     require(bool(torch.allclose(out[..., :3], ref[..., :3], rtol=1e-5, atol=1e-7)),
             f"cbl_stats_fwd {tuple(out.shape)}: max|d|={err:.3g}")
+    again = cd.cbl_stats_fwd(*args)
+    require(torch.equal(again.view(torch.int32), out.view(torch.int32)),
+            f"cbl_stats_fwd {tuple(out.shape)}: differs between runs")
     return err
 
 
@@ -804,9 +813,10 @@ def call_costs(name, call):
 
 
 @torch.no_grad()
-def time_calls(calls, dev, launches, max_err, names, reps=10) -> list:
+def time_calls(calls, dev, launches, max_err, names, reps=10, records=None) -> list:
     """Hold each recorded launch against the plain version, then time it;
-    per-kernel sums over the recorded run."""
+    per-kernel sums over the recorded run (and, into ``records`` where
+    given, (name, shape, kernel ms, bound ms) of each launch)."""
     flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
     summary = []
     for name in names:
@@ -822,6 +832,8 @@ def time_calls(calls, dev, launches, max_err, names, reps=10) -> list:
             lib_txt = "n/a" if t_l is None else f"{t_l:.4f} ms"
             print(f"  {name} {shape}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
                   f"library {lib_txt}, bound {bnd:.5f} ms", flush=True)
+            if records is not None:
+                records.append((name, shape, t_k, bnd))
             for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l or 0.0),
                            ("bound_ms", bnd), ("t_bytes", t_b), ("t_ops", t_o)):
                 tot[key] += v
@@ -1002,7 +1014,8 @@ def check_train_kernels(dev, train) -> list:
     del calls
     summary = time_calls(train["calls"], dev, train["launches"], max_err, TRAIN_KERNELS, reps=5)
     time_spread(train["calls"], dev,
-                ("window_topk", "window_gather", "window_gather_bwd", "cbl_stats_bwd"))
+                ("window_topk", "window_gather", "window_gather_bwd", "cbl_stats_fwd",
+                 "cbl_stats_bwd"))
     return summary
 
 
@@ -1029,7 +1042,21 @@ def check_stale_kernels(dev, stale) -> list:
           f"{len(calls['pt_attn_bwd'])} pt_attn_bwd calls agree, dkv exact on integer "
           f"cotangents", flush=True)
     del calls
-    return time_calls(stale["calls"], dev, stale["launches"], max_err, tuple(max_err), reps=5)
+    records = []
+    summary = time_calls(stale["calls"], dev, stale["launches"], max_err, tuple(max_err), reps=5,
+                         records=records)
+    widths = {}
+    for name, shape, t_k, bnd in records:
+        if name == "pt_attn_bwd":
+            w = widths.setdefault((shape["C"], shape["M"], shape["K"]), [0, 0.0, 0.0])
+            w[0] += 1
+            w[1] += t_k
+            w[2] += bnd
+    for (c, m, k), (n, t_k, bnd) in sorted(widths.items()):
+        print(f"  pt_attn_bwd C={c} M={m} K={k}: {n} launches, {t_k:.4f} ms, bound {bnd:.5f} ms "
+              f"({t_k / bnd:.1f}x)", flush=True)
+    time_spread(stale["calls"], dev, ("pt_attn_bwd",))
+    return summary
 
 
 def check_routes(metrics: dict) -> None:
@@ -1049,9 +1076,10 @@ def check_routes(metrics: dict) -> None:
 def bare_entry(name, args, kw):
     """A kernel's C entry on operands prepared once, outside the timed call:
     none of the wrapper's host work (operand checks and conversions, the
-    window starts copied to the card, the output allocated) is timed. The
-    v2 backward's gradient is not zeroed between runs. The returned call
-    keeps its operands alive."""
+    window starts copied to the card, the output allocated, the parameter
+    gradients' partial rows summed) is timed. The v2 backward's gradient and
+    the attention backward's dk|dv are not zeroed between runs. The returned
+    call keeps its operands alive."""
     lib, stream = build.library(), torch.cuda.current_stream(args[0].device).cuda_stream
 
     def call(entry, tensors, *rest):
@@ -1081,6 +1109,29 @@ def bare_entry(name, args, kw):
         dx = torch.empty((b, ns, c), dtype=torch.float32, device=g.device)
         ops = (g, li.to(torch.int32).contiguous(), starts.to(torch.int32).contiguous(), dx)
         return call(lib.cbl_window_gather_bwd, ops, b, ns, m, k, c, tile, width)
+    if name == "cbl_stats_fwd":
+        features, meta, li, temperature, tile, width, window = args
+        f, mt, lii = cd._cuda_args(features, meta, li, tile, width)
+        b, m, c = f.shape
+        k = lii.shape[-1]
+        ops = (f, mt, lii, torch.empty((b, m, 8), dtype=torch.float32, device=f.device))
+        return call(lib.cbl_stats_fwd, ops, b, m, k, c, tile, width, window,
+                    cd._inv_t(temperature), *cd.fwd_plan(b, m, k, tile, width))
+    if name == "pt_attn_bwd":
+        q, kv, rel, li, starts, tile, width, params, g = args
+        (q, kv, rel, li, st), ps, (b, m, k, c, cs_), _, _ = pa._cuda_args(
+            q, kv, rel, li, starts, tile, width, params)
+        plan = pa.bwd_plan(b, m, k, c)
+        ptrs = pa._pointers(ps)
+        g = g.float().contiguous()
+        dq, dkv = torch.empty_like(q), torch.zeros_like(kv)
+        dp = torch.empty((plan.blocks, sum(pa._prow(c, cs_))), device=q.device)
+        keep = (q, kv, rel, li, st, ps, ptrs, g, dq, dkv, dp)
+        return lambda _keep=keep: build.check(lib.cbl_pt_attn_bwd(
+            q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
+            ctypes.cast(ptrs, ctypes.c_void_p), g.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
+            dp.data_ptr(), b, m, k, c, tile, width, plan.blocks, plan.threads, plan.rows,
+            plan.smem, stream), name)
     if name == "cbl_stats_bwd":
         features, meta, li, stats, g, temperature, tile, width, window = args
         f, mt, lii = cd._cuda_args(features, meta, li, tile, width)

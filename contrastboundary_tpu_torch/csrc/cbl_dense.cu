@@ -27,13 +27,33 @@
 // because its lanes want dense tiles; the function depends only on the K
 // listed slots (K / W is about 5% at the flagship's level 0).
 //
-// Forward: one thread owns one query row, keeps it in registers, and walks
-// its K slots twice: once for the max-shift m, once for the sums, reading
-// each slot's 4C bytes as float4. Bound: bytes (features, meta and li read
-// once, the stats written: B*M*(4C + 32 + 4K + 32) bytes); its operations,
-// about (4C + 10) a slot, sit far below the card's FP32 rate. It reads each
-// slot row again from L2 rather than sharing a tile's window in shared
-// memory.
+// Forward (cbl_stats_fwd_kernel): a block serves the rows of one query tile
+// (or a power-of-two part of one; ops/cuda/cbl_dense.py::fwd_plan) and
+// first stages the tile's window in shared memory once: W = width * tile
+// rows of 32 floats (96 KB at the flagship's W = 768, so two blocks fit an
+// SM), each with its |s|^2 summed in channel order and its two meta lanes.
+// Eight lanes serve a query row (the query's own row lies in the window);
+// lane l takes a contiguous run of the row's slots and computes each slot's
+// dist once, its dot product in channel order from shared memory, so d2,
+// and with it the max-shift m (the exact max over the lanes, an order-free
+// reduction), are the plain version's bits. Then each lane turns its dists
+// into e, and the lanes add their terms in turn (lane l continues the sums
+// lane l - 1 handed on by shuffle), so sum e*posmv, sum e and the two counts
+// are added in slot order, as a thread walking the row's slots adds them
+// (the previous design, a thread per row walking its slots twice): every
+// lane of the output is that design's bits. A lane keeps up to S slots in
+// registers (S = 3, 5 or 8 by K); longer rows go in chunks of 8 S slots,
+// recomputing each chunk's dists after the max. li is read once, each slot
+// by the lane that owns it. Bound: bytes (features, meta and li read once,
+// the stats written); the operations, about (2C + 20) a valid slot with
+// |s|^2 once a row, sit far below the card's FP32 rate. What holds it back
+// is the issue and latency of the per-slot work (64 separately rounded
+// operations a dot product, sqrtf and expf, the lanes' 8 turns at the
+// ordered sums), and to a lesser part shared memory: the 8 lanes of a row
+// read 8 data-dependent rows at one chunk, which the swizzle spreads over the
+// bank groups only as far as those rows differ mod 8 (PERF.md: reads
+// without conflicts, a pipeline of chunks over the lanes, and sums in a
+// fixed tree order were each tried; scripts/diag_torch_kernels.py).
 //
 // Backward, two passes with no atomics (every dx element written once, the
 // same bits on every run):
@@ -102,104 +122,161 @@ __device__ __forceinline__ float sq_norm(const float (&v)[C]) {
   return acc;
 }
 
-// (d2, |q|^2 + |s|^2) of query row qv against support row srow
-template <int C>
-__device__ __forceinline__ float2 slot_d2(const float (&qv)[C], float q2,
-                                          const float* __restrict__ f,
-                                          long long srow) {
-  const float4* p = reinterpret_cast<const float4*>(f + srow * C);
-  float s2 = 0.f, qs = 0.f;
+// ---- forward: a block per query tile (or part of one), its window staged in
+// shared memory once ------------------------------------------------------
+
+constexpr int kFwdLanes = 8;          // lanes a query row
+constexpr int kFwdMaxThreads = 512;   // 64 rows at a time
+constexpr int kSmemLimit = 232448;    // dynamic shared memory a block can have
+
+// Shared image of a window of W rows: the rows as float4 chunks (chunk i of
+// row r at r * 8 + (i ^ (r & 7)), so that 8 lanes reading one chunk of 8
+// consecutive rows hit 8 bank groups), then (argmax, validity) of each row,
+// then |s|^2 of each row, summed in channel order once.
+inline size_t fwd_smem(int w_sz) { return (size_t)w_sz * (128 + 8 + 4); }
+
+__device__ __forceinline__ int chunk_at(int r, int i) { return r * 8 + (i ^ (r & 7)); }
+
+// One chunk of a lane's slots, S at most (slots c * 8 * spl + lane * spl + j
+// for j < spl): for each valid member slot its dist (d2 rounded as the plain
+// version rounds it: both dot products in channel order), its validity mv
+// (0 for a slot that is no valid member) and whether its label is the
+// query's; returns the largest -dist (kNegInf if none).
+template <int S>
+__device__ __forceinline__ float slot_chunk(
+    const float4* __restrict__ win, const float2* __restrict__ mw,
+    const float* __restrict__ s2w, const int32_t* __restrict__ lrow, int k,
+    int w_sz, int qw, float q2, float qa, int first, int spl, float (&d)[S],
+    float (&mv)[S], unsigned& pos) {
+  int w[S];
+  pos = 0u;
 #pragma unroll
-  for (int i = 0; i < C / 4; ++i) {
-    const float4 t = p[i];
-    s2 = __fadd_rn(s2, __fmul_rn(t.x, t.x));
-    s2 = __fadd_rn(s2, __fmul_rn(t.y, t.y));
-    s2 = __fadd_rn(s2, __fmul_rn(t.z, t.z));
-    s2 = __fadd_rn(s2, __fmul_rn(t.w, t.w));
-    qs = __fadd_rn(qs, __fmul_rn(qv[4 * i], t.x));
-    qs = __fadd_rn(qs, __fmul_rn(qv[4 * i + 1], t.y));
-    qs = __fadd_rn(qs, __fmul_rn(qv[4 * i + 2], t.z));
-    qs = __fadd_rn(qs, __fmul_rn(qv[4 * i + 3], t.w));
+  for (int j = 0; j < S; ++j) {
+    const int kk = first + j;
+    const int jj = j < spl && kk < k ? lrow[kk] : -1;
+    const bool in = jj >= 0 && jj < w_sz;
+    w[j] = in ? jj : qw;  // a row that is safe to read
+    const float2 sm = mw[w[j]];
+    mv[j] = in && sm.y > 0.f ? sm.y : 0.f;
+    if (fabsf(__fsub_rn(qa, sm.x)) < 0.5f) pos |= 1u << j;
+    d[j] = 0.f;
   }
-  const float sc = __fadd_rn(q2, s2);
-  return make_float2(fmaxf(__fsub_rn(sc, __fmul_rn(2.f, qs)), 0.f), sc);
-}
-
-struct Row {
-  long long r;     // flat (b, q)
-  long long base;  // flat row of the window's first support row
-  int w_sz;
-};
-
-__device__ __forceinline__ bool make_row(Row& row, int b_sz, int m, int tile,
-                                         int width, int window) {
-  row.r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row.r >= (long long)b_sz * m) return false;
-  const int b = (int)(row.r / m);
-  const int q = (int)(row.r - (long long)b * m);
-  int start = q / tile - window;
-  start = max(start, 0);
-  start = min(start, m / tile - width);
-  row.base = (long long)b * m + (long long)start * tile;
-  row.w_sz = width * tile;
-  return true;
-}
-
-// support row of slot j, or -1 for a slot that is no valid member
-__device__ __forceinline__ long long member_row(const Row& row, int j,
-                                                const float* __restrict__ meta) {
-  if (j < 0 || j >= row.w_sz) return -1;
-  const long long s = row.base + j;
-  return meta[s * 8 + 1] > 0.f ? s : -1;
-}
-
-template <int C>
-__device__ __forceinline__ float max_shift(const Row& row, const float (&qv)[C],
-                                           float q2, const float* f,
-                                           const float* meta,
-                                           const int32_t* li, int k) {
-  float mhat = kNegInf;
-  for (int kk = 0; kk < k; ++kk) {
-    const long long s = member_row(row, li[row.r * k + kk], meta);
-    if (s < 0) continue;
-    const float d2 = slot_d2<C>(qv, q2, f, s).x;
-    mhat = fmaxf(mhat, -sqrtf(__fadd_rn(d2, 1e-12f)));
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 qc = win[chunk_at(qw, i)];
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const float4 t = win[chunk_at(w[j], i)];
+      d[j] = __fadd_rn(d[j], __fmul_rn(qc.x, t.x));
+      d[j] = __fadd_rn(d[j], __fmul_rn(qc.y, t.y));
+      d[j] = __fadd_rn(d[j], __fmul_rn(qc.z, t.z));
+      d[j] = __fadd_rn(d[j], __fmul_rn(qc.w, t.w));
+    }
   }
-  return mhat;
+  float mloc = kNegInf;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const float sc = __fadd_rn(q2, s2w[w[j]]);
+    const float d2 = fmaxf(__fsub_rn(sc, __fmul_rn(2.f, d[j])), 0.f);
+    d[j] = sqrtf(__fadd_rn(d2, 1e-12f));
+    if (mv[j] > 0.f) mloc = fmaxf(mloc, -d[j]);
+  }
+  return mloc;
 }
 
-template <int C>
-__global__ void cbl_stats_fwd_kernel(const float* __restrict__ f,
-                                     const float* __restrict__ meta,
-                                     const int32_t* __restrict__ li,
-                                     float* __restrict__ stats, int b_sz,
-                                     int m, int k, int tile, int width,
-                                     int window, float inv_t) {
-  Row row;
-  if (!make_row(row, b_sz, m, tile, width, window)) return;
-  float qv[C];
-  load_row<C>(f, row.r, qv);
-  const float q2 = sq_norm<C>(qv);
-  const float qa = meta[row.r * 8];
-  const float mhat = max_shift<C>(row, qv, q2, f, meta, li, k);
-  float pos = 0.f, under = 0.f, pcnt = 0.f, vcnt = 0.f;
-  for (int kk = 0; kk < k; ++kk) {
-    const long long s = member_row(row, li[row.r * k + kk], meta);
-    if (s < 0) continue;  // e = posmv = mv = 0
-    const float mv = meta[s * 8 + 1];
-    const float posmv =
-        (fabsf(__fsub_rn(qa, meta[s * 8])) < 0.5f ? 1.f : 0.f) * mv;
-    const float d2 = slot_d2<C>(qv, q2, f, s).x;
-    const float dist = sqrtf(__fadd_rn(d2, 1e-12f));
-    const float e = __fmul_rn(expf(__fmul_rn(__fsub_rn(-dist, mhat), inv_t)), mv);
-    pos = __fadd_rn(pos, __fmul_rn(e, posmv));
-    under = __fadd_rn(under, e);
-    pcnt = __fadd_rn(pcnt, posmv);
-    vcnt = __fadd_rn(vcnt, mv);
+template <int S>
+__global__ void __launch_bounds__(kFwdMaxThreads, 2)
+    cbl_stats_fwd_kernel(const float* __restrict__ f,
+                         const float* __restrict__ meta,
+                         const int32_t* __restrict__ li,
+                         float* __restrict__ stats, int m, int k, int tile,
+                         int width, int window, int rows_pb, float inv_t) {
+  extern __shared__ float4 fwd_shared[];
+  const int w_sz = width * tile;
+  float4* win = fwd_shared;
+  float2* mw = reinterpret_cast<float2*>(win + w_sz * 8);
+  float* s2w = reinterpret_cast<float*>(mw + w_sz);
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rows_pb;  // the block's first query row
+  const int start = min(max(row0 / tile - window, 0), m / tile - width);
+  const long long base = (long long)b * m + (long long)start * tile;
+
+  // stage the window: each row once, its |s|^2 in channel order
+  const float4* f4 = reinterpret_cast<const float4*>(f);
+  for (int r = threadIdx.x; r < w_sz; r += blockDim.x) {
+    float4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = f4[(base + r) * 8 + i];
+    float s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s2 = __fadd_rn(s2, __fmul_rn(v[i].x, v[i].x));
+      s2 = __fadd_rn(s2, __fmul_rn(v[i].y, v[i].y));
+      s2 = __fadd_rn(s2, __fmul_rn(v[i].z, v[i].z));
+      s2 = __fadd_rn(s2, __fmul_rn(v[i].w, v[i].w));
+      win[chunk_at(r, i)] = v[i];
+    }
+    s2w[r] = s2;
+    mw[r] = *reinterpret_cast<const float2*>(meta + (base + r) * 8);
   }
-  float4* out = reinterpret_cast<float4*>(stats + row.r * 8);
-  out[0] = make_float4(mhat, pos, under, pcnt);
-  out[1] = make_float4(vcnt, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  const int lane = threadIdx.x % kFwdLanes;
+  const unsigned gmask = 0xffu << (threadIdx.x & 31 & ~(kFwdLanes - 1));
+  const int spl = min((k + kFwdLanes - 1) / kFwdLanes, S);  // slots a lane a chunk
+  const int per_chunk = kFwdLanes * spl;
+  const int nch = (k + per_chunk - 1) / per_chunk;
+  for (int rr = threadIdx.x / kFwdLanes; rr < rows_pb;
+       rr += blockDim.x / kFwdLanes) {  // uniform over a row group
+    const int qw = row0 + rr - start * tile;  // the query's row in the window
+    const long long row = base + qw;
+    const float q2 = s2w[qw], qa = mw[qw].x;
+    const int32_t* lrow = li + row * k;
+    float d[S], mv[S];
+    unsigned pos;
+    // m: the exact max over the lanes (order-free, so the plain version's bits)
+    float mhat = kNegInf;
+    for (int c = 0; c < nch; ++c)
+      mhat = fmaxf(mhat, slot_chunk<S>(win, mw, s2w, lrow, k, w_sz, qw, q2, qa,
+                                       c * per_chunk + lane * spl, spl, d, mv,
+                                       pos));
+#pragma unroll
+    for (int o = kFwdLanes / 2; o > 0; o /= 2)
+      mhat = fmaxf(mhat, __shfl_xor_sync(gmask, mhat, o, kFwdLanes));
+    // the sums in slot order: the lanes take turns, each adding its own
+    // slots onto the running sums of the lanes before it
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);  // pos, under, pcnt, vcnt
+    for (int c = 0; c < nch; ++c) {
+      if (nch > 1)  // one chunk keeps its dists from the max pass
+        slot_chunk<S>(win, mw, s2w, lrow, k, w_sz, qw, q2, qa,
+                      c * per_chunk + lane * spl, spl, d, mv, pos);
+#pragma unroll
+      for (int j = 0; j < S; ++j)  // e
+        d[j] = __fmul_rn(expf(__fmul_rn(__fsub_rn(-d[j], mhat), inv_t)), mv[j]);
+      for (int l = 0; l < kFwdLanes; ++l) {
+        if (lane == l) {
+#pragma unroll
+          for (int j = 0; j < S; ++j) {
+            if (!(mv[j] > 0.f)) continue;  // e = posmv = mv = 0
+            const float posmv = (pos >> j & 1u ? 1.f : 0.f) * mv[j];
+            acc.x = __fadd_rn(acc.x, __fmul_rn(d[j], posmv));
+            acc.y = __fadd_rn(acc.y, d[j]);
+            acc.z = __fadd_rn(acc.z, posmv);
+            acc.w = __fadd_rn(acc.w, mv[j]);
+          }
+        }
+        acc.x = __shfl_sync(gmask, acc.x, l, kFwdLanes);
+        acc.y = __shfl_sync(gmask, acc.y, l, kFwdLanes);
+        acc.z = __shfl_sync(gmask, acc.z, l, kFwdLanes);
+        acc.w = __shfl_sync(gmask, acc.w, l, kFwdLanes);
+      }
+    }
+    if (lane < 2) {
+      float4* out = reinterpret_cast<float4*>(stats + row * 8) + lane;
+      *out = lane == 0 ? make_float4(mhat, acc.x, acc.y, acc.z)
+                       : make_float4(acc.w, 0.f, 0.f, 0.f);
+    }
+  }
 }
 
 // ---- backward, pass 1: cd and dq of each query row ----------------------
@@ -468,16 +545,25 @@ __global__ void __launch_bounds__(cbl_window_sort::kThreads)
   }
 }
 
-constexpr int kThreads = 128;
-
-template <int C>
+template <int S>
 int fwd(const float* f, const float* meta, const int32_t* li, float* stats,
         int b, int m, int k, int tile, int width, int window, float inv_t,
-        cudaStream_t s) {
-  const long long rows = (long long)b * m;
-  const unsigned blocks = (unsigned)((rows + kThreads - 1) / kThreads);
-  cbl_stats_fwd_kernel<C><<<blocks, kThreads, 0, s>>>(
-      f, meta, li, stats, b, m, k, tile, width, window, inv_t);
+        int blocks, int threads, int smem, cudaStream_t s) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cbl_stats_fwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemLimit);
+    if (e != cudaSuccess) return (int)e;
+    // two windows of the flagship's width to an SM
+    e = cudaFuncSetAttribute(cbl_stats_fwd_kernel<S>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  cbl_stats_fwd_kernel<S><<<dim3(blocks, b), threads, smem, s>>>(
+      f, meta, li, stats, m, k, tile, width, window, m / blocks, inv_t);
   return (int)cudaGetLastError();
 }
 
@@ -516,15 +602,32 @@ int bwd(const float* f, const float* meta, const int32_t* li,
 
 }  // namespace
 
-// the feature width is the latent width base_fdim = 32 (a compile-time
-// constant, so a row lives in registers); the wrapper refuses other widths
+// The feature width is the latent width base_fdim = 32 (the wrapper refuses
+// other widths). blocks (a cloud), threads and smem come from
+// ops/cuda/cbl_dense.py::fwd_plan: a block serves M / blocks query rows of
+// one tile (a power-of-two divisor of it), 8 lanes a row; smem holds the
+// tile's window (fwd_smem); the query's own tile lies inside its window
+// (window < width, as in the self geometry).
 extern "C" int cbl_stats_fwd(const float* f, const float* meta,
                              const int32_t* li, float* stats, int b, int m,
                              int k, int c, int tile, int width, int window,
-                             float inv_t, void* stream) {
-  if (c != 32) return (int)cudaErrorInvalidValue;
-  return fwd<32>(f, meta, li, stats, b, m, k, tile, width, window, inv_t,
-                 (cudaStream_t)stream);
+                             float inv_t, int blocks, int threads, int smem,
+                             void* stream) {
+  if (c != 32 || k < 1 || blocks < 1 || m % blocks || tile % (m / blocks) ||
+      threads < 32 || threads > kFwdMaxThreads || threads % 32 ||
+      window >= width || smem < (int)fwd_smem(width * tile) ||
+      smem > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  const int spl = (k + kFwdLanes - 1) / kFwdLanes;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (spl <= 3)
+    return fwd<3>(f, meta, li, stats, b, m, k, tile, width, window, inv_t,
+                  blocks, threads, smem, s);
+  if (spl <= 5)
+    return fwd<5>(f, meta, li, stats, b, m, k, tile, width, window, inv_t,
+                  blocks, threads, smem, s);
+  return fwd<8>(f, meta, li, stats, b, m, k, tile, width, window, inv_t,
+                blocks, threads, smem, s);
 }
 
 // stats: the forward's output (lane 0, m, is read); cd and lands: scratch

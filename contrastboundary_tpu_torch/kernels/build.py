@@ -42,8 +42,9 @@ SIGNATURES = {
     "cbl_window_gather": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),
     # g, li, starts, dx, b, ns, m, k, c, tile, width, stream
     "cbl_window_gather_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # features, meta, li, stats, b, m, k, c, tile, width, window, inv_t, stream
-    "cbl_stats_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # features, meta, li, stats, b, m, k, c, tile, width, window, inv_t,
+    # blocks a cloud, threads, shared bytes, stream
+    "cbl_stats_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # features, meta, li, stats, g_stats, cd, lands, dx, b, m, k, c, tile,
     # width, window, inv_t, scatter rows a block, stream
     "cbl_stats_bwd": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
@@ -51,8 +52,8 @@ SIGNATURES = {
     # tile, width, grid, rows per block, stream
     "cbl_pt_attn_fwd": (_P,) * 8 + (_I,) * 8 + (_P,),
     # q, kv, rel, li, starts, params, g_out, dq, dkv, dparams, b, m, k, c,
-    # tile, width, grid, rows per block, stream
-    "cbl_pt_attn_bwd": (_P,) * 10 + (_I,) * 8 + (_P,),
+    # tile, width, blocks, threads, rows a tile, shared bytes, stream
+    "cbl_pt_attn_bwd": (_P,) * 10 + (_I,) * 10 + (_P,),
     # features, meta, li, starts, stats, b, m, k, c, tile, width, temperature,
     # stream
     "cbl_tile2_fwd": (_P,) * 5 + (_I,) * 6 + (_F, _P),

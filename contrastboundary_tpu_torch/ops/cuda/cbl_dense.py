@@ -37,6 +37,12 @@ MIN_SCATTER_ROWS = 16
 # swept from 16 to 256)
 MIN_SCATTER_BLOCKS = 256
 MAX_K = 256  # slots a row the backward's first pass holds in shared memory
+FWD_LANES = 8  # lanes a query row in the forward
+FWD_MAX_THREADS = 512
+FWD_MAX_ROWS = 256  # query rows a forward block (at most a tile)
+FWD_MIN_ROWS = 32
+SM_COUNT = 132  # H100 SXM
+SMEM_LIMIT = 232448  # dynamic shared memory a block can have on the H100
 
 
 def _inv_t(temperature: float) -> float:
@@ -161,6 +167,41 @@ def bwd_plan(b: int, m: int, tile: int):
     return -(-b * m * 8 // 256), rows, ((m // tile) * (tile // rows), b)
 
 
+def fwd_smem(width: int, tile: int) -> int:
+    """Dynamic shared bytes of a forward block: the window's rows (C floats),
+    their (argmax, validity) and |s|²."""
+    return width * tile * (4 * CHANNELS + 8 + 4)
+
+
+def fwd_plan(b: int, m: int, k: int, tile: int, width: int):
+    """Launch geometry of the forward → (blocks a cloud, threads a block,
+    dynamic shared bytes). A block serves M / blocks query rows of one tile
+    (a power-of-two divisor of it, at most 256), 8 lanes a row, 64 rows at
+    a time; the rows are halved (down to 32) while a level has fewer blocks
+    than half the card's SMs (the split a sweep of 32–256 rows timed
+    fastest at the flagship's levels on an H100). Every row's K slots are
+    split among its 8 lanes. Raises if the window does not fit in shared
+    memory."""
+    smem = fwd_smem(width, tile)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"window of {width * tile} rows needs {smem} B of shared memory "
+                         f"(limit {SMEM_LIMIT})")
+    rows = min(tile & -tile, FWD_MAX_ROWS)
+    while rows > FWD_MIN_ROWS and (m // rows) * b < SM_COUNT // 2:
+        rows //= 2
+    threads = max(32, FWD_LANES * min(rows, FWD_MAX_THREADS // FWD_LANES))
+    return m // rows, threads, smem
+
+
+def fwd_lane_slots(k: int):
+    """The forward's split of a row's K slots → (slots a lane a chunk,
+    chunks): chunk c, lane l holds slots c·8·spl + l·spl + j for j < spl
+    (those below K), spl = ⌈K / 8⌉ capped at 8 (the kernel's largest
+    register run; longer rows go in chunks)."""
+    spl = min(-(-k // FWD_LANES), 8)
+    return spl, -(-k // (FWD_LANES * spl))
+
+
 def _cuda_args(features, meta, li, tile, width):
     if not (features.is_cuda and meta.device == features.device
             and li.device == features.device):
@@ -184,12 +225,16 @@ def cbl_stats_fwd(features, meta, li, temperature: float, tile: int,
     if features.device.type == "cpu":
         return cbl_stats_fwd_plain(features, meta, li, temperature, tile, width, window)
     f, mt, lii = _cuda_args(features, meta, li, tile, width)
+    if window >= width:
+        raise ValueError(f"window={window} >= width={width}: the query tile must lie in its window")
     b, m, c = f.shape
+    k = lii.shape[-1]
+    blocks, threads, smem = fwd_plan(b, m, k, tile, width)
     stats = torch.empty((b, m, 8), dtype=torch.float32, device=f.device)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = build.library().cbl_stats_fwd(
         f.data_ptr(), mt.data_ptr(), lii.data_ptr(), stats.data_ptr(),
-        b, m, lii.shape[-1], c, tile, width, window, _inv_t(temperature), stream,
+        b, m, k, c, tile, width, window, _inv_t(temperature), blocks, threads, smem, stream,
     )
     fwd_launches += 1
     build.check(rc, "cbl_stats_fwd")

@@ -21,6 +21,7 @@ versions take any shares.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +35,9 @@ bwd_launches = 0
 SHARES = 8  # share_planes the kernels are built for
 CHANNELS = (16, 32, 64, 128, 256, 512)
 SM_COUNT = 132  # H100 SXM
+SMEM_LIMIT = 232448  # dynamic shared memory a block can have on the H100
+SMEM_PER_SM = 233472  # shared memory of an SM (each block also takes 1 KB)
+BWD_TILE_FLOATS = 8192  # slot-rows x channels a backward tile holds at most
 
 
 def _check(q, kv, rel, li, starts, tile, width, params):
@@ -212,30 +216,96 @@ def _prow(c: int, cs: int) -> list:
     return [9, 3, 3 * c, c, c, c, c * cs, cs, cs, cs, cs * cs, cs]
 
 
+class BwdPlan(NamedTuple):
+    blocks: int  # a persistent grid: block i takes tiles i, i + blocks, ...
+    threads: int
+    smem: int  # dynamic shared bytes
+    rows: int  # query rows a tile (all K slots of each)
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def bwd_threads(c: int) -> int:
+    """Threads of a backward block: at least C (thread c owns channel c)."""
+    return 512 if c // SHARES >= 64 else 256
+
+
+def bwd_stash(c: int) -> bool:
+    """Whether the backward keeps w_pre in shared memory (its last phase then
+    reads no global memory): below C = 512."""
+    return c // SHARES <= 32
+
+
+def bwd_smem(c: int, rows: int, k: int) -> int:
+    """Dynamic shared bytes of a backward block whose tiles hold rows x K
+    slot-rows ns (csrc/pt_attn.cu::bwd_smem_floats): the parameters (W3 and
+    W4 rows padded to an odd number of vectors), the tile's r1 [ns, C + 1],
+    six [ns, Cs] arrays, rel, the PE tower's first layer and the support
+    rows, the tile's q and g rows [rows, C] each, and where it stashes it
+    w_pre [ns, C + 1]; at the end the packed gradient row and the warps'
+    partial sums of dA1 and dc1."""
+    cs = c // SHARES
+    ns = rows * k
+    vj = min(cs, 4)
+    nq = cs // vj
+    ws = (nq if nq % 2 else nq + 1) * vj
+    params = 16 + 6 * c + c * ws + 4 * _round4(cs) + cs * ws
+    tile = (params + _round4(ns * (c + 1)) + 6 * _round4(ns * cs) + 2 * _round4(3 * ns)
+            + _round4(ns) + 2 * _round4(rows * c))
+    if bwd_stash(c):
+        tile += _round4(ns * (c + 1))
+    end = _round4(sum(_prow(c, cs))) + 12 * (bwd_threads(c) // 32)
+    return 4 * max(tile, end)
+
+
+def bwd_plan(b: int, m: int, k: int, c: int) -> BwdPlan:
+    """Launch geometry of the backward. A tile is ``rows`` query rows with
+    all K slots: the largest power of two with rows·K·C <= 8192 (at least
+    threads / C, so that each channel's thread group gets whole rows),
+    halved while two blocks of 256 threads would not fit an SM. The grid is
+    persistent: as many blocks as fit on the card at once (by shared memory;
+    two an SM at 256 threads, one at 512), at most one a tile."""
+    if c not in CHANNELS:
+        raise ValueError(f"pt_attn_bwd takes C in {CHANNELS}; got {c}")
+    threads = bwd_threads(c)
+    rows = max(1, BWD_TILE_FLOATS // (k * c))
+    rows = max(1 << (rows.bit_length() - 1), threads // c)
+    while (threads == 256 and rows > threads // c
+           and 2 * (bwd_smem(c, rows, k) + 1024) > SMEM_PER_SM):
+        rows //= 2
+    smem = bwd_smem(c, rows, k)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"pt_attn_bwd tile of {rows} rows x K={k} needs {smem} B of shared memory")
+    per_sm = min(2 if threads == 256 else 1, SMEM_PER_SM // (smem + 1024))
+    tiles = -(-b * m // rows)
+    return BwdPlan(min(tiles, SM_COUNT * per_sm), threads, smem, rows)
+
+
 def pt_attn_bwd(q, kv, rel, li, starts, tile: int, width: int, params, g_out):
     """Backward: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors. → (dq, dkv, 12 parameter gradients shaped as ``params``)."""
     global bwd_launches
     if q.device.type == "cpu":
         return pt_attn_bwd_plain(q, kv, rel, li, starts, tile, width, params, g_out)
-    (q, kv, rel, li, st), ps, (b, m, k, c, cs), rpb, groups = _cuda_args(
+    (q, kv, rel, li, st), ps, (b, m, k, c, cs), _, _ = _cuda_args(
         q, kv, rel, li, starts, tile, width, params)
     if g_out.shape != q.shape or g_out.device != q.device:
         raise ValueError(f"g_out {tuple(g_out.shape)} on {g_out.device} vs q {tuple(q.shape)}")
     g_out = g_out.float().contiguous()
     sizes = _prow(c, cs)
-    prow = sum(sizes)
-    # per-group partial rows of the parameter gradients: at most ~8 MB of them
-    grid = min(groups, SM_COUNT * (2048 // (c * rpb)), max(SM_COUNT, (2 << 20) // (prow * rpb)))
+    plan = bwd_plan(b, m, k, c)
     dq = torch.empty((b, m, c), dtype=torch.float32, device=q.device)
     dkv = torch.zeros((b, m, 2 * c), dtype=torch.float32, device=q.device)
-    dp = torch.empty((grid * rpb, prow), dtype=torch.float32, device=q.device)
+    dp = torch.empty((plan.blocks, sum(sizes)), dtype=torch.float32, device=q.device)
     ptrs = _pointers(ps)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = build.library().cbl_pt_attn_bwd(
         q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p), g_out.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
-        dp.data_ptr(), b, m, k, c, tile, width, grid, rpb, stream,
+        dp.data_ptr(), b, m, k, c, tile, width, plan.blocks, plan.threads, plan.rows,
+        plan.smem, stream,
     )
     bwd_launches += 1
     build.check(rc, "cbl_pt_attn_bwd")

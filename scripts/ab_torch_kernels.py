@@ -1,0 +1,237 @@
+"""Same-call A/B of the port's cbl_stats_fwd and pt_attn_bwd CUDA kernels
+against another checkout's, on one card.
+
+    python3 scripts/ab_torch_kernels.py --parent DIR [--reps 10] [--ptxas]
+
+from the repository root, on a machine with a CUDA card, nvcc and the
+trained checkpoint; DIR is the root of another checkout of the repository
+(for example the parent commit, unpacked with
+``git archive <commit> | tar -x -C DIR`` into a directory .gitignore lists).
+Its kernel package is copied beside it as ``cbt_parent`` and built from its
+own sources. The script records the cbl_stats_fwd calls of one batch-BN
+flagship train step (dense CBL route) and the pt_attn_bwd calls of one
+stale-BN train step, B=2 x N=65536 from the checkpoint (chip_smoke.py's
+setup), then for each call runs the other checkout's kernel ("old") and this
+tree's ("new") through their bare C entries on the same operands, in the
+order old, new, new, old, each the mean of --reps runs after an L2 flush.
+It checks on every call:
+- cbl_stats_fwd: the new stats equal bit for bit to the old kernel's (all
+  eight lanes; only reported with --old-may-differ) and to a second run of
+  the new kernel, counts exact and sums within rel 1e-5 of the plain
+  version;
+- pt_attn_bwd: dq, dkv and the 12 parameter gradients of the new kernel within
+  1e-4 of their scale of the plain version's, and dkv exact on integer
+  cotangents (chip_smoke.py's checks).
+It prints one line a call, the sums a step (pt_attn_bwd per width too), and
+the card's name and power limit; any failed check raises. --ptxas first
+prints nvcc's register and spill report of both sources.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib
+import shutil
+import subprocess
+import sys
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from contrastboundary_tpu_torch.data.synthetic import SyntheticSceneDataset, train_batch  # noqa: E402
+from contrastboundary_tpu_torch.kernels import build  # noqa: E402
+from contrastboundary_tpu_torch.losses import ContrastConfig  # noqa: E402
+from contrastboundary_tpu_torch.ops.cuda import cbl_dense as cd  # noqa: E402
+from contrastboundary_tpu_torch.ops.cuda import pt_attn as pa  # noqa: E402
+from contrastboundary_tpu_torch.train import TrainStepConfig, make_optimizer, make_train_step  # noqa: E402
+
+OLD_PKG = "cbt_parent"
+
+
+def load_old(parent: Path):
+    """The other checkout's kernel package, imported as cbt_parent from a copy
+    under _local/ (its build lands in that copy)."""
+    dest = ROOT / "_local" / "ab_parent"
+    if dest.exists():
+        shutil.rmtree(dest)
+    shutil.copytree(parent / "contrastboundary_tpu_torch", dest / OLD_PKG,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    sys.path.insert(0, str(dest))
+    mods = {name: importlib.import_module(f"{OLD_PKG}.{name}")
+            for name in ("kernels.build", "ops.cuda.cbl_dense", "ops.cuda.pt_attn")}
+    return mods["kernels.build"], mods["ops.cuda.cbl_dense"], mods["ops.cuda.pt_attn"]
+
+
+def ptxas_report():
+    """nvcc's resource report (registers, spills, shared memory) of the two
+    sources, compiled as the build compiles them."""
+    for src in ("cbl_dense.cu", "pt_attn.cu"):
+        res = subprocess.run(
+            [build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+             "-Xptxas", "-v", "-c", "-o", "/dev/null", str(build.CSRC / src)],
+            capture_output=True, text=True, timeout=600)
+        print(f"ptxas {src} (rc {res.returncode}):", flush=True)
+        for line in res.stderr.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line or "error" in line:
+                print("  " + line.strip(), flush=True)
+
+
+def record(dev, bn_mode: str) -> dict:
+    """The kernel calls of one flagship train step (dense CBL route)."""
+    model, _ = cs.load_model(bn_mode)
+    opt = make_optimizer(model.parameters(), cs.TRAIN_LR)
+    cfg = TrainStepConfig(num_classes=cs.NUM_CLASSES, spec=cs.TRAIN_SPEC,
+                          contrast=ContrastConfig())
+    step = make_train_step(model, cfg, opt, device=dev)
+    rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
+    batch = train_batch(rooms, cs.B, cs.N, np.random.default_rng(0))
+    with cs.cbl_route_env("dense"):
+        step(batch)  # warm-up
+        with cs.recording() as calls:
+            step(batch)
+            torch.cuda.synchronize()
+    return calls
+
+
+def stats_entries(call, old_lib, old_cd):
+    """(old entry, new entry, their outputs) of a cbl_stats_fwd call; the old
+    entry with its own launch plan where it takes one (fwd_plan)."""
+    features, meta, li, temperature, tile, width, window = call[0]
+    f, mt, lii = cd._cuda_args(features, meta, li, tile, width)
+    b, m, c = f.shape
+    k = lii.shape[-1]
+    inv_t = cd._inv_t(temperature)
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    out_old, out_new = torch.empty((b, m, 8), device=f.device), torch.empty((b, m, 8), device=f.device)
+    blocks, threads, smem = cd.fwd_plan(b, m, k, tile, width)
+    ptrs = (f.data_ptr(), mt.data_ptr(), lii.data_ptr())
+    o_plan = old_cd.fwd_plan(b, m, k, tile, width) if hasattr(old_cd, "fwd_plan") else ()
+    old = lambda: old_lib.cbl_stats_fwd(*ptrs, out_old.data_ptr(), b, m, k, c, tile, width,
+                                        window, inv_t, *o_plan, stream)
+    new = lambda: build.library().cbl_stats_fwd(*ptrs, out_new.data_ptr(), b, m, k, c, tile,
+                                                width, window, inv_t, blocks, threads, smem,
+                                                stream)
+    shape = dict(M=m, K=k, tile=tile, width=width, plan=(blocks, threads, smem))
+    return old, new, out_old, out_new, shape
+
+
+def attn_entries(call, old_lib, old_pa):
+    """(old entry, new entry) of a pt_attn_bwd call: the other checkout's
+    launch geometry (its wrapper's) and this tree's bwd_plan."""
+    q, kv, rel, li, starts, tile, width, params, g = call[0]
+    (q, kv, rel, li, st), ps, (b, m, k, c, cs_), rpb, groups = pa._cuda_args(
+        q, kv, rel, li, starts, tile, width, params)
+    g = g.float().contiguous()
+    prow = sum(pa._prow(c, cs_))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (ctypes.c_void_p * 12)(*(p.data_ptr() for p in ps))
+    common = (q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
+              ctypes.cast(ptrs, ctypes.c_void_p), g.data_ptr())
+    dq, dkv = torch.empty_like(q), torch.zeros_like(kv)  # dkv is added to, not zeroed
+    if hasattr(old_pa, "bwd_plan"):  # a tiled backward: its own plan
+        o_plan = old_pa.bwd_plan(b, m, k, c)
+        o_args = (o_plan.blocks, o_plan.threads, o_plan.rows, o_plan.smem)
+        o_rows = o_plan.blocks
+    else:  # the row-group backward: its wrapper's grid and rows a group
+        o_rpb = max(1, 256 // c)
+        o_grid = min(-(-b * m // o_rpb), old_pa.SM_COUNT * (2048 // (c * o_rpb)),
+                     max(old_pa.SM_COUNT, (2 << 20) // (prow * o_rpb)))
+        o_args, o_rows = (o_grid, o_rpb), o_grid * o_rpb
+    dp_old = torch.empty((o_rows, prow), device=q.device)
+    plan = pa.bwd_plan(b, m, k, c)
+    dp_new = torch.empty((plan.blocks, prow), device=q.device)
+    old = lambda: old_lib.cbl_pt_attn_bwd(*common, dq.data_ptr(), dkv.data_ptr(),
+                                          dp_old.data_ptr(), b, m, k, c, tile, width, *o_args,
+                                          stream)
+    new = lambda: build.library().cbl_pt_attn_bwd(
+        *common, dq.data_ptr(), dkv.data_ptr(), dp_new.data_ptr(), b, m, k, c, tile, width,
+        plan.blocks, plan.threads, plan.rows, plan.smem, stream)
+    keep = (q, kv, rel, li, st, ps, g, ptrs, dq, dkv, dp_old, dp_new)
+    return old, new, keep, dict(C=c, M=m, K=k, plan=tuple(plan))
+
+
+def ab_time(old, new, flush, reps):
+    """old, new, new, old: each the mean of reps launches after an L2 flush."""
+    check = lambda fn: (lambda: build.check(fn(), "entry"))
+    t = [cs.time_ms(check(fn), flush, reps) for fn in (old, new, new, old)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, required=True)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--old-may-differ", action="store_true",
+                    help="report, and do not require, that the old stats equal the new bit for bit")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_torch_kernels: CUDA is not available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {cs.card_line()}", flush=True)
+    if args.ptxas:
+        ptxas_report()
+    old_build, old_cd, old_pa = load_old(args.parent.resolve())
+    old_lib = old_build.library()
+    build.library()
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+
+    calls = record(dev, "batch")["cbl_stats_fwd"]
+    sums = [0.0, 0.0]
+    for call in calls:
+        cs.compare_stats_fwd(call)
+        old, new, out_old, out_new, shape = stats_entries(call, old_lib, old_cd)
+        t_old, t_new, t = ab_time(old, new, flush, args.reps)
+        first = out_new.clone()
+        build.check(new(), "cbl_stats_fwd")
+        torch.cuda.synchronize()
+        bits = lambda x: x.view(torch.int32)
+        same_old = torch.equal(bits(out_new), bits(out_old))
+        cs.require(torch.equal(bits(out_new), bits(first)), f"cbl_stats_fwd {shape}: runs differ")
+        cs.require(same_old or args.old_may_differ, f"cbl_stats_fwd {shape}: not the old kernel's bits")
+        sums[0] += t_old
+        sums[1] += t_new
+        print(f"cbl_stats_fwd {shape}: old {t_old:.4f} ms, new {t_new:.4f} ms "
+              f"({t_old / t_new:.2f}x; runs {[round(x, 4) for x in t]}), all lanes the old "
+              f"kernel's bits: {same_old}, the same bits twice", flush=True)
+    print(f"cbl_stats_fwd, {len(calls)} calls a step: old {sums[0]:.4f} ms, new {sums[1]:.4f} ms "
+          f"({sums[0] / sums[1]:.2f}x)", flush=True)
+    del calls
+    torch.cuda.empty_cache()
+
+    calls = record(dev, "stale")["pt_attn_bwd"]
+    per_width = defaultdict(lambda: [0, 0.0, 0.0])
+    for call in calls:
+        cs.compare_pt_attn_bwd(call)
+        cs.check_pt_attn_bwd_exact(call)
+        old, new, keep, shape = attn_entries(call, old_lib, old_pa)
+        t_old, t_new, t = ab_time(old, new, flush, args.reps)
+        w = per_width[shape["C"], shape["M"], shape["K"]]
+        w[0] += 1
+        w[1] += t_old
+        w[2] += t_new
+        print(f"pt_attn_bwd {shape}: old {t_old:.4f} ms, new {t_new:.4f} ms "
+              f"({t_old / t_new:.2f}x; runs {[round(x, 4) for x in t]})", flush=True)
+        del keep
+    tot_old = sum(w[1] for w in per_width.values())
+    tot_new = sum(w[2] for w in per_width.values())
+    for (c, m, k), (n, t_old, t_new) in sorted(per_width.items()):
+        print(f"pt_attn_bwd C={c} M={m} K={k}: {n} launches, old {t_old:.4f} ms, new "
+              f"{t_new:.4f} ms ({t_old / t_new:.2f}x)", flush=True)
+    print(f"pt_attn_bwd, {len(calls)} calls a step: old {tot_old:.4f} ms, new {tot_new:.4f} ms "
+          f"({tot_old / tot_new:.2f}x)", flush=True)
+    print(f"card: {cs.card_line()}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

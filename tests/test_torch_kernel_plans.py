@@ -1,13 +1,16 @@
-"""The host-side launch plans of the port's forward gather and CBL stats
-backward kernels (ops/cuda/tile_gather.py::gather_plan,
-ops/cuda/cbl_dense.py::bwd_plan and ::scatter_slot_ranges), at every call
-shape of the flagship B=2 x N=65536 train step (the request's gathers have
-the same shapes), and the scalar-read gather path's (row, channel) counter,
-which csrc/tile_gather.cu steps without a division. No card is needed."""
+"""The host-side launch plans of the port's forward gather, CBL stats
+forward and backward and fused-attention backward kernels
+(ops/cuda/tile_gather.py::gather_plan, ops/cuda/cbl_dense.py::fwd_plan,
+::bwd_plan and ::scatter_slot_ranges, ops/cuda/pt_attn.py::bwd_plan), at
+every call shape of the flagship B=2 x N=65536 train step (the request's
+gathers have the same shapes; the stale step's 18 attention layers), and
+the scalar-read gather path's (row, channel) counter, which
+csrc/tile_gather.cu steps without a division. No card is needed."""
 import numpy as np
 import pytest
 
 from contrastboundary_tpu_torch.ops.cuda import cbl_dense
+from contrastboundary_tpu_torch.ops.cuda import pt_attn
 from contrastboundary_tpu_torch.ops.cuda import tile_gather as tg
 
 # (x, idx) of the window_gather calls of the flagship train step
@@ -33,6 +36,13 @@ VECTOR_KERNELS = {(4, 1), (8, 1), (16, 1), (32, 1), (32, 2), (32, 4)}
 # (M, K, tile, width, window) of the five dense-CBL stages of the flagship
 CBL_CALLS = [(65536, 35, 256, 3, 1), (16384, 23, 256, 3, 1), (4096, 23, 256, 3, 1),
              (1024, 23, 256, 3, 1), (256, 23, 256, 1, 0)]
+# (C, M, K) of the stale step's 18 attention layers, in layer order: encoder
+# blocks (2, 3, 4, 6, 3) less one transition a level, then the 5 decoder blocks
+ATTN_CALLS = ([(32, 65536, 8)] + [(64, 16384, 16)] * 2 + [(128, 4096, 16)] * 3
+              + [(256, 1024, 16)] * 5 + [(512, 256, 16)] * 2
+              + [(512, 256, 16), (256, 1024, 16), (128, 4096, 16), (64, 16384, 16),
+                 (32, 65536, 8)])
+SMEM_PER_SM = 233472  # an H100 SM's shared memory; each resident block takes 1 KB more
 
 
 def _check_gather_plan(rows, c, aligned):
@@ -148,3 +158,85 @@ def test_scatter_quotient_without_division(k):
     q = (n.astype(np.float32) * inv).astype(np.int64)
     q = q + (n >= (q + 1) * k) - (n < q * k)
     np.testing.assert_array_equal(q, n // k)
+
+
+def _fwd_coverage(b, m, k, tile, blocks, threads):
+    """(row, slot) pairs the forward's blocks, lanes and chunks serve: block
+    (x, b) takes rows [x·rows, (x + 1)·rows) of cloud b, 8 lanes a row, 64
+    rows at a time; chunk c, lane l holds slots c·8·spl + l·spl + j."""
+    rows = m // blocks
+    spl, nch = cbl_dense.fwd_lane_slots(k)
+    groups = threads // cbl_dense.FWD_LANES
+    seen = np.zeros((b, m, k), np.int64)
+    for x in range(blocks):
+        for rr0 in range(0, rows, groups):
+            rr = np.arange(rr0, min(rr0 + groups, rows))
+            for c in range(nch):
+                for lane in range(cbl_dense.FWD_LANES):
+                    for j in range(spl):
+                        kk = c * cbl_dense.FWD_LANES * spl + lane * spl + j
+                        if kk < k:
+                            seen[:, x * rows + rr, kk] += 1
+    return seen
+
+
+@pytest.mark.parametrize("m,k,tile,width,window", CBL_CALLS + [(128, 70, 32, 3, 1), (64, 6, 16, 3, 1)])
+def test_cbl_fwd_plan_at_flagship_stages(m, k, tile, width, window):
+    """The forward's geometry: a block's rows lie in one tile, every (row,
+    slot) is served exactly once and in slot order along (chunk, lane,
+    slot), at most 512 threads, the window fits in shared memory (two
+    blocks to an SM at the flagship's W = 768)."""
+    b = 2
+    blocks, threads, smem = cbl_dense.fwd_plan(b, m, k, tile, width)
+    rows = m // blocks
+    assert blocks * rows == m and tile % rows == 0 and rows & (rows - 1) == 0
+    assert cbl_dense.FWD_MIN_ROWS <= rows or rows == tile & -tile
+    assert blocks * b >= cbl_dense.SM_COUNT // 2 or rows == cbl_dense.FWD_MIN_ROWS or rows == tile & -tile
+    assert rows == min(tile & -tile, 256) or (m // (2 * rows)) * b < cbl_dense.SM_COUNT // 2
+    assert threads % 32 == 0 and threads <= 1024 and threads <= cbl_dense.FWD_MAX_THREADS
+    assert smem == cbl_dense.fwd_smem(width, tile) <= cbl_dense.SMEM_LIMIT
+    if width * tile == 768:
+        assert 2 * (smem + 1024) <= SMEM_PER_SM
+    assert np.all(_fwd_coverage(b, m, k, tile, blocks, threads) == 1)
+    spl, nch = cbl_dense.fwd_lane_slots(k)
+    order = [c * 8 * spl + lane * spl + j for c in range(nch) for lane in range(8)
+             for j in range(spl) if c * 8 * spl + lane * spl + j < k]
+    assert order == list(range(k))  # the lanes' turns add the slots in order
+    assert spl == min(-(-k // 8), 8) and (nch == 1 or spl == 8)
+
+
+def test_cbl_fwd_plan_refuses_a_window_beyond_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        cbl_dense.fwd_plan(2, 4096, 23, 256, 7)
+
+
+@pytest.mark.parametrize("c,m,k", ATTN_CALLS)
+def test_pt_attn_bwd_plan_at_stale_layers(c, m, k):
+    """The attention backward's geometry: tiles of ``rows`` query rows x all
+    K slots, taken by the persistent grid's blocks in turn, cover every
+    (row, slot) exactly once; each channel's thread group gets whole rows;
+    at most 1024 threads, at least C; shared memory within the limit and
+    holding the kernel's layout; the grid fits the card at once."""
+    b = 2
+    plan = pt_attn.bwd_plan(b, m, k, c)
+    assert c <= plan.threads <= 1024 and plan.threads % 32 == 0
+    assert plan.rows & (plan.rows - 1) == 0 and plan.rows % (plan.threads // c) == 0
+    assert plan.rows * k * c <= pt_attn.BWD_TILE_FLOATS or plan.rows == plan.threads // c
+    assert plan.smem == pt_attn.bwd_smem(c, plan.rows, k) <= pt_attn.SMEM_LIMIT
+    if plan.threads == 256:  # two blocks to an SM
+        assert 2 * (plan.smem + 1024) <= SMEM_PER_SM
+    per_sm = 2 if plan.threads == 256 else 1
+    assert plan.blocks <= pt_attn.SM_COUNT * per_sm
+    assert min(per_sm, SMEM_PER_SM // (plan.smem + 1024)) * pt_attn.SM_COUNT >= plan.blocks
+    tiles = -(-b * m // plan.rows)
+    assert plan.blocks == min(tiles, pt_attn.SM_COUNT * min(per_sm, SMEM_PER_SM // (plan.smem + 1024)))
+    seen = np.zeros(b * m * k, np.int64)
+    for blk in range(plan.blocks):
+        for tl in range(blk, tiles, plan.blocks):
+            rows = np.arange(tl * plan.rows, min((tl + 1) * plan.rows, b * m))
+            groups = plan.threads // c
+            per = plan.rows * k // groups
+            assert per % k == 0  # a group's slot-rows are whole query rows
+            slot_rows = (rows[:, None] * k + np.arange(k)[None, :]).reshape(-1)
+            seen[slot_rows] += 1
+    assert np.all(seen == 1)
