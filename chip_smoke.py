@@ -42,7 +42,9 @@ is not 0:
            probs against the plain versions' and against phase serve's
            batch-BN probs (eval-mode BN is the same function: 1e-3, argmax
            >= 99.9%), crop OA >= 0.5, three voting requests; each
-           pt_attn_fwd launch timed.
+           pt_attn_fwd launch against its plain version (1e-4 of scale, the
+           same bits of out, s1 and s2 when run again), timed, and the times
+           summed per width (C, M, K, launches, ms, bound).
 8. train   the flagship train step (train/trainer.py::make_train_step: the
            training pyramid, the model in train mode, CE + 5-stage CBL,
            backward, SGD lr 0.05) from the checkpoint on B=2 x N=65536 crops
@@ -79,13 +81,14 @@ is not 0:
            and profile checks.
 11. stale-kernels every pt_attn call of that step against its plain version
            (out, both statistic pairs, dq, dkv and each of the 12 parameter
-           gradients within 1e-4 of scale), and of one stale step on
-           integer-grid clouds, whose backward calls also give dkv exactly on
-           integer cotangents (with W4 = 0, so that the softmax weights are
-           exact); then each call timed as in phase 4 (5 runs each), the
-           backward's times summed per width (C, M, K, launches, ms,
-           bound), and its largest (level-0) call 20 times through the
-           wrapper and through the bare C entry.
+           gradients within 1e-4 of scale; the forward's out, s1 and s2 the
+           same bits when run again), and of one stale step on integer-grid
+           clouds, whose backward calls also give dkv exactly on integer
+           cotangents (with W4 = 0, so that the softmax weights are exact);
+           then each call timed as in phase 4 (5 runs each), both kernels'
+           times summed per width (C, M, K, launches, ms, bound), and the
+           largest (level-0) call of each 20 times through the wrapper and
+           through the bare C entry.
 
 12. cbl-xla the flagship train step of phase 8 with CBL_DENSE=off and
            ContrastConfig(impl='xla'), the reference's XLA tile route: the
@@ -109,6 +112,14 @@ is not 0:
            gather_rows, which no path runs either, equal to x[idx] at x
            [131072, 128] f32 with 131072 random rows, timed beside
            torch.index_select.
+15. plan-shapes direct calls at shapes the reference trains beyond the
+           flagship's, whose plans take smaller tiles or slot chunks, on
+           seeded inputs: pt_attn_fwd and pt_attn_bwd at C = 512 with K = 8
+           (M = 1024) and K = 32 and 48 (M = 256), held as in phase 11; and
+           cbl_stats_fwd on windows wider than shared memory holds (width 7
+           x tile 256 and width 3 x tile 1024, K = 36), read through L2 and
+           held as in phase 9, with the L2 path at the flagship's level-0
+           window equal bit for bit to the staged path.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -155,6 +166,7 @@ from contrastboundary_tpu_torch.ops.cuda import gather_dma as gd
 from contrastboundary_tpu_torch.ops.cuda import pt_attn as pa
 from contrastboundary_tpu_torch.ops.cuda import tile_gather as tg
 from contrastboundary_tpu_torch.ops.cuda import win_topk as wt
+from contrastboundary_tpu_torch.ops.tile_gather import window_starts
 from contrastboundary_tpu_torch.train import TrainStepConfig, make_optimizer, make_train_step
 
 ROOT = Path(__file__).resolve().parent
@@ -433,11 +445,19 @@ def compare_stats_bwd(call) -> float:
 
 def compare_pt_attn_fwd(call) -> float:
     """out and both statistic pairs within 1e-4 of their scale (the kernel
-    sums over slots and blocks in another order, and rounds exp otherwise)."""
-    args, _, (out, s1, s2) = call
-    r_out, r_s1, r_s2 = pa.pt_attn_plain(*args)
-    return max(compare_scaled(f"pt_attn_fwd {what}", got, ref, 1e-4)
-               for what, got, ref in (("out", out, r_out), ("s1", s1, r_s1), ("s2", s2, r_s2)))
+    sums over slots and blocks in another order, and rounds exp otherwise);
+    the call run again gives the same bits of all three (no atomics, the
+    blocks' partial rows summed in order)."""
+    args, _, got = call
+    got = [t.detach() for t in got]
+    ref = pa.pt_attn_plain(*args)
+    again = pa.pt_attn_fwd(*args)
+    err = 0.0
+    for what, a, r, a2 in zip(("out", "s1", "s2"), got, ref, again):
+        name = f"pt_attn_fwd {what} {tuple(a.shape)}"
+        err = max(err, compare_scaled(name, a, r, 1e-4))
+        require(torch.equal(a.view(torch.int32), a2.view(torch.int32)), f"{name} differs between runs")
+    return err
 
 
 PT_GRADS = ("dq", "dkv", "dA1", "dc1", "dW2", "db2", "dg1", "dh1", "dW3", "db3", "dg2", "dh2",
@@ -735,6 +755,23 @@ def tile_costs(name, args, out):
     return float(n_bytes), float(n_ops), shape
 
 
+def attn_slot_ops(c: int, cs: int) -> tuple:
+    """FP32 operations a slot-row of the fused attention needs, (forward,
+    backward), counted from the plain versions: a product over n inputs is
+    2n with its bias add, a ReLU or mask 1 an element.
+    Forward: the PE tower 21 + 6C; w_pre and the bn1 affine 4C, ReLU C; fc1
+    2C·Cs; the bn2 affine and ReLU 3Cs; fc2 2Cs²; the softmax over the
+    slots 5Cs (max, subtract, exp, sum, divide) on the Cs weight channels;
+    Σ att·(v + pe) 3C; the statistics 3C + 3Cs.
+    Backward: the forward up to the softmax again; g·(v + pe) and dalpha
+    3C, S and dw4 4Cs, dvpe C; dW4 and dc_ 4Cs² + Cs, db4 Cs; dg2, dh2 and
+    dbv 4Cs; dW3 and db3 2C·Cs + Cs; da 2C·Cs + C; dg1, dh1 and dw_pre 4C;
+    dq C; dk|dv 2C; dpe C; dW2 and db2 7C; dr_pe 6C + 3; dA1 and dc1 21."""
+    fwd = 21 + 17 * c + 2 * c * cs + 2 * cs * cs + 11 * cs
+    bwd = 45 + 37 * c + 6 * c * cs + 6 * cs * cs + 19 * cs
+    return fwd, bwd
+
+
 def call_costs(name, call):
     """(kernel fn, plain fn, library fn or None, bytes, operations, shape)
     of one recorded call."""
@@ -773,24 +810,21 @@ def call_costs(name, call):
         return (kern, plain, lambda: torch.index_select(x, 0, idx_long), n_bytes, 0.0,
                 shape)
     if name in ("pt_attn_fwd", "pt_attn_bwd"):
-        # inputs read once, outputs written once; FP32 operations per slot:
-        # PE tower 18 + 6C, w_pre and the bn1 affine 4C, relu C, fc1 2C·Cs,
-        # bn2 affine and relu 3Cs, fc2 2Cs², statistics 4C, softmax and the
-        # weighted sum ~6C; the backward recomputes the forward and about
-        # doubles it (a gradient for each operand of each product): 3×
+        # inputs read once, outputs written once; FP32 operations of the
+        # plain versions' slot-rows (attn_slot_ops)
         q, kv, rel, li, starts, tile, width, params = args[:8]
         b, m, c = q.shape
         k, cs = li.shape[-1], params[6].shape[-1]
-        per_slot = 18 + 21 * c + 2 * c * cs + 3 * cs + 2 * cs * cs
+        fwd_ops, bwd_ops = attn_slot_ops(c, cs)
         numel = lambda ts: sum(t.numel() for t in ts)
         n_bytes = 4 * (numel((q, kv, rel, li, starts)) + numel(params))
         if name == "pt_attn_fwd":
             n_bytes += 4 * numel(out)
-            n_ops = b * m * k * per_slot
+            n_ops = b * m * k * fwd_ops
         else:
             dq, dkv, grads = out
             n_bytes += 4 * (args[8].numel() + dq.numel() + dkv.numel() + numel(grads))
-            n_ops = 3 * b * m * k * per_slot
+            n_ops = b * m * k * bwd_ops
         shape = dict(B=b, M=m, C=c, K=k, W=tile * width)
         return kern, plain, None, n_bytes, float(n_ops), shape
     # stats: inputs read once, outputs written once; per valid listed slot
@@ -1045,18 +1079,95 @@ def check_stale_kernels(dev, stale) -> list:
     records = []
     summary = time_calls(stale["calls"], dev, stale["launches"], max_err, tuple(max_err), reps=5,
                          records=records)
+    print_widths(records)
+    time_spread(stale["calls"], dev, tuple(max_err))
+    return summary
+
+
+def print_widths(records) -> None:
+    """The attention kernels' recorded launch times summed per width (C, M,
+    K): launches, kernel ms, bound ms."""
     widths = {}
     for name, shape, t_k, bnd in records:
-        if name == "pt_attn_bwd":
-            w = widths.setdefault((shape["C"], shape["M"], shape["K"]), [0, 0.0, 0.0])
-            w[0] += 1
-            w[1] += t_k
-            w[2] += bnd
-    for (c, m, k), (n, t_k, bnd) in sorted(widths.items()):
-        print(f"  pt_attn_bwd C={c} M={m} K={k}: {n} launches, {t_k:.4f} ms, bound {bnd:.5f} ms "
+        w = widths.setdefault((name, shape["C"], shape["M"], shape["K"]), [0, 0.0, 0.0])
+        w[0] += 1
+        w[1] += t_k
+        w[2] += bnd
+    for (name, c, m, k), (n, t_k, bnd) in sorted(widths.items()):
+        print(f"  {name} C={c} M={m} K={k}: {n} launches, {t_k:.4f} ms, bound {bnd:.5f} ms "
               f"({t_k / bnd:.1f}x)", flush=True)
-    time_spread(stale["calls"], dev, ("pt_attn_bwd",))
-    return summary
+
+
+def attn_inputs(dev, rng, c, m, k, tile, width):
+    """Seeded operands of one attention call at B clouds: tower arrays about
+    as the folded flagship's (bn scales near 1), slot 0 the query row, the
+    slots beyond the largest power of two <= K shadow slots in every row (so
+    that the valid slots' equal weights are dyadic where W4 = 0, as
+    check_pt_attn_bwd_exact needs), and a cotangent."""
+    cs = c // pa.SHARES
+    w_sz = tile * width
+
+    def a(shape, scale=0.3, off=0.0):
+        return torch.as_tensor((rng.standard_normal(shape) * scale + off).astype(np.float32),
+                               device=dev)
+
+    params = (a((3, 3)), a((1, 3)), a((3, c)), a((1, c)), a((1, c), off=1.0), a((1, c)),
+              a((c, cs), c ** -0.5), a((1, cs)), a((1, cs), off=1.0), a((1, cs)),
+              a((cs, cs), cs ** -0.5), a((1, cs)))
+    starts = window_starts(m // tile, width)
+    li = rng.integers(0, w_sz, (B, m, k)).astype(np.int32)
+    li[:, :, 0] = (np.arange(m) - np.repeat(starts * tile, tile))[None]
+    li[:, :, 1 << (k.bit_length() - 1):] = w_sz
+    args = (a((B, m, c), 1.0), a((B, m, 2 * c), 1.0), a((B, m, k, 3), 0.05),
+            torch.as_tensor(li, device=dev), torch.as_tensor(starts, dtype=torch.int32, device=dev),
+            tile, width, params)
+    return args, a((B, m, c), 1.0)
+
+
+def check_plan_shapes(dev) -> None:
+    """Phase 15: direct calls at the shapes whose plans take a smaller tile
+    or slot chunks, against the plain versions: pt_attn_fwd and pt_attn_bwd
+    at C = 512 with K = 8 (M = 1024) and K = 32 and 48 (M = 256) as in
+    phase 11 (1e-4 of scale, the forward's bits twice, dkv exact on integer
+    cotangents); cbl_stats_fwd on windows wider than shared memory holds
+    (width 7 x tile 256 and width 3 x tile 1024, K = 36) as in phase 9
+    (counts exact, sums rel 1e-5, the same bits twice), and its L2 path at
+    the flagship's level-0 window equal bit for bit to the staged path."""
+    rng = np.random.default_rng(6)
+    with torch.no_grad():
+        for m, k, tile, width in ((1024, 8, 256, 3), (256, 32, 256, 1), (256, 48, 256, 1)):
+            args, g = attn_inputs(dev, rng, 512, m, k, tile, width)
+            fwd = (args, {}, pa.pt_attn_fwd(*args))
+            bwd = (args + (g,), {}, pa.pt_attn_bwd(*args, g))
+            err = max(compare_pt_attn_fwd(fwd), compare_pt_attn_bwd(bwd))
+            check_pt_attn_bwd_exact(bwd)
+            print(f"  pt_attn C=512 M={m} K={k}: fwd plan {tuple(pa.fwd_plan(B, m, k, 512))}, "
+                  f"bwd plan {tuple(pa.bwd_plan(B, m, k, 512))}: max|d| {err:.3g}, dkv exact",
+                  flush=True)
+        labels = torch.as_tensor(rng.integers(0, NUM_CLASSES, (B, N)), device=dev)
+        onehot = torch.nn.functional.one_hot(labels, NUM_CLASSES).float()
+        onehot[torch.as_tensor(rng.random((B, N)) < 0.1, device=dev)] = 0.0
+        meta = cd.row_meta(onehot)
+        features = torch.as_tensor(rng.standard_normal((B, N, cd.CHANNELS), dtype=np.float32),
+                                   device=dev)
+        for k, tile, width, window in ((36, 256, 7, 3), (36, 1024, 3, 1), (35, 256, 3, 1)):
+            w_sz = tile * width
+            li = torch.as_tensor(rng.integers(0, w_sz + 1, (B, N, k)).astype(np.int32), device=dev)
+            args = (features, meta, li, 1.0, tile, width, window)
+            out = cd.cbl_stats_fwd(*args)
+            err = compare_stats_fwd((args, {}, out))
+            plan = cd.fwd_plan(B, N, k, tile, width)
+            if plan[2]:  # a staged window: the L2 path gives its bits
+                other = torch.empty_like(out)
+                blocks, threads, _ = plan
+                build.check(build.library().cbl_stats_fwd(
+                    features.data_ptr(), meta.data_ptr(), li.data_ptr(), other.data_ptr(), B, N,
+                    k, cd.CHANNELS, tile, width, window, cd._inv_t(1.0), blocks, threads, 0,
+                    torch.cuda.current_stream(dev).cuda_stream), "cbl_stats_fwd")
+                require(torch.equal(other.view(torch.int32), out.view(torch.int32)),
+                        f"cbl_stats_fwd W={w_sz}: the L2 path's bits differ from the staged path's")
+            print(f"  cbl_stats_fwd K={k} W={w_sz}: plan {plan}, max|d| {err:.3g}, the same bits "
+                  f"twice{', and through L2' if plan[2] else ''}", flush=True)
 
 
 def check_routes(metrics: dict) -> None:
@@ -1077,8 +1188,9 @@ def bare_entry(name, args, kw):
     """A kernel's C entry on operands prepared once, outside the timed call:
     none of the wrapper's host work (operand checks and conversions, the
     window starts copied to the card, the output allocated, the parameter
-    gradients' partial rows summed) is timed. The v2 backward's gradient and
-    the attention backward's dk|dv are not zeroed between runs. The returned
+    gradients' and statistics' partial rows summed) is timed. The v2
+    backward's gradient and the attention backward's dk|dv are not zeroed
+    between runs. The returned
     call keeps its operands alive."""
     lib, stream = build.library(), torch.cuda.current_stream(args[0].device).cuda_stream
 
@@ -1117,20 +1229,26 @@ def bare_entry(name, args, kw):
         ops = (f, mt, lii, torch.empty((b, m, 8), dtype=torch.float32, device=f.device))
         return call(lib.cbl_stats_fwd, ops, b, m, k, c, tile, width, window,
                     cd._inv_t(temperature), *cd.fwd_plan(b, m, k, tile, width))
-    if name == "pt_attn_bwd":
-        q, kv, rel, li, starts, tile, width, params, g = args
-        (q, kv, rel, li, st), ps, (b, m, k, c, cs_), _, _ = pa._cuda_args(
+    if name in ("pt_attn_fwd", "pt_attn_bwd"):
+        q, kv, rel, li, starts, tile, width, params = args[:8]
+        (q, kv, rel, li, st), ps, (b, m, k, c, cs_) = pa._cuda_args(
             q, kv, rel, li, starts, tile, width, params)
-        plan = pa.bwd_plan(b, m, k, c)
         ptrs = pa._pointers(ps)
-        g = g.float().contiguous()
-        dq, dkv = torch.empty_like(q), torch.zeros_like(kv)
-        dp = torch.empty((plan.blocks, sum(pa._prow(c, cs_))), device=q.device)
-        keep = (q, kv, rel, li, st, ps, ptrs, g, dq, dkv, dp)
-        return lambda _keep=keep: build.check(lib.cbl_pt_attn_bwd(
-            q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
-            ctypes.cast(ptrs, ctypes.c_void_p), g.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
-            dp.data_ptr(), b, m, k, c, tile, width, plan.blocks, plan.threads, plan.rows,
+        head = (q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
+                ctypes.cast(ptrs, ctypes.c_void_p))
+        if name == "pt_attn_fwd":
+            plan = pa.fwd_plan(b, m, k, c)
+            out = (torch.empty_like(q), torch.empty((plan.blocks, 2 * c + 2 * cs_), device=q.device))
+            entry = lib.cbl_pt_attn_fwd
+        else:
+            plan = pa.bwd_plan(b, m, k, c)
+            out = (args[8].float().contiguous(), torch.empty_like(q), torch.zeros_like(kv),
+                   torch.empty((plan.blocks, sum(pa._prow(c, cs_))), device=q.device))
+            entry = lib.cbl_pt_attn_bwd
+        ptr_args = head + tuple(t.data_ptr() for t in out)
+        keep = (q, kv, rel, li, st, ps, ptrs, out)
+        return lambda _keep=keep: build.check(entry(
+            *ptr_args, b, m, k, c, tile, width, plan.blocks, plan.threads, plan.rows, plan.chunk,
             plan.smem, stream), name)
     if name == "cbl_stats_bwd":
         features, meta, li, stats, g, temperature, tile, width, window = args
@@ -1378,8 +1496,10 @@ def main() -> int:
         print(f"stale request median {stale_served['med'] * 1e3:.3f} ms beside the batch-BN "
               f"request's {served['med'] * 1e3:.3f} ms", flush=True)
         voting(stale_served["predict"], "stale request")
+        records = []
         stale_summary = time_calls(stale_served.pop("calls"), dev, stale_served["launches"],
-                                   {"pt_attn_fwd": 0.0}, ("pt_attn_fwd",))
+                                   {"pt_attn_fwd": 0.0}, ("pt_attn_fwd",), records=records)
+        print_widths(records)
     del served, stale_served, step, predict
     torch.cuda.empty_cache()
 
@@ -1440,6 +1560,10 @@ def main() -> int:
     with phase("cbl-kernels"):
         train_summary += check_cbl_kernels(dev, pallas)
     del pallas
+    torch.cuda.empty_cache()
+
+    with phase("plan-shapes"):
+        check_plan_shapes(dev)
 
     summary = []
     for entry in train_summary:

@@ -32,6 +32,10 @@
 // first stages the tile's window in shared memory once: W = width * tile
 // rows of 32 floats (96 KB at the flagship's W = 768, so two blocks fit an
 // SM), each with its |s|^2 summed in channel order and its two meta lanes.
+// A window that does not fit (over 1,660 rows: a wider self window or a
+// larger tile) is not staged: its rows are read through L2, and each slot's
+// |s|^2 is summed beside its dot product in the same channel order, so every
+// lane keeps the staged path's bits.
 // Eight lanes serve a query row (the query's own row lies in the window);
 // lane l takes a contiguous run of the row's slots and computes each slot's
 // dist once, its dot product in channel order from shared memory, so d2,
@@ -137,18 +141,54 @@ inline size_t fwd_smem(int w_sz) { return (size_t)w_sz * (128 + 8 + 4); }
 
 __device__ __forceinline__ int chunk_at(int r, int i) { return r * 8 + (i ^ (r & 7)); }
 
+// The window's rows as the forward reads them: staged in shared memory, or
+// through L2 from the features and meta (|s|^2 then summed with each dot
+// product, in the same channel order).
+struct SharedWindow {
+  static constexpr bool kStaged = true;
+  const float4* win;
+  const float2* mw;
+  const float* s2w;
+  __device__ float4 chunk(int r, int i) const { return win[chunk_at(r, i)]; }
+  __device__ float2 meta(int r) const { return mw[r]; }
+  __device__ float s2(int r) const { return s2w[r]; }
+};
+
+struct GlobalWindow {
+  static constexpr bool kStaged = false;
+  const float4* f4;
+  const float* mt;
+  long long base;  // the window's first row
+  __device__ float4 chunk(int r, int i) const { return f4[(base + r) * 8 + i]; }
+  __device__ float2 meta(int r) const {
+    return *reinterpret_cast<const float2*>(mt + (base + r) * 8);
+  }
+  __device__ float s2(int r) const {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 v = chunk(r, i);
+      acc = __fadd_rn(acc, __fmul_rn(v.x, v.x));
+      acc = __fadd_rn(acc, __fmul_rn(v.y, v.y));
+      acc = __fadd_rn(acc, __fmul_rn(v.z, v.z));
+      acc = __fadd_rn(acc, __fmul_rn(v.w, v.w));
+    }
+    return acc;
+  }
+};
+
 // One chunk of a lane's slots, S at most (slots c * 8 * spl + lane * spl + j
 // for j < spl): for each valid member slot its dist (d2 rounded as the plain
 // version rounds it: both dot products in channel order), its validity mv
 // (0 for a slot that is no valid member) and whether its label is the
 // query's; returns the largest -dist (kNegInf if none).
-template <int S>
+template <int S, class Win>
 __device__ __forceinline__ float slot_chunk(
-    const float4* __restrict__ win, const float2* __restrict__ mw,
-    const float* __restrict__ s2w, const int32_t* __restrict__ lrow, int k,
-    int w_sz, int qw, float q2, float qa, int first, int spl, float (&d)[S],
-    float (&mv)[S], unsigned& pos) {
+    const Win& win, const int32_t* __restrict__ lrow, int k, int w_sz, int qw,
+    float q2, float qa, int first, int spl, float (&d)[S], float (&mv)[S],
+    unsigned& pos) {
   int w[S];
+  float s2[S];
   pos = 0u;
 #pragma unroll
   for (int j = 0; j < S; ++j) {
@@ -156,27 +196,34 @@ __device__ __forceinline__ float slot_chunk(
     const int jj = j < spl && kk < k ? lrow[kk] : -1;
     const bool in = jj >= 0 && jj < w_sz;
     w[j] = in ? jj : qw;  // a row that is safe to read
-    const float2 sm = mw[w[j]];
+    const float2 sm = win.meta(w[j]);
     mv[j] = in && sm.y > 0.f ? sm.y : 0.f;
     if (fabsf(__fsub_rn(qa, sm.x)) < 0.5f) pos |= 1u << j;
     d[j] = 0.f;
+    s2[j] = 0.f;
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const float4 qc = win[chunk_at(qw, i)];
+    const float4 qc = win.chunk(qw, i);
 #pragma unroll
     for (int j = 0; j < S; ++j) {
-      const float4 t = win[chunk_at(w[j], i)];
+      const float4 t = win.chunk(w[j], i);
       d[j] = __fadd_rn(d[j], __fmul_rn(qc.x, t.x));
       d[j] = __fadd_rn(d[j], __fmul_rn(qc.y, t.y));
       d[j] = __fadd_rn(d[j], __fmul_rn(qc.z, t.z));
       d[j] = __fadd_rn(d[j], __fmul_rn(qc.w, t.w));
+      if constexpr (!Win::kStaged) {
+        s2[j] = __fadd_rn(s2[j], __fmul_rn(t.x, t.x));
+        s2[j] = __fadd_rn(s2[j], __fmul_rn(t.y, t.y));
+        s2[j] = __fadd_rn(s2[j], __fmul_rn(t.z, t.z));
+        s2[j] = __fadd_rn(s2[j], __fmul_rn(t.w, t.w));
+      }
     }
   }
   float mloc = kNegInf;
 #pragma unroll
   for (int j = 0; j < S; ++j) {
-    const float sc = __fadd_rn(q2, s2w[w[j]]);
+    const float sc = __fadd_rn(q2, Win::kStaged ? win.s2(w[j]) : s2[j]);
     const float d2 = fmaxf(__fsub_rn(sc, __fmul_rn(2.f, d[j])), 0.f);
     d[j] = sqrtf(__fadd_rn(d2, 1e-12f));
     if (mv[j] > 0.f) mloc = fmaxf(mloc, -d[j]);
@@ -184,43 +231,14 @@ __device__ __forceinline__ float slot_chunk(
   return mloc;
 }
 
-template <int S>
-__global__ void __launch_bounds__(kFwdMaxThreads, 2)
-    cbl_stats_fwd_kernel(const float* __restrict__ f,
-                         const float* __restrict__ meta,
-                         const int32_t* __restrict__ li,
-                         float* __restrict__ stats, int m, int k, int tile,
-                         int width, int window, int rows_pb, float inv_t) {
-  extern __shared__ float4 fwd_shared[];
-  const int w_sz = width * tile;
-  float4* win = fwd_shared;
-  float2* mw = reinterpret_cast<float2*>(win + w_sz * 8);
-  float* s2w = reinterpret_cast<float*>(mw + w_sz);
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * rows_pb;  // the block's first query row
-  const int start = min(max(row0 / tile - window, 0), m / tile - width);
-  const long long base = (long long)b * m + (long long)start * tile;
-
-  // stage the window: each row once, its |s|^2 in channel order
-  const float4* f4 = reinterpret_cast<const float4*>(f);
-  for (int r = threadIdx.x; r < w_sz; r += blockDim.x) {
-    float4 v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = f4[(base + r) * 8 + i];
-    float s2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s2 = __fadd_rn(s2, __fmul_rn(v[i].x, v[i].x));
-      s2 = __fadd_rn(s2, __fmul_rn(v[i].y, v[i].y));
-      s2 = __fadd_rn(s2, __fmul_rn(v[i].z, v[i].z));
-      s2 = __fadd_rn(s2, __fmul_rn(v[i].w, v[i].w));
-      win[chunk_at(r, i)] = v[i];
-    }
-    s2w[r] = s2;
-    mw[r] = *reinterpret_cast<const float2*>(meta + (base + r) * 8);
-  }
-  __syncthreads();
-
+// The block's query rows, 8 lanes a row, over the window's rows.
+template <int S, class Win>
+__device__ __forceinline__ void fwd_rows(const Win& win,
+                                         const int32_t* __restrict__ li,
+                                         float* __restrict__ stats, int k,
+                                         int w_sz, int row0, int start_row,
+                                         long long base, int rows_pb,
+                                         float inv_t) {
   const int lane = threadIdx.x % kFwdLanes;
   const unsigned gmask = 0xffu << (threadIdx.x & 31 & ~(kFwdLanes - 1));
   const int spl = min((k + kFwdLanes - 1) / kFwdLanes, S);  // slots a lane a chunk
@@ -228,16 +246,16 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 2)
   const int nch = (k + per_chunk - 1) / per_chunk;
   for (int rr = threadIdx.x / kFwdLanes; rr < rows_pb;
        rr += blockDim.x / kFwdLanes) {  // uniform over a row group
-    const int qw = row0 + rr - start * tile;  // the query's row in the window
+    const int qw = row0 + rr - start_row;  // the query's row in the window
     const long long row = base + qw;
-    const float q2 = s2w[qw], qa = mw[qw].x;
+    const float q2 = win.s2(qw), qa = win.meta(qw).x;
     const int32_t* lrow = li + row * k;
     float d[S], mv[S];
     unsigned pos;
     // m: the exact max over the lanes (order-free, so the plain version's bits)
     float mhat = kNegInf;
     for (int c = 0; c < nch; ++c)
-      mhat = fmaxf(mhat, slot_chunk<S>(win, mw, s2w, lrow, k, w_sz, qw, q2, qa,
+      mhat = fmaxf(mhat, slot_chunk<S>(win, lrow, k, w_sz, qw, q2, qa,
                                        c * per_chunk + lane * spl, spl, d, mv,
                                        pos));
 #pragma unroll
@@ -248,7 +266,7 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 2)
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);  // pos, under, pcnt, vcnt
     for (int c = 0; c < nch; ++c) {
       if (nch > 1)  // one chunk keeps its dists from the max pass
-        slot_chunk<S>(win, mw, s2w, lrow, k, w_sz, qw, q2, qa,
+        slot_chunk<S>(win, lrow, k, w_sz, qw, q2, qa,
                       c * per_chunk + lane * spl, spl, d, mv, pos);
 #pragma unroll
       for (int j = 0; j < S; ++j)  // e
@@ -276,6 +294,52 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 2)
       *out = lane == 0 ? make_float4(mhat, acc.x, acc.y, acc.z)
                        : make_float4(acc.w, 0.f, 0.f, 0.f);
     }
+  }
+}
+
+// STAGED: the window in shared memory (smem >= fwd_smem); else read through
+// L2 (no dynamic shared memory).
+template <int S, bool STAGED>
+__global__ void __launch_bounds__(kFwdMaxThreads, 2)
+    cbl_stats_fwd_kernel(const float* __restrict__ f,
+                         const float* __restrict__ meta,
+                         const int32_t* __restrict__ li,
+                         float* __restrict__ stats, int m, int k, int tile,
+                         int width, int window, int rows_pb, float inv_t) {
+  extern __shared__ float4 fwd_shared[];
+  const int w_sz = width * tile;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rows_pb;  // the block's first query row
+  const int start = min(max(row0 / tile - window, 0), m / tile - width);
+  const long long base = (long long)b * m + (long long)start * tile;
+  const float4* f4 = reinterpret_cast<const float4*>(f);
+  if constexpr (STAGED) {
+    float4* win = fwd_shared;
+    float2* mw = reinterpret_cast<float2*>(win + w_sz * 8);
+    float* s2w = reinterpret_cast<float*>(mw + w_sz);
+    // stage the window: each row once, its |s|^2 in channel order
+    for (int r = threadIdx.x; r < w_sz; r += blockDim.x) {
+      float4 v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = f4[(base + r) * 8 + i];
+      float s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s2 = __fadd_rn(s2, __fmul_rn(v[i].x, v[i].x));
+        s2 = __fadd_rn(s2, __fmul_rn(v[i].y, v[i].y));
+        s2 = __fadd_rn(s2, __fmul_rn(v[i].z, v[i].z));
+        s2 = __fadd_rn(s2, __fmul_rn(v[i].w, v[i].w));
+        win[chunk_at(r, i)] = v[i];
+      }
+      s2w[r] = s2;
+      mw[r] = *reinterpret_cast<const float2*>(meta + (base + r) * 8);
+    }
+    __syncthreads();
+    fwd_rows<S>(SharedWindow{win, mw, s2w}, li, stats, k, w_sz, row0,
+                start * tile, base, rows_pb, inv_t);
+  } else {
+    fwd_rows<S>(GlobalWindow{f4, meta, base}, li, stats, k, w_sz, row0,
+                start * tile, base, rows_pb, inv_t);
   }
 }
 
@@ -545,26 +609,39 @@ __global__ void __launch_bounds__(cbl_window_sort::kThreads)
   }
 }
 
-template <int S>
-int fwd(const float* f, const float* meta, const int32_t* li, float* stats,
-        int b, int m, int k, int tile, int width, int window, float inv_t,
-        int blocks, int threads, int smem, cudaStream_t s) {
+template <int S, bool STAGED>
+int fwd_launch(const float* f, const float* meta, const int32_t* li,
+               float* stats, int b, int m, int k, int tile, int width,
+               int window, float inv_t, int blocks, int threads, int smem,
+               cudaStream_t s) {
   static bool configured = false;
-  if (!configured) {
+  if (STAGED && !configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        cbl_stats_fwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemLimit);
+        cbl_stats_fwd_kernel<S, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (e != cudaSuccess) return (int)e;
     // two windows of the flagship's width to an SM
-    e = cudaFuncSetAttribute(cbl_stats_fwd_kernel<S>,
+    e = cudaFuncSetAttribute(cbl_stats_fwd_kernel<S, true>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  cbl_stats_fwd_kernel<S><<<dim3(blocks, b), threads, smem, s>>>(
+  cbl_stats_fwd_kernel<S, STAGED><<<dim3(blocks, b), threads, smem, s>>>(
       f, meta, li, stats, m, k, tile, width, window, m / blocks, inv_t);
   return (int)cudaGetLastError();
+}
+
+template <int S>
+int fwd(const float* f, const float* meta, const int32_t* li, float* stats,
+        int b, int m, int k, int tile, int width, int window, float inv_t,
+        int blocks, int threads, int smem, cudaStream_t s) {
+  return smem > 0 ? fwd_launch<S, true>(f, meta, li, stats, b, m, k, tile,
+                                        width, window, inv_t, blocks, threads,
+                                        smem, s)
+                  : fwd_launch<S, false>(f, meta, li, stats, b, m, k, tile,
+                                         width, window, inv_t, blocks, threads,
+                                         0, s);
 }
 
 template <int C>
@@ -606,8 +683,9 @@ int bwd(const float* f, const float* meta, const int32_t* li,
 // other widths). blocks (a cloud), threads and smem come from
 // ops/cuda/cbl_dense.py::fwd_plan: a block serves M / blocks query rows of
 // one tile (a power-of-two divisor of it), 8 lanes a row; smem holds the
-// tile's window (fwd_smem); the query's own tile lies inside its window
-// (window < width, as in the self geometry).
+// tile's window (fwd_smem), or is 0 for a window read through L2; the
+// query's own tile lies inside its window (window < width, as in the self
+// geometry).
 extern "C" int cbl_stats_fwd(const float* f, const float* meta,
                              const int32_t* li, float* stats, int b, int m,
                              int k, int c, int tile, int width, int window,
@@ -615,8 +693,8 @@ extern "C" int cbl_stats_fwd(const float* f, const float* meta,
                              void* stream) {
   if (c != 32 || k < 1 || blocks < 1 || m % blocks || tile % (m / blocks) ||
       threads < 32 || threads > kFwdMaxThreads || threads % 32 ||
-      window >= width || smem < (int)fwd_smem(width * tile) ||
-      smem > kSmemLimit)
+      window >= width ||
+      (smem != 0 && (smem < (int)fwd_smem(width * tile) || smem > kSmemLimit)))
     return (int)cudaErrorInvalidValue;
   const int spl = (k + kFwdLanes - 1) / kFwdLanes;
   cudaStream_t s = (cudaStream_t)stream;

@@ -49,11 +49,13 @@ SIGNATURES = {
     # width, window, inv_t, scatter rows a block, stream
     "cbl_stats_bwd": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
     # q, kv, rel, li, starts, params (12 pointers), out, stats, b, m, k, c,
-    # tile, width, grid, rows per block, stream
-    "cbl_pt_attn_fwd": (_P,) * 8 + (_I,) * 8 + (_P,),
+    # tile, width, blocks, threads, rows a tile, slots a chunk, shared bytes,
+    # stream
+    "cbl_pt_attn_fwd": (_P,) * 8 + (_I,) * 11 + (_P,),
     # q, kv, rel, li, starts, params, g_out, dq, dkv, dparams, b, m, k, c,
-    # tile, width, blocks, threads, rows a tile, shared bytes, stream
-    "cbl_pt_attn_bwd": (_P,) * 10 + (_I,) * 10 + (_P,),
+    # tile, width, blocks, threads, rows a tile, slots a chunk, shared bytes,
+    # stream
+    "cbl_pt_attn_bwd": (_P,) * 10 + (_I,) * 11 + (_P,),
     # features, meta, li, starts, stats, b, m, k, c, tile, width, temperature,
     # stream
     "cbl_tile2_fwd": (_P,) * 5 + (_I,) * 6 + (_F, _P),

@@ -21,6 +21,7 @@ versions take any shares.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -37,7 +38,7 @@ CHANNELS = (16, 32, 64, 128, 256, 512)
 SM_COUNT = 132  # H100 SXM
 SMEM_LIMIT = 232448  # dynamic shared memory a block can have on the H100
 SMEM_PER_SM = 233472  # shared memory of an SM (each block also takes 1 KB)
-BWD_TILE_FLOATS = 8192  # slot-rows x channels a backward tile holds at most
+TILE_FLOATS = 8192  # slot-rows x channels a tile holds at most
 
 
 def _check(q, kv, rel, li, starts, tile, width, params):
@@ -161,9 +162,8 @@ def pt_attn_bwd_plain(q, kv, rel, li, starts, tile: int, width: int, params, g_o
 
 
 def _cuda_args(q, kv, rel, li, starts, tile, width, params):
-    """Contiguous float32 operands on one CUDA device, the geometry, and the
-    launch shape (rows per block, blocks); raises on what the kernels do not
-    take."""
+    """Contiguous float32 operands on one CUDA device and the geometry;
+    raises on what the kernels do not take."""
     tensors = (q, kv, rel, li, starts) + tuple(params)
     if not all(x.is_cuda and x.device == q.device for x in tensors):
         raise ValueError(f"pt_attn: tensors on {sorted({str(x.device) for x in tensors})}")
@@ -175,9 +175,7 @@ def _cuda_args(q, kv, rel, li, starts, tile, width, params):
     ops = [x.contiguous() for x in (q, kv, rel)]
     ops += [li.to(torch.int32).contiguous(), starts.to(torch.int32).contiguous()]
     ps = [p.contiguous() for p in params]
-    rpb = max(1, 256 // c)
-    groups = -(-b * m // rpb)
-    return ops, ps, (b, m, k, c, cs), rpb, groups
+    return ops, ps, (b, m, k, c, cs)
 
 
 def _pointers(ps):
@@ -185,51 +183,34 @@ def _pointers(ps):
     return (ctypes.c_void_p * 12)(*(p.data_ptr() for p in ps))
 
 
-def pt_attn_fwd(q, kv, rel, li, starts, tile: int, width: int, params):
-    """Forward: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. → (out [B, M, C], s1 [2, C], s2 [2, Cs])."""
-    global fwd_launches
-    if q.device.type == "cpu":
-        return pt_attn_plain(q, kv, rel, li, starts, tile, width, params)
-    (q, kv, rel, li, st), ps, (b, m, k, c, cs), rpb, groups = _cuda_args(
-        q, kv, rel, li, starts, tile, width, params)
-    grid = min(groups, SM_COUNT * (2048 // (c * rpb)))
-    out = torch.empty((b, m, c), dtype=torch.float32, device=q.device)
-    stats = torch.empty((grid * rpb, 2 * c + 2 * cs), dtype=torch.float32, device=q.device)
-    ptrs = _pointers(ps)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = build.library().cbl_pt_attn_fwd(
-        q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
-        ctypes.cast(ptrs, ctypes.c_void_p), out.data_ptr(), stats.data_ptr(),
-        b, m, k, c, tile, width, grid, rpb, stream,
-    )
-    fwd_launches += 1
-    build.check(rc, "cbl_pt_attn_fwd")
-    sums = stats.sum(0) / (b * m * k)
-    s1 = torch.stack([sums[:c], sums[c: 2 * c]])
-    s2 = torch.stack([sums[2 * c: 2 * c + cs], sums[2 * c + cs:]])
-    return out, s1, s2
-
-
 def _prow(c: int, cs: int) -> list:
     """Sizes of the 12 gradients in the kernel's packed row, in order."""
     return [9, 3, 3 * c, c, c, c, c * cs, cs, cs, cs, cs * cs, cs]
 
 
-class BwdPlan(NamedTuple):
+class TilePlan(NamedTuple):
     blocks: int  # a persistent grid: block i takes tiles i, i + blocks, ...
     threads: int
     smem: int  # dynamic shared bytes
     rows: int  # query rows a tile (all K slots of each)
+    chunk: int  # slots of each row the per-slot-row arrays hold at a time (K: one chunk)
 
 
 def _round4(x: int) -> int:
     return (x + 3) // 4 * 4
 
 
-def bwd_threads(c: int) -> int:
-    """Threads of a backward block: at least C (thread c owns channel c)."""
+def tile_threads(c: int) -> int:
+    """Threads of a block of either kernel: at least C (the output's and the
+    backward's last phase's thread c owns channel c)."""
     return 512 if c // SHARES >= 64 else 256
+
+
+def blocks_per_sm(c: int, kind: str) -> int:
+    """Blocks an SM the forward or the backward is built for (their launch
+    bounds, csrc/pt_attn.cu's ``Tiling::FWD_BLOCKS`` and ``BWD_BLOCKS``;
+    tests/test_torch_kernel_plans.py holds the two equal)."""
+    return 1 if c // SHARES >= 64 else (3 if kind == "fwd" else 2)
 
 
 def bwd_stash(c: int) -> bool:
@@ -238,49 +219,116 @@ def bwd_stash(c: int) -> bool:
     return c // SHARES <= 32
 
 
-def bwd_smem(c: int, rows: int, k: int) -> int:
-    """Dynamic shared bytes of a backward block whose tiles hold rows x K
-    slot-rows ns (csrc/pt_attn.cu::bwd_smem_floats): the parameters (W3 and
-    W4 rows padded to an odd number of vectors), the tile's r1 [ns, C + 1],
-    six [ns, Cs] arrays, rel, the PE tower's first layer and the support
-    rows, the tile's q and g rows [rows, C] each, and where it stashes it
-    w_pre [ns, C + 1]; at the end the packed gradient row and the warps'
-    partial sums of dA1 and dc1."""
+def _image_floats(c: int) -> int:
+    """Floats of the parameter image (W3 and W4 rows padded to an odd number
+    of vectors)."""
     cs = c // SHARES
-    ns = rows * k
     vj = min(cs, 4)
     nq = cs // vj
     ws = (nq if nq % 2 else nq + 1) * vj
-    params = 16 + 6 * c + c * ws + 4 * _round4(cs) + cs * ws
-    tile = (params + _round4(ns * (c + 1)) + 6 * _round4(ns * cs) + 2 * _round4(3 * ns)
-            + _round4(ns) + 2 * _round4(rows * c))
-    if bwd_stash(c):
-        tile += _round4(ns * (c + 1))
-    end = _round4(sum(_prow(c, cs))) + 12 * (bwd_threads(c) // 32)
+    return 16 + 6 * c + c * ws + 4 * _round4(cs) + cs * ws
+
+
+def fwd_smem(c: int, rows: int, k: int, chunk: int) -> int:
+    """Dynamic shared bytes of a forward block (csrc/pt_attn.cu::
+    fwd_smem_floats): the parameter image; r1 [rows·chunk, C + 1] and r2
+    [rows·chunk, Cs] of a chunk; the scores [rows·K, Cs]; the PE tower's
+    first layer and the support rows of every slot-row; the tile's q rows;
+    per (row, weight channel) the sums of att and att·relu(pe1); at the end
+    the threads' partial statistics."""
+    cs = c // SHARES
+    ns, nc = rows * k, rows * chunk
+    t = tile_threads(c)
+    tile = (_image_floats(c) + _round4(nc * (c + 1)) + _round4(nc * cs) + _round4(ns * cs)
+            + _round4(3 * ns) + _round4(ns) + _round4(rows * c) + 4 * rows * cs)
+    stats = 2 * c * (t // cs) + 2 * cs * (t // (cs // min(cs, 4)))
+    return 4 * max(tile, stats)
+
+
+def bwd_smem(c: int, rows: int, k: int, chunk: int) -> int:
+    """Dynamic shared bytes of a backward block (csrc/pt_attn.cu::
+    bwd_smem_floats): the parameter image; r1 [rows·chunk, C + 1] (and,
+    where it stashes it, w_pre) and bvec, r2, dbv [rows·chunk, Cs] of a
+    chunk; the scores (then att) and dalpha (then dw4) [rows·K, Cs]; rel, the
+    PE tower's first layer and the support rows of every slot-row; the
+    tile's q and g rows; at the end the packed gradient row and the warps'
+    partial sums of dA1 and dc1."""
+    cs = c // SHARES
+    ns, nc = rows * k, rows * chunk
+    per_row = _round4(nc * (c + 1)) * (2 if bwd_stash(c) else 1)
+    tile = (_image_floats(c) + per_row + 3 * _round4(nc * cs) + 2 * _round4(ns * cs)
+            + 2 * _round4(3 * ns) + _round4(ns) + 2 * _round4(rows * c))
+    end = _round4(sum(_prow(c, cs))) + 12 * (tile_threads(c) // 32)
     return 4 * max(tile, end)
 
 
-def bwd_plan(b: int, m: int, k: int, c: int) -> BwdPlan:
-    """Launch geometry of the backward. A tile is ``rows`` query rows with
-    all K slots: the largest power of two with rows·K·C <= 8192 (at least
-    threads / C, so that each channel's thread group gets whole rows),
-    halved while two blocks of 256 threads would not fit an SM. The grid is
-    persistent: as many blocks as fit on the card at once (by shared memory;
-    two an SM at 256 threads, one at 512), at most one a tile."""
+def _tile_plan(b, m, k, c, kind, min_rows) -> TilePlan:
+    """A tile is ``rows`` query rows with all K slots: the largest power of
+    two with rows·K·C <= 8192 (at least min_rows), halved (down to
+    min_rows) while the blocks an SM is built for would not fit in its
+    shared memory. Where even that tile's slot-rows do not fit in a block's
+    shared memory, its per-slot-row arrays take ``chunk`` slots of each row
+    at a time: the fewest chunks that fit, of equal size. The grid is
+    persistent: as many blocks as fit on the card at once, at most one a
+    tile."""
+    what, smem_of = f"pt_attn_{kind}", (fwd_smem if kind == "fwd" else bwd_smem)
     if c not in CHANNELS:
-        raise ValueError(f"pt_attn_bwd takes C in {CHANNELS}; got {c}")
-    threads = bwd_threads(c)
-    rows = max(1, BWD_TILE_FLOATS // (k * c))
-    rows = max(1 << (rows.bit_length() - 1), threads // c)
-    while (threads == 256 and rows > threads // c
-           and 2 * (bwd_smem(c, rows, k) + 1024) > SMEM_PER_SM):
+        raise ValueError(f"{what} takes C in {CHANNELS}; got {c}")
+    threads, per_sm = tile_threads(c), blocks_per_sm(c, kind)
+    rows = max(1, TILE_FLOATS // (k * c))
+    rows = max(1 << (rows.bit_length() - 1), min_rows)
+    while rows > min_rows and per_sm * (smem_of(c, rows, k, k) + 1024) > SMEM_PER_SM:
         rows //= 2
-    smem = bwd_smem(c, rows, k)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"pt_attn_bwd tile of {rows} rows x K={k} needs {smem} B of shared memory")
-    per_sm = min(2 if threads == 256 else 1, SMEM_PER_SM // (smem + 1024))
+    chunk = k
+    if smem_of(c, rows, k, k) > SMEM_LIMIT:
+        fits = [kc for kc in range(k, 0, -1) if smem_of(c, rows, k, kc) <= SMEM_LIMIT]
+        if not fits:
+            raise ValueError(f"{what} tile of {rows} rows x K={k} does not fit in shared memory")
+        chunk = -(-k // -(-k // fits[0]))
+    smem = smem_of(c, rows, k, chunk)
+    per_sm = min(per_sm, SMEM_PER_SM // (smem + 1024))
     tiles = -(-b * m // rows)
-    return BwdPlan(min(tiles, SM_COUNT * per_sm), threads, smem, rows)
+    return TilePlan(min(tiles, SM_COUNT * per_sm), threads, smem, rows, chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(b: int, m: int, k: int, c: int) -> TilePlan:
+    """Launch geometry of the forward (``_tile_plan``, tiles of any number
+    of rows)."""
+    return _tile_plan(b, m, k, c, "fwd", 1)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(b: int, m: int, k: int, c: int) -> TilePlan:
+    """Launch geometry of the backward (``_tile_plan``, at least threads / C
+    rows a tile, so that each channel's thread group of the last phase gets
+    whole rows)."""
+    return _tile_plan(b, m, k, c, "bwd", tile_threads(c) // c)
+
+
+def pt_attn_fwd(q, kv, rel, li, starts, tile: int, width: int, params):
+    """Forward: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. → (out [B, M, C], s1 [2, C], s2 [2, Cs])."""
+    global fwd_launches
+    if q.device.type == "cpu":
+        return pt_attn_plain(q, kv, rel, li, starts, tile, width, params)
+    (q, kv, rel, li, st), ps, (b, m, k, c, cs) = _cuda_args(
+        q, kv, rel, li, starts, tile, width, params)
+    plan = fwd_plan(b, m, k, c)
+    out = torch.empty((b, m, c), dtype=torch.float32, device=q.device)
+    stats = torch.empty((plan.blocks, 2 * c + 2 * cs), dtype=torch.float32, device=q.device)
+    ptrs = _pointers(ps)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = build.library().cbl_pt_attn_fwd(
+        q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
+        ctypes.cast(ptrs, ctypes.c_void_p), out.data_ptr(), stats.data_ptr(),
+        b, m, k, c, tile, width, plan.blocks, plan.threads, plan.rows, plan.chunk, plan.smem,
+        stream,
+    )
+    fwd_launches += 1
+    build.check(rc, "cbl_pt_attn_fwd")
+    sums = stats.sum(0) / (b * m * k)
+    return out, sums[: 2 * c].view(2, c), sums[2 * c:].view(2, cs)
 
 
 def pt_attn_bwd(q, kv, rel, li, starts, tile: int, width: int, params, g_out):
@@ -289,7 +337,7 @@ def pt_attn_bwd(q, kv, rel, li, starts, tile: int, width: int, params, g_out):
     global bwd_launches
     if q.device.type == "cpu":
         return pt_attn_bwd_plain(q, kv, rel, li, starts, tile, width, params, g_out)
-    (q, kv, rel, li, st), ps, (b, m, k, c, cs), _, _ = _cuda_args(
+    (q, kv, rel, li, st), ps, (b, m, k, c, cs) = _cuda_args(
         q, kv, rel, li, starts, tile, width, params)
     if g_out.shape != q.shape or g_out.device != q.device:
         raise ValueError(f"g_out {tuple(g_out.shape)} on {g_out.device} vs q {tuple(q.shape)}")
@@ -305,10 +353,10 @@ def pt_attn_bwd(q, kv, rel, li, starts, tile: int, width: int, params, g_out):
         q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p), g_out.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
         dp.data_ptr(), b, m, k, c, tile, width, plan.blocks, plan.threads, plan.rows,
-        plan.smem, stream,
+        plan.chunk, plan.smem, stream,
     )
     bwd_launches += 1
     build.check(rc, "cbl_pt_attn_bwd")
     flat = dp.sum(0)
-    grads = tuple(g.reshape(p.shape) for g, p in zip(torch.split(flat, sizes), params))
+    grads = tuple(g.view(p.shape) for g, p in zip(torch.split(flat, sizes), params))
     return dq, dkv, grads

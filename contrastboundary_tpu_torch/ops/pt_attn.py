@@ -11,6 +11,7 @@ VJP does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -38,6 +39,13 @@ class _PtAttn(torch.autograd.Function):
         return (dq, dkv, None, None, None, None, None, *dparams)
 
 
+@functools.lru_cache(maxsize=None)
+def _starts(num_tiles: int, width: int, device: torch.device) -> torch.Tensor:
+    """The self geometry's window starts on ``device``, copied there once per
+    (tiles, width); the kernels only read them."""
+    return torch.as_tensor(window_starts(num_tiles, width), dtype=torch.int32, device=device)
+
+
 def pt_attn(q: torch.Tensor, kv: torch.Tensor, rel: torch.Tensor, li: torch.Tensor,
             tile: int, width: int, params: Sequence[torch.Tensor]):
     """q [B, M, C], kv [B, M, 2C], rel [B, M, K, 3], li [B, M, K] in the self
@@ -46,6 +54,5 @@ def pt_attn(q: torch.Tensor, kv: torch.Tensor, rel: torch.Tensor, li: torch.Tens
     [2, Cs]): s1 and s2 are the batch mean and mean of squares of the bn1 and
     bn2 inputs over every slot, without gradient. Gradients flow to q, kv and
     the 12 arrays."""
-    starts = torch.as_tensor(window_starts(q.shape[1] // tile, width), dtype=torch.int32,
-                             device=q.device)
-    return _PtAttn.apply(q, kv, rel, li, starts, tile, width, *params)
+    return _PtAttn.apply(q, kv, rel, li, _starts(q.shape[1] // tile, width, q.device), tile,
+                         width, *params)

@@ -1,5 +1,5 @@
-"""Same-call A/B of the port's cbl_stats_fwd and pt_attn_bwd CUDA kernels
-against another checkout's, on one card.
+"""Same-call A/B of the port's cbl_stats_fwd, pt_attn_fwd and pt_attn_bwd
+CUDA kernels against another checkout's, on one card.
 
     python3 scripts/ab_torch_kernels.py --parent DIR [--reps 10] [--ptxas]
 
@@ -9,20 +9,28 @@ trained checkpoint; DIR is the root of another checkout of the repository
 ``git archive <commit> | tar -x -C DIR`` into a directory .gitignore lists).
 Its kernel package is copied beside it as ``cbt_parent`` and built from its
 own sources. The script records the cbl_stats_fwd calls of one batch-BN
-flagship train step (dense CBL route) and the pt_attn_bwd calls of one
-stale-BN train step, B=2 x N=65536 from the checkpoint (chip_smoke.py's
-setup), then for each call runs the other checkout's kernel ("old") and this
-tree's ("new") through their bare C entries on the same operands, in the
-order old, new, new, old, each the mean of --reps runs after an L2 flush.
-It checks on every call:
+flagship train step (dense CBL route), the pt_attn_fwd and pt_attn_bwd calls
+of one stale-BN train step, B=2 x N=65536 from the checkpoint, and the
+pt_attn_fwd calls of one stale-BN served request (chip_smoke.py's setup),
+then for each call runs the other checkout's kernel ("old") and this tree's
+("new") through their bare C entries on the same operands, each with its
+checkout's own launch geometry, in the order old, new, new, old, each the
+mean of --reps runs after an L2 flush. It checks on every call:
 - cbl_stats_fwd: the new stats equal bit for bit to the old kernel's (all
-  eight lanes; only reported with --old-may-differ) and to a second run of
-  the new kernel, counts exact and sums within rel 1e-5 of the plain
-  version;
+  eight lanes; only reported with --old-may-differ), to a second run of
+  the new kernel and to the new kernel's L2 path (the window read through
+  L2, as for windows beyond shared memory; timed against the staged path
+  in the order staged, L2, L2, staged), counts exact and sums within rel
+  1e-5 of the plain version;
+- pt_attn_fwd: out, s1 and s2 of the new kernel within 1e-4 of their scale
+  of the plain version's and the same bits twice;
 - pt_attn_bwd: dq, dkv and the 12 parameter gradients of the new kernel within
   1e-4 of their scale of the plain version's, and dkv exact on integer
   cotangents (chip_smoke.py's checks).
-It prints one line a call, the sums a step (pt_attn_bwd per width too), and
+It prints one line a call, the sums a step or request (the attention per
+width too), the level-0 attention calls 20 times each through the old and
+the new wrapper (ops/cuda/pt_attn.py) and, for the forward, the autograd
+entry (ops/pt_attn.py::pt_attn, which also makes the window starts), and
 the card's name and power limit; any failed check raises. --ptxas first
 prints nvcc's register and spill report of both sources.
 """
@@ -45,9 +53,13 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from contrastboundary_tpu_torch.data.synthetic import SyntheticSceneDataset, train_batch  # noqa: E402
+from contrastboundary_tpu_torch.eval.step import make_eval_step  # noqa: E402
+from contrastboundary_tpu_torch.eval.voting import VotingEvaluator  # noqa: E402
 from contrastboundary_tpu_torch.kernels import build  # noqa: E402
 from contrastboundary_tpu_torch.losses import ContrastConfig  # noqa: E402
 from contrastboundary_tpu_torch.ops.cuda import cbl_dense as cd  # noqa: E402
+from contrastboundary_tpu_torch.ops import PyramidSpec  # noqa: E402
+from contrastboundary_tpu_torch.ops import pt_attn as attn  # noqa: E402
 from contrastboundary_tpu_torch.ops.cuda import pt_attn as pa  # noqa: E402
 from contrastboundary_tpu_torch.train import TrainStepConfig, make_optimizer, make_train_step  # noqa: E402
 
@@ -64,8 +76,9 @@ def load_old(parent: Path):
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     sys.path.insert(0, str(dest))
     mods = {name: importlib.import_module(f"{OLD_PKG}.{name}")
-            for name in ("kernels.build", "ops.cuda.cbl_dense", "ops.cuda.pt_attn")}
-    return mods["kernels.build"], mods["ops.cuda.cbl_dense"], mods["ops.cuda.pt_attn"]
+            for name in ("kernels.build", "ops.cuda.cbl_dense", "ops.cuda.pt_attn", "ops.pt_attn")}
+    return (mods["kernels.build"], mods["ops.cuda.cbl_dense"], mods["ops.cuda.pt_attn"],
+            mods["ops.pt_attn"])
 
 
 def ptxas_report():
@@ -80,6 +93,21 @@ def ptxas_report():
         for line in res.stderr.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line or "error" in line:
                 print("  " + line.strip(), flush=True)
+
+
+def record_request(dev) -> dict:
+    """The kernel calls of one stale-BN served request (chip_smoke.py's
+    phase stale-serve)."""
+    model, _ = cs.load_model("stale")
+    step = make_eval_step(model, PyramidSpec(), device=dev, num_classes=cs.NUM_CLASSES)
+    ev = VotingEvaluator(cs.room0(), None, cs.NUM_CLASSES, cs.N, batch_size=cs.B,
+                         voxel_size=0.04, seed=0)
+    _, batch = ev.next_batch(np.random.default_rng(0), ev.clouds)
+    step(batch)  # warm-up
+    with cs.recording() as calls:
+        step(batch)
+        torch.cuda.synchronize()
+    return calls
 
 
 def record(dev, bn_mode: str) -> dict:
@@ -100,8 +128,10 @@ def record(dev, bn_mode: str) -> dict:
 
 
 def stats_entries(call, old_lib, old_cd):
-    """(old entry, new entry, their outputs) of a cbl_stats_fwd call; the old
-    entry with its own launch plan where it takes one (fwd_plan)."""
+    """(old entry, new entry, the new entry through L2, their outputs) of a
+    cbl_stats_fwd call; the old entry with its own launch plan where it
+    takes one (fwd_plan), the L2 one with the new plan but 0 shared bytes
+    (the path of windows beyond shared memory)."""
     features, meta, li, temperature, tile, width, window = call[0]
     f, mt, lii = cd._cuda_args(features, meta, li, tile, width)
     b, m, c = f.shape
@@ -114,46 +144,124 @@ def stats_entries(call, old_lib, old_cd):
     o_plan = old_cd.fwd_plan(b, m, k, tile, width) if hasattr(old_cd, "fwd_plan") else ()
     old = lambda: old_lib.cbl_stats_fwd(*ptrs, out_old.data_ptr(), b, m, k, c, tile, width,
                                         window, inv_t, *o_plan, stream)
-    new = lambda: build.library().cbl_stats_fwd(*ptrs, out_new.data_ptr(), b, m, k, c, tile,
-                                                width, window, inv_t, blocks, threads, smem,
-                                                stream)
+    out_l2 = torch.empty_like(out_new)
+    entry = lambda out, sm: (lambda: build.library().cbl_stats_fwd(
+        *ptrs, out.data_ptr(), b, m, k, c, tile, width, window, inv_t, blocks, threads, sm,
+        stream))
+    new, l2 = entry(out_new, smem), entry(out_l2, 0)
     shape = dict(M=m, K=k, tile=tile, width=width, plan=(blocks, threads, smem))
-    return old, new, out_old, out_new, shape
+    return old, new, l2, out_old, out_new, out_l2, shape
 
 
-def attn_entries(call, old_lib, old_pa):
-    """(old entry, new entry) of a pt_attn_bwd call: the other checkout's
-    launch geometry (its wrapper's) and this tree's bwd_plan."""
-    q, kv, rel, li, starts, tile, width, params, g = call[0]
-    (q, kv, rel, li, st), ps, (b, m, k, c, cs_), rpb, groups = pa._cuda_args(
+def _geometry(plan) -> tuple:
+    """A tile plan's launch arguments (blocks, threads, rows a tile[, slots
+    a chunk], shared bytes): a plan without chunks has no slot argument."""
+    chunk = (plan.chunk,) if hasattr(plan, "chunk") else ()
+    return (plan.blocks, plan.threads, plan.rows) + chunk + (plan.smem,)
+
+
+def attn_entries(name, call, old_lib, old_pa):
+    """(old entry, new entry, operands kept alive, shape) of a pt_attn_fwd or
+    pt_attn_bwd call, each checkout with its own launch geometry: its tile
+    plan, or for the old row-group forward its wrapper's grid and rows a
+    group."""
+    q, kv, rel, li, starts, tile, width, params = call[0][:8]
+    (q, kv, rel, li, st), ps, (b, m, k, c, cs_) = pa._cuda_args(
         q, kv, rel, li, starts, tile, width, params)
-    g = g.float().contiguous()
-    prow = sum(pa._prow(c, cs_))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (ctypes.c_void_p * 12)(*(p.data_ptr() for p in ps))
-    common = (q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
-              ctypes.cast(ptrs, ctypes.c_void_p), g.data_ptr())
-    dq, dkv = torch.empty_like(q), torch.zeros_like(kv)  # dkv is added to, not zeroed
-    if hasattr(old_pa, "bwd_plan"):  # a tiled backward: its own plan
+    head = (q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
+            ctypes.cast(ptrs, ctypes.c_void_p))
+    dims = (b, m, k, c, tile, width)
+    if name == "pt_attn_fwd":
+        plan = pa.fwd_plan(b, m, k, c)
+        if hasattr(old_pa, "fwd_plan"):
+            o_plan = old_pa.fwd_plan(b, m, k, c)
+            o_geo, o_rows = _geometry(o_plan), o_plan.blocks
+        else:  # the row-group forward: its wrapper's grid and rows a group
+            o_rpb = max(1, 256 // c)
+            o_grid = min(-(-b * m // o_rpb), old_pa.SM_COUNT * (2048 // (c * o_rpb)))
+            o_geo, o_rows = (o_grid, o_rpb), o_grid * o_rpb
+        out = torch.empty_like(q)
+        st_old = torch.empty((o_rows, 2 * c + 2 * cs_), device=q.device)
+        st_new = torch.empty((plan.blocks, 2 * c + 2 * cs_), device=q.device)
+        old = lambda: old_lib.cbl_pt_attn_fwd(*head, out.data_ptr(), st_old.data_ptr(), *dims,
+                                              *o_geo, stream)
+        new = lambda: build.library().cbl_pt_attn_fwd(*head, out.data_ptr(), st_new.data_ptr(),
+                                                      *dims, *_geometry(plan), stream)
+        keep = (out, st_old, st_new)
+    else:
+        plan = pa.bwd_plan(b, m, k, c)
         o_plan = old_pa.bwd_plan(b, m, k, c)
-        o_args = (o_plan.blocks, o_plan.threads, o_plan.rows, o_plan.smem)
-        o_rows = o_plan.blocks
-    else:  # the row-group backward: its wrapper's grid and rows a group
-        o_rpb = max(1, 256 // c)
-        o_grid = min(-(-b * m // o_rpb), old_pa.SM_COUNT * (2048 // (c * o_rpb)),
-                     max(old_pa.SM_COUNT, (2 << 20) // (prow * o_rpb)))
-        o_args, o_rows = (o_grid, o_rpb), o_grid * o_rpb
-    dp_old = torch.empty((o_rows, prow), device=q.device)
-    plan = pa.bwd_plan(b, m, k, c)
-    dp_new = torch.empty((plan.blocks, prow), device=q.device)
-    old = lambda: old_lib.cbl_pt_attn_bwd(*common, dq.data_ptr(), dkv.data_ptr(),
-                                          dp_old.data_ptr(), b, m, k, c, tile, width, *o_args,
-                                          stream)
-    new = lambda: build.library().cbl_pt_attn_bwd(
-        *common, dq.data_ptr(), dkv.data_ptr(), dp_new.data_ptr(), b, m, k, c, tile, width,
-        plan.blocks, plan.threads, plan.rows, plan.smem, stream)
-    keep = (q, kv, rel, li, st, ps, g, ptrs, dq, dkv, dp_old, dp_new)
+        g = call[0][8].float().contiguous()
+        prow = sum(pa._prow(c, cs_))
+        dq, dkv = torch.empty_like(q), torch.zeros_like(kv)  # dkv is added to, not zeroed
+        dp_old = torch.empty((o_plan.blocks, prow), device=q.device)
+        dp_new = torch.empty((plan.blocks, prow), device=q.device)
+        grads = (g.data_ptr(), dq.data_ptr(), dkv.data_ptr())
+        old = lambda: old_lib.cbl_pt_attn_bwd(*head, *grads, dp_old.data_ptr(), *dims,
+                                              *_geometry(o_plan), stream)
+        new = lambda: build.library().cbl_pt_attn_bwd(*head, *grads, dp_new.data_ptr(), *dims,
+                                                      *_geometry(plan), stream)
+        keep = (g, dq, dkv, dp_old, dp_new)
+    keep += (q, kv, rel, li, st, ps, ptrs)
     return old, new, keep, dict(C=c, M=m, K=k, plan=tuple(plan))
+
+
+@torch.no_grad()
+def ab_attn(name, calls, old_lib, old_pa, flush, reps, what):
+    """Each recorded call of the attention kernel ``name`` checked against
+    the plain version and A/B-timed through the bare entries; the sums per
+    width and over ``what``."""
+    per_width = defaultdict(lambda: [0, 0.0, 0.0])
+    for call in calls:
+        if name == "pt_attn_fwd":
+            cs.compare_pt_attn_fwd(call)
+        else:
+            cs.compare_pt_attn_bwd(call)
+            cs.check_pt_attn_bwd_exact(call)
+        old, new, keep, shape = attn_entries(name, call, old_lib, old_pa)
+        t_old, t_new, t = ab_time(old, new, flush, reps)
+        w = per_width[shape["C"], shape["M"], shape["K"]]
+        w[0] += 1
+        w[1] += t_old
+        w[2] += t_new
+        print(f"{name} {shape}: old {t_old:.4f} ms, new {t_new:.4f} ms "
+              f"({t_old / t_new:.2f}x; runs {[round(x, 4) for x in t]})", flush=True)
+        del keep
+    tot_old = sum(w[1] for w in per_width.values())
+    tot_new = sum(w[2] for w in per_width.values())
+    for (c, m, k), (n, t_old, t_new) in sorted(per_width.items()):
+        print(f"{name} C={c} M={m} K={k}: {n} launches, old {t_old:.4f} ms, new "
+              f"{t_new:.4f} ms ({t_old / t_new:.2f}x)", flush=True)
+    print(f"{name}, {len(calls)} calls {what}: old {tot_old:.4f} ms, new {tot_new:.4f} ms "
+          f"({tot_old / tot_new:.2f}x)", flush=True)
+
+
+def wrapper_times(calls, old_pa, old_attn, flush, reps=20):
+    """The level-0 (largest) attention calls, old then new then new then
+    old, each reps launches after an L2 flush: the forward and the backward
+    through their wrappers, the forward through the autograd entry (window
+    starts included); min and median of each."""
+    def spread(fn):
+        ts = sorted(cs.time_ms(fn, flush, reps=1) for _ in range(reps))
+        return ts[0], ts[len(ts) // 2]
+
+    fwd = max(calls["pt_attn_fwd"], key=lambda call: call[0][0].numel())[0]
+    bwd = max(calls["pt_attn_bwd"], key=lambda call: call[0][0].numel())[0]
+    q, kv, rel, li, _, tile, width, params = fwd
+    cases = (
+        ("pt_attn_fwd wrapper", lambda mod: (lambda: mod.pt_attn_fwd(*fwd)), (old_pa, pa)),
+        ("pt_attn autograd entry", lambda mod: (lambda: mod.pt_attn(q, kv, rel, li, tile, width,
+                                                                    params)), (old_attn, attn)),
+        ("pt_attn_bwd wrapper", lambda mod: (lambda: mod.pt_attn_bwd(*bwd)), (old_pa, pa)),
+    )
+    with torch.no_grad():
+        for what, make, (old_mod, new_mod) in cases:
+            t = [spread(make(mod)) for mod in (old_mod, new_mod, new_mod, old_mod)]
+            print(f"{what} {tuple(q.shape)}, {reps} runs each: old min/median "
+                  f"{[round(x, 4) for x in t[0] + t[3]]} ms, new {[round(x, 4) for x in t[1] + t[2]]}"
+                  f" ms", flush=True)
 
 
 def ab_time(old, new, flush, reps):
@@ -180,17 +288,18 @@ def main() -> int:
     print(f"card: {cs.card_line()}", flush=True)
     if args.ptxas:
         ptxas_report()
-    old_build, old_cd, old_pa = load_old(args.parent.resolve())
+    old_build, old_cd, old_pa, old_attn = load_old(args.parent.resolve())
     old_lib = old_build.library()
     build.library()
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
 
     calls = record(dev, "batch")["cbl_stats_fwd"]
-    sums = [0.0, 0.0]
+    sums = [0.0, 0.0, 0.0, 0.0]
     for call in calls:
         cs.compare_stats_fwd(call)
-        old, new, out_old, out_new, shape = stats_entries(call, old_lib, old_cd)
+        old, new, l2, out_old, out_new, out_l2, shape = stats_entries(call, old_lib, old_cd)
         t_old, t_new, t = ab_time(old, new, flush, args.reps)
+        t_staged, t_l2, t2 = ab_time(new, l2, flush, args.reps)
         first = out_new.clone()
         build.check(new(), "cbl_stats_fwd")
         torch.cuda.synchronize()
@@ -198,37 +307,29 @@ def main() -> int:
         same_old = torch.equal(bits(out_new), bits(out_old))
         cs.require(torch.equal(bits(out_new), bits(first)), f"cbl_stats_fwd {shape}: runs differ")
         cs.require(same_old or args.old_may_differ, f"cbl_stats_fwd {shape}: not the old kernel's bits")
-        sums[0] += t_old
-        sums[1] += t_new
+        cs.require(torch.equal(bits(out_l2), bits(out_new)),
+                   f"cbl_stats_fwd {shape}: the L2 path differs from the staged path")
+        for i, v in enumerate((t_old, t_new, t_staged, t_l2)):
+            sums[i] += v
         print(f"cbl_stats_fwd {shape}: old {t_old:.4f} ms, new {t_new:.4f} ms "
               f"({t_old / t_new:.2f}x; runs {[round(x, 4) for x in t]}), all lanes the old "
-              f"kernel's bits: {same_old}, the same bits twice", flush=True)
+              f"kernel's bits: {same_old}, the same bits twice; new staged {t_staged:.4f} ms, "
+              f"through L2 {t_l2:.4f} ms (staged, L2, L2, staged "
+              f"{[round(x, 4) for x in t2]}), the same bits", flush=True)
     print(f"cbl_stats_fwd, {len(calls)} calls a step: old {sums[0]:.4f} ms, new {sums[1]:.4f} ms "
-          f"({sums[0] / sums[1]:.2f}x)", flush=True)
+          f"({sums[0] / sums[1]:.2f}x); new staged {sums[2]:.4f} ms, through L2 {sums[3]:.4f} ms "
+          f"({sums[3] / sums[2]:.2f}x the staged)", flush=True)
     del calls
     torch.cuda.empty_cache()
 
-    calls = record(dev, "stale")["pt_attn_bwd"]
-    per_width = defaultdict(lambda: [0, 0.0, 0.0])
-    for call in calls:
-        cs.compare_pt_attn_bwd(call)
-        cs.check_pt_attn_bwd_exact(call)
-        old, new, keep, shape = attn_entries(call, old_lib, old_pa)
-        t_old, t_new, t = ab_time(old, new, flush, args.reps)
-        w = per_width[shape["C"], shape["M"], shape["K"]]
-        w[0] += 1
-        w[1] += t_old
-        w[2] += t_new
-        print(f"pt_attn_bwd {shape}: old {t_old:.4f} ms, new {t_new:.4f} ms "
-              f"({t_old / t_new:.2f}x; runs {[round(x, 4) for x in t]})", flush=True)
-        del keep
-    tot_old = sum(w[1] for w in per_width.values())
-    tot_new = sum(w[2] for w in per_width.values())
-    for (c, m, k), (n, t_old, t_new) in sorted(per_width.items()):
-        print(f"pt_attn_bwd C={c} M={m} K={k}: {n} launches, old {t_old:.4f} ms, new "
-              f"{t_new:.4f} ms ({t_old / t_new:.2f}x)", flush=True)
-    print(f"pt_attn_bwd, {len(calls)} calls a step: old {tot_old:.4f} ms, new {tot_new:.4f} ms "
-          f"({tot_old / tot_new:.2f}x)", flush=True)
+    calls = record(dev, "stale")
+    for name in ("pt_attn_fwd", "pt_attn_bwd"):
+        ab_attn(name, calls[name], old_lib, old_pa, flush, args.reps, "a step")
+    wrapper_times(calls, old_pa, old_attn, flush)
+    del calls
+    torch.cuda.empty_cache()
+    ab_attn("pt_attn_fwd", record_request(dev)["pt_attn_fwd"], old_lib, old_pa, flush, args.reps,
+            "a request")
     print(f"card: {cs.card_line()}", flush=True)
     return 0
 

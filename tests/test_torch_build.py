@@ -73,6 +73,17 @@ def test_every_source_is_built_and_every_entry_is_bound():
     }
 
 
+def test_every_entry_binds_each_of_its_parameters():
+    """Each C entry's ctypes signature has one argtype a parameter of its
+    declaration: ctypes passes arguments beyond the argtypes unconverted
+    (a pointer cut to an int) instead of refusing them."""
+    text = "".join((build.CSRC / s).read_text() for s in build.SOURCES)
+    for name, argtypes in build.SIGNATURES.items():
+        start = text.index(f'extern "C" int {name}(') + len(f'extern "C" int {name}(')
+        params = text[start:text.index(")", start)].split(",")
+        assert len(params) == len(argtypes), name
+
+
 def test_a_header_change_rebuilds(tmp_path, monkeypatch):
     """Editing a header the sources include changes the library's hash."""
     csrc = tmp_path / "csrc"

@@ -12,7 +12,11 @@ of torch's CPU sqrt (which is not correctly rounded for about 0.6% of
 float32 inputs; numpy's and the card's sqrtf are), the sums are within rel
 1e-5 of it (it sums over the slots in another order), and every lane equals
 a single walk over the slots in order (the previous kernel's design, a
-thread per row walking its slots twice) bit for bit."""
+thread per row walking its slots twice) bit for bit. A window that does not
+fit in shared memory (ops/cuda/cbl_dense.py::fwd_plan gives 0 shared
+bytes) is read through L2: each slot's |s|² is then summed beside its dot
+product, in the same channel order, and every lane keeps the staged path's
+bits."""
 import numpy as np
 import pytest
 import torch
@@ -47,8 +51,10 @@ def _seq(a, b):
     return acc
 
 
-def _kernel_stats(feats, meta, li, temperature):
-    """stats [B, M, 8] as the kernel's lanes compute them."""
+def _kernel_stats(feats, meta, li, temperature, staged=True):
+    """stats [B, M, 8] as the kernel's lanes compute them, with the window
+    staged (|s|² of each window row once) or read through L2 (|s|² of each
+    slot's row with its dot product)."""
     k = li.shape[-1]
     inv_t = F(1.0) / F(temperature)
     starts = cbl_dense.self_window_starts(M, TILE, WIDTH, WINDOW)
@@ -61,7 +67,7 @@ def _kernel_stats(feats, meta, li, temperature):
     qa = meta[..., 0]
     s = flat[rows]
     qs = _seq(np.broadcast_to(feats[:, :, None, :], s.shape), s)
-    sc = (q2[..., None] + s2_rows[rows]).astype(F)
+    sc = (q2[..., None] + (s2_rows[rows] if staged else _seq(s, s))).astype(F)
     d2 = np.maximum((sc - (F(2) * qs).astype(F)).astype(F), F(0))
     dist = np.sqrt((d2 + F(1e-12)).astype(F))
     mv = np.where(in_win & (fmeta[rows, 1] > 0), fmeta[rows, 1], F(0))
@@ -111,13 +117,25 @@ def _slot_walk(dist, mv, pos, e):
     return mhat, sums
 
 
+CASES = [(6, False, True), (23, True, True), (35, False, False), (35, True, True),
+         (70, False, True)]
+
+
 @pytest.mark.parametrize("temperature", [1.0, 0.5])
-@pytest.mark.parametrize("k,duplicates,shadows", [
-    (6, False, True), (23, True, True), (35, False, False), (35, True, True), (70, False, True),
-])
+@pytest.mark.parametrize("k,duplicates,shadows", CASES)
 def test_lane_split_matches_the_plain_forward(k, duplicates, shadows, temperature):
+    _check_lane_split(k, duplicates, shadows, temperature, staged=True)
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.5])
+@pytest.mark.parametrize("k,duplicates,shadows", CASES)
+def test_lane_split_through_l2_matches_the_plain_forward(k, duplicates, shadows, temperature):
+    _check_lane_split(k, duplicates, shadows, temperature, staged=False)
+
+
+def _check_lane_split(k, duplicates, shadows, temperature, staged):
     feats, meta, li = _inputs(k, duplicates, shadows, seed=k + 7 * duplicates)
-    got, d2, terms = _kernel_stats(feats, meta, li, temperature)
+    got, d2, terms = _kernel_stats(feats, meta, li, temperature, staged)
     args = (torch.as_tensor(feats), torch.as_tensor(meta), torch.as_tensor(li), temperature,
             TILE, WIDTH, WINDOW)
     ref = cbl_dense.cbl_stats_fwd_plain(*args).numpy()

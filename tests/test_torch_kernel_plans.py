@@ -1,11 +1,16 @@
 """The host-side launch plans of the port's forward gather, CBL stats
-forward and backward and fused-attention backward kernels
+forward and backward and fused-attention forward and backward kernels
 (ops/cuda/tile_gather.py::gather_plan, ops/cuda/cbl_dense.py::fwd_plan,
-::bwd_plan and ::scatter_slot_ranges, ops/cuda/pt_attn.py::bwd_plan), at
-every call shape of the flagship B=2 x N=65536 train step (the request's
-gathers have the same shapes; the stale step's 18 attention layers), and
-the scalar-read gather path's (row, channel) counter, which
-csrc/tile_gather.cu steps without a division. No card is needed."""
+::bwd_plan and ::scatter_slot_ranges, ops/cuda/pt_attn.py::fwd_plan and
+::bwd_plan), at every call shape of the flagship B=2 x N=65536 train step
+(the request's gathers have the same shapes; the stale step's 18 attention
+layers), at the shapes the reference trains beyond the flagship's (the
+attention at C = 512 with K in {8, 32, 48}, CBL windows wider than shared
+memory holds), and the scalar-read gather path's (row, channel) counter,
+which csrc/tile_gather.cu steps without a division. No card is needed."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -205,38 +210,115 @@ def test_cbl_fwd_plan_at_flagship_stages(m, k, tile, width, window):
     assert spl == min(-(-k // 8), 8) and (nch == 1 or spl == 8)
 
 
-def test_cbl_fwd_plan_refuses_a_window_beyond_shared_memory():
-    with pytest.raises(ValueError, match="shared memory"):
-        cbl_dense.fwd_plan(2, 4096, 23, 256, 7)
+def test_cbl_fwd_plan_serves_a_window_beyond_shared_memory():
+    """Windows over 1,660 rows (a wider self window, a larger tile) are read
+    through L2 (0 dynamic shared bytes) with the staged path's geometry:
+    every (row, slot) served once, in slot order."""
+    b, m, k = 2, 65536, 36
+    for tile, width in ((256, 7), (1024, 3)):
+        assert cbl_dense.fwd_smem(width, tile) > cbl_dense.SMEM_LIMIT
+        blocks, threads, smem = cbl_dense.fwd_plan(b, m, k, tile, width)
+        rows = m // blocks
+        assert smem == 0
+        assert blocks * rows == m and tile % rows == 0 and rows & (rows - 1) == 0
+        assert threads % 32 == 0 and threads <= cbl_dense.FWD_MAX_THREADS
+        assert np.all(_fwd_coverage(b, m, k, tile, blocks, threads) == 1)
 
 
-@pytest.mark.parametrize("c,m,k", ATTN_CALLS)
-def test_pt_attn_bwd_plan_at_stale_layers(c, m, k):
-    """The attention backward's geometry: tiles of ``rows`` query rows x all
-    K slots, taken by the persistent grid's blocks in turn, cover every
-    (row, slot) exactly once; each channel's thread group gets whole rows;
-    at most 1024 threads, at least C; shared memory within the limit and
-    holding the kernel's layout; the grid fits the card at once."""
-    b = 2
-    plan = pt_attn.bwd_plan(b, m, k, c)
+def _check_attn_plan(plan, b, m, k, c, kind, min_rows):
+    """An attention kernel's geometry: tiles of ``rows`` query rows x all K
+    slots, taken by the persistent grid's blocks in turn, and ``chunk``
+    slots of each row at a time, cover every (row, slot) exactly once; at
+    most 1024 threads, at least C; shared memory within the limit and
+    holding the kernel's layout; the slots in chunks only where a row's
+    slot-rows do not fit, in the fewest chunks of equal size that do; the
+    grid fits the card at once."""
+    smem_of = pt_attn.fwd_smem if kind == "fwd" else pt_attn.bwd_smem
     assert c <= plan.threads <= 1024 and plan.threads % 32 == 0
-    assert plan.rows & (plan.rows - 1) == 0 and plan.rows % (plan.threads // c) == 0
-    assert plan.rows * k * c <= pt_attn.BWD_TILE_FLOATS or plan.rows == plan.threads // c
-    assert plan.smem == pt_attn.bwd_smem(c, plan.rows, k) <= pt_attn.SMEM_LIMIT
-    if plan.threads == 256:  # two blocks to an SM
-        assert 2 * (plan.smem + 1024) <= SMEM_PER_SM
-    per_sm = 2 if plan.threads == 256 else 1
-    assert plan.blocks <= pt_attn.SM_COUNT * per_sm
-    assert min(per_sm, SMEM_PER_SM // (plan.smem + 1024)) * pt_attn.SM_COUNT >= plan.blocks
+    assert plan.rows & (plan.rows - 1) == 0 and plan.rows % min_rows == 0
+    assert plan.rows * k * c <= pt_attn.TILE_FLOATS or plan.rows == min_rows
+    assert 1 <= plan.chunk <= k
+    assert plan.smem == smem_of(c, plan.rows, k, plan.chunk) <= pt_attn.SMEM_LIMIT
+    n_chunks = -(-k // plan.chunk)
+    if plan.chunk < k:
+        assert plan.rows == min_rows and smem_of(c, plan.rows, k, k) > pt_attn.SMEM_LIMIT
+        assert smem_of(c, plan.rows, k, -(-k // (n_chunks - 1))) > pt_attn.SMEM_LIMIT
+        assert plan.chunk == -(-k // n_chunks)  # chunks of equal size, the last no longer
+    per_sm = pt_attn.blocks_per_sm(c, kind)
+    if plan.rows > min_rows:  # the blocks an SM is built for fit
+        assert per_sm * (plan.smem + 1024) <= SMEM_PER_SM
+    per_sm = min(per_sm, SMEM_PER_SM // (plan.smem + 1024))
     tiles = -(-b * m // plan.rows)
-    assert plan.blocks == min(tiles, pt_attn.SM_COUNT * min(per_sm, SMEM_PER_SM // (plan.smem + 1024)))
+    assert plan.blocks == min(tiles, pt_attn.SM_COUNT * per_sm) >= 1
     seen = np.zeros(b * m * k, np.int64)
     for blk in range(plan.blocks):
         for tl in range(blk, tiles, plan.blocks):
             rows = np.arange(tl * plan.rows, min((tl + 1) * plan.rows, b * m))
-            groups = plan.threads // c
-            per = plan.rows * k // groups
-            assert per % k == 0  # a group's slot-rows are whole query rows
-            slot_rows = (rows[:, None] * k + np.arange(k)[None, :]).reshape(-1)
-            seen[slot_rows] += 1
+            for k0 in range(0, k, plan.chunk):
+                slots = np.arange(k0, min(k0 + plan.chunk, k))
+                seen[(rows[:, None] * k + slots[None, :]).reshape(-1)] += 1
     assert np.all(seen == 1)
+
+
+@pytest.mark.parametrize("c,m,k", ATTN_CALLS)
+def test_pt_attn_bwd_plan_at_stale_layers(c, m, k):
+    """The attention backward's geometry (``_check_attn_plan``) at the
+    stale step's layers: no chunks, and each channel's thread group of the
+    last phase gets whole rows."""
+    b = 2
+    plan = pt_attn.bwd_plan(b, m, k, c)
+    _check_attn_plan(plan, b, m, k, c, "bwd", plan.threads // c)
+    assert plan.chunk == k
+    if plan.threads == 256:  # two blocks to an SM
+        assert 2 * (plan.smem + 1024) <= SMEM_PER_SM
+    groups = plan.threads // c
+    assert (plan.rows * k // groups) % k == 0  # a group's slot-rows are whole query rows
+
+
+@pytest.mark.parametrize("c,m,k", ATTN_CALLS)
+def test_pt_attn_fwd_plan_at_stale_layers(c, m, k):
+    """The attention forward's geometry (``_check_attn_plan``) at the stale
+    step's layers: no chunks; level 4 (C = 512, 512 rows) in tiles of one
+    row, so that every SM gets tiles."""
+    b = 2
+    plan = pt_attn.fwd_plan(b, m, k, c)
+    _check_attn_plan(plan, b, m, k, c, "fwd", 1)
+    assert plan.chunk == k
+    assert -(-b * m // plan.rows) >= pt_attn.SM_COUNT
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("m,k", [(65536, 8), (1024, 8), (256, 32), (256, 48)])
+def test_pt_attn_plans_at_c512_beyond_the_flagship(kind, m, k):
+    """C = 512 with K = 8 (the reference's nsample with k_self[4] = 8) and
+    K = 32 and 48: a plan within the shared memory a block can have; at
+    K > 16 the slots go in chunks."""
+    b, c = 2, 512
+    plan = (pt_attn.fwd_plan if kind == "fwd" else pt_attn.bwd_plan)(b, m, k, c)
+    _check_attn_plan(plan, b, m, k, c, kind, plan.threads // c if kind == "bwd" else 1)
+    assert plan.smem <= pt_attn.SMEM_LIMIT
+    assert (plan.chunk < k) == (k > 16)
+
+
+def _tiling_constant(name: str, cs: int):
+    """The value at CS = cs of a ``Tiling<CS>`` constant of csrc/pt_attn.cu
+    written ``CS >= n ? a : b`` or ``CS <= n``."""
+    text = (Path(pt_attn.__file__).parents[2] / "csrc" / "pt_attn.cu").read_text()
+    hit = re.search(rf"static constexpr (?:int|bool) {name} =\s*CS (>=|<=) (\d+)"
+                    rf"(?: \? (\d+) : (\d+))?;", text)
+    assert hit, name
+    op, n, a, b = hit.groups()
+    holds = cs >= int(n) if op == ">=" else cs <= int(n)
+    return holds if a is None else int(a if holds else b)
+
+
+@pytest.mark.parametrize("c", pt_attn.CHANNELS)
+def test_pt_attn_plan_constants_match_the_kernel(c):
+    """The plans' copies of the kernels' thread count, blocks an SM (their
+    launch bounds) and w_pre stash are csrc/pt_attn.cu's ``Tiling``
+    constants at every width."""
+    cs = c // pt_attn.SHARES
+    assert pt_attn.tile_threads(c) == _tiling_constant("T", cs)
+    assert pt_attn.blocks_per_sm(c, "fwd") == _tiling_constant("FWD_BLOCKS", cs)
+    assert pt_attn.blocks_per_sm(c, "bwd") == _tiling_constant("BWD_BLOCKS", cs)
+    assert pt_attn.bwd_stash(c) == _tiling_constant("STASH", cs)
