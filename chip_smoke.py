@@ -104,9 +104,14 @@ is not 0:
            same weights and batch, each stage within the tolerance the CPU
            tests state (dense 3e-5, v2 1e-5).
 14. cbl-kernels every v2 call of phase 13's step against its plain version
-           (counts and mask exact, the rest and the gradient 1e-4 of scale)
-           and timed, the level-0 calls also 20 times alone for the spread
-           of a launch's time; v1 (cbl_tile_fwd, cbl_tile_bwd), which no path runs,
+           and timed: the forward's counts and mask exact on every row,
+           lanes 0-2 and loss·mask within 1e-4 of scale on the rows of the
+           mask and the fill (0, 0, 0; loss·mask 0) elsewhere, the same bits
+           when run again; the backward within 1e-4 of scale, the same bits
+           when run again, its pass-1 coefficients within 1e-5 of scale; the
+           level-0 calls also 20 times alone for the spread of a launch's
+           time, with the backward scatter's terms a support tile; v1
+           (cbl_tile_fwd, cbl_tile_bwd), which no path runs,
            at that step's level-0 shape ([soft labels | latents], K = 35)
            against its plain version and against v2 on the same inputs;
            gather_rows, which no path runs either, equal to x[idx] at x
@@ -119,7 +124,11 @@ is not 0:
            cbl_stats_fwd on windows wider than shared memory holds (width 7
            x tile 256 and width 3 x tile 1024, K = 36), read through L2 and
            held as in phase 9, with the L2 path at the flagship's level-0
-           window equal bit for bit to the staged path.
+           window equal bit for bit to the staged path; and cbl_tile2_fwd and
+           cbl_tile2_bwd at every shape class the previous v2 kernels took
+           (V2_SHAPES: C in {1, 20, 32, 33, 64, 128}, K in {1, 35, 300},
+           M·K >= 2^23, tile x width 128 x 5 and 1024 x 1, every row and no
+           row in the loss mask) held as in phase 14.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -497,24 +506,51 @@ def check_pt_attn_bwd_exact(call):
 
 def compare_tile_stats(name, call) -> float:
     """Per-row statistics of a CBL tile kernel call against its plain
-    version: the counts and the mask exact, the max, the sums and loss·mask
-    within 1e-4 of each lane's scale (the distances are rounded in one
-    order on both sides; exp and log may round otherwise on the card)."""
+    version: the counts and the mask exact on every row, the max, the sums
+    and loss·mask within 1e-4 of each lane's scale (the distances are
+    rounded in one order on both sides; exp and log may round otherwise on
+    the card). v2 computes the max and the sums (lanes 0-2) only on the rows
+    of the mask: there they are held so, elsewhere they must be the fill
+    (0, 0, 0) with lane 5 zero; lane 7 is 0; the call run again gives the
+    same bits on every lane."""
     args, kw, out = call
     ref = WRAPPERS[name][2](*args, **kw)
     exact = [3, 4, 6]
     require(torch.equal(out[..., exact], ref[..., exact]),
             f"{name} {tuple(out.shape)}: counts or mask differ")
-    return max(compare_scaled(f"{name} lane {i}", out[..., i], ref[..., i], 1e-4)
-               for i in (0, 1, 2, 5))
+    if name == "cbl_tile_fwd":
+        return max(compare_scaled(f"{name} lane {i}", out[..., i], ref[..., i], 1e-4)
+                   for i in (0, 1, 2, 5))
+    mask = out[..., 6] > 0
+    require(not out[~mask][:, [0, 1, 2, 5]].any() and not out[..., 7].any(),
+            f"{name} {tuple(out.shape)}: not the fill outside the mask")
+    again = WRAPPERS[name][0].cbl_tile2_fwd(*args, **kw)
+    require(torch.equal(again.view(torch.int32), out.view(torch.int32)),
+            f"{name} {tuple(out.shape)}: differs between runs")
+    return max(compare_scaled(f"{name} lane {i} (masked rows)", out[mask][:, i], ref[mask][:, i],
+                              1e-4) for i in (0, 1, 2, 5))
 
 
 def compare_tile_grad(name, call) -> float:
     """A CBL tile backward call against its plain version: 1e-4 of the
-    output's scale (atomics reorder the sums); v1's label columns zero."""
+    output's scale (the sums meet in another order, and the plain version's
+    index_add_ adds with atomics on the card); v1's label columns zero. v2
+    has no atomics: the call run again gives the same bits; and its first
+    pass's slot coefficients, on the rows it serves, are within 1e-5 of
+    their scale of the plain version's (the same roundings; exp may round
+    otherwise)."""
     args, kw, out = call
     if name == "cbl_tile_bwd":
         require(not out[..., :args[4]].any(), "cbl_tile_bwd: a label column has a gradient")
+    else:
+        again, coef = c2.cbl_tile2_bwd_passes(*args, **kw)
+        require(torch.equal(again.view(torch.int32), out.view(torch.int32)),
+                f"{name} {tuple(out.shape)}: differs between runs")
+        features, meta, li, stats, g = args[:5]
+        served = (stats[..., 6] != 0) & (g[:, None] != 0)  # pass 1 writes their slots
+        ref = c2.grad_coefs_plain(features, meta[..., 0], meta[..., 1], li, stats, g,
+                                  *args[5:])[0]
+        compare_scaled(f"{name} {tuple(out.shape)} pass-1 coef", coef[served], ref[served], 1e-5)
     return compare_scaled(name, out, WRAPPERS[name][2](*args, **kw), 1e-4)
 
 
@@ -1124,6 +1160,68 @@ def attn_inputs(dev, rng, c, m, k, tile, width):
     return args, a((B, m, c), 1.0)
 
 
+# direct v2 calls of phase plan-shapes: (C, M, K, tile, width, window, labels)
+# with labels "mixed" (4 classes, 10% of the rows without a label), "all"
+# (every row in the loss mask: slot 0 the query, slot 1 a row of the other
+# label) or "none" (one label: no row in the mask)
+V2_SHAPES = (
+    (1, 4096, 35, 256, 3, 1, "mixed"), (20, 4096, 35, 256, 3, 1, "mixed"),
+    (33, 4096, 35, 256, 3, 1, "mixed"), (64, 4096, 1, 256, 3, 1, "mixed"),
+    (128, 4096, 300, 256, 3, 1, "mixed"), (32, 4096, 300, 256, 3, 1, "all"),
+    (32, 8192, 35, 128, 5, 2, "mixed"), (32, 8192, 35, 1024, 1, 0, "all"),
+    (32, 4096, 35, 256, 3, 1, "none"),
+    # M·K >= 2^23, and a support tile's slot range beyond the scatter's 2^22
+    (32, 32768, 300, 4096, 4, 1, "mixed"),
+)
+
+
+def v2_inputs(dev, rng, c, m, k, tile, width, window, labels):
+    """Seeded operands of a direct v2 call at B clouds → (features, meta,
+    li, temperature, tile, width, window) and a cotangent g [B]."""
+    w_sz = tile * width
+    q = np.arange(m)
+    own = q - np.repeat(cd.self_window_starts(m, tile, width, window) * tile, tile)
+    if labels == "mixed":
+        lab = rng.integers(0, 4, (B, m))
+        valid = rng.random((B, m)) >= 0.1
+    else:
+        lab = np.broadcast_to(q % 2 if labels == "all" else 0 * q, (B, m))
+        valid = np.ones((B, m), bool)
+    onehot = np.eye(4, dtype=np.float32)[lab] * valid[..., None]
+    li = rng.integers(0, w_sz + 1, (B, m, k)).astype(np.int32)
+    if labels == "all":
+        li[:, :, 0] = own
+        li[:, :, 1] = np.where(own + 1 < w_sz, own + 1, own - 1)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    features = t(rng.standard_normal((B, m, c), dtype=np.float32))
+    args = (features, cd.row_meta(t(onehot)), t(li), 0.5, tile, width, window)
+    return args, t(rng.standard_normal(B).astype(np.float32))
+
+
+def check_v2_shapes(dev, rng) -> None:
+    """The v2 kernels at V2_SHAPES against their plain versions, as in phase
+    cbl-kernels: every shape the previous kernels took has a plan."""
+    for c, m, k, tile, width, window, labels in V2_SHAPES:
+        args, g = v2_inputs(dev, rng, c, m, k, tile, width, window, labels)
+        stats = c2.cbl_tile2_fwd(*args)
+        n_mask = int(stats[..., 6].sum())
+        if labels == "all":
+            require(n_mask == B * m, f"v2 C={c} M={m} K={k}: {n_mask} masked rows, not all")
+        if labels == "none" or k == 1:
+            require(n_mask == 0, f"v2 C={c} M={m} K={k}: {n_mask} masked rows, not none")
+        err = compare_tile_stats("cbl_tile2_fwd", (args, {}, stats))
+        bwd_args = args[:3] + (stats, g) + args[3:]
+        dx = c2.cbl_tile2_bwd(*bwd_args)
+        require(dx.shape == args[0].shape, f"v2 gradient {tuple(dx.shape)}")
+        err = max(err, compare_tile_grad("cbl_tile2_bwd", (bwd_args, {}, dx)))
+        plan = c2.bwd_plan(B, m, k, c, tile)
+        print(f"  cbl_tile2 C={c} M={m} K={k} tile {tile} x width {width} ({labels}, {n_mask} "
+              f"masked rows): fwd plan {tuple(c2.fwd_plan(B, m, k, c))}, scatter rows "
+              f"{plan.scatter_rows}: max|d| {err:.3g}, the same bits twice", flush=True)
+        del args, stats, dx
+        torch.cuda.empty_cache()
+
+
 def check_plan_shapes(dev) -> None:
     """Phase 15: direct calls at the shapes whose plans take a smaller tile
     or slot chunks, against the plain versions: pt_attn_fwd and pt_attn_bwd
@@ -1132,7 +1230,10 @@ def check_plan_shapes(dev) -> None:
     cotangents); cbl_stats_fwd on windows wider than shared memory holds
     (width 7 x tile 256 and width 3 x tile 1024, K = 36) as in phase 9
     (counts exact, sums rel 1e-5, the same bits twice), and its L2 path at
-    the flagship's level-0 window equal bit for bit to the staged path."""
+    the flagship's level-0 window equal bit for bit to the staged path;
+    cbl_tile2_fwd and cbl_tile2_bwd at V2_SHAPES (C in {1, 20, 32, 33, 64,
+    128}, K in {1, 35, 300}, M·K >= 2^23, tile x width 128 x 5 and 1024 x
+    1, every row and no row in the loss mask) as in phase 14."""
     rng = np.random.default_rng(6)
     with torch.no_grad():
         for m, k, tile, width in ((1024, 8, 256, 3), (256, 32, 256, 1), (256, 48, 256, 1)):
@@ -1168,6 +1269,9 @@ def check_plan_shapes(dev) -> None:
                         f"cbl_stats_fwd W={w_sz}: the L2 path's bits differ from the staged path's")
             print(f"  cbl_stats_fwd K={k} W={w_sz}: plan {plan}, max|d| {err:.3g}, the same bits "
                   f"twice{', and through L2' if plan[2] else ''}", flush=True)
+        del features, meta, labels, onehot
+        torch.cuda.empty_cache()
+        check_v2_shapes(dev, rng)
 
 
 def check_routes(metrics: dict) -> None:
@@ -1188,10 +1292,9 @@ def bare_entry(name, args, kw):
     """A kernel's C entry on operands prepared once, outside the timed call:
     none of the wrapper's host work (operand checks and conversions, the
     window starts copied to the card, the output allocated, the parameter
-    gradients' and statistics' partial rows summed) is timed. The v2
-    backward's gradient and the attention backward's dk|dv are not zeroed
-    between runs. The returned
-    call keeps its operands alive."""
+    gradients' and statistics' partial rows summed) is timed. The attention
+    backward's dk|dv is not zeroed between runs. The returned call keeps
+    its operands alive."""
     lib, stream = build.library(), torch.cuda.current_stream(args[0].device).cuda_stream
 
     def call(entry, tensors, *rest):
@@ -1262,16 +1365,24 @@ def bare_entry(name, args, kw):
                     cd._inv_t(temperature), cd.bwd_plan(b, m, tile)[1])
     if name == "cbl_tile2_fwd":
         features, meta, li, temperature, tile, width, window = args
-        f, lii, starts, mt = c2.cuda_args(features, li, tile, width, window, meta)
-        ops = (f, mt, lii, starts, torch.empty((*f.shape[:2], 8), device=f.device))
-    else:
+        b, m, c = features.shape
+        f, mt, lii = c2.v2_operands(features, meta, li, tile, width)
+        plan = c2.fwd_plan(b, m, lii.shape[-1], c)
+        ops = (f, mt, lii, torch.empty((b, m, 8), device=f.device))
+        return call(lib.cbl_tile2_fwd, ops, b, m, lii.shape[-1], plan.channels, tile, width,
+                    window, float(temperature), plan.label_rows, plan.row_rows)
+    if name == "cbl_tile2_bwd":
         features, meta, li, stats, g, temperature, tile, width, window = args
-        f, lii, starts, mt, st, gl = c2.cuda_args(features, li, tile, width, window, meta,
-                                                  stats, g)
-        ops = (f, mt, lii, starts, st, gl, torch.zeros_like(f))
-    b, m, c = f.shape
-    return call(getattr(lib, name), ops, b, m, lii.shape[-1], c, tile, width,
-                float(temperature))
+        b, m, c = features.shape
+        f, mt, lii, st, gl = c2.v2_operands(features, meta, li, tile, width, stats, g)
+        k = lii.shape[-1]
+        plan = c2.bwd_plan(b, m, k, c, tile)
+        scratch = (torch.empty((b, m, k), device=f.device),
+                   torch.empty((b, m, k), dtype=torch.int32, device=f.device), torch.empty_like(f))
+        return call(lib.cbl_tile2_bwd, (f, mt, lii, st, gl) + scratch, b, m, k,
+                    plan.pass1.channels, tile, width, window, float(temperature),
+                    plan.pass1.row_rows, plan.scatter_rows)
+    raise ValueError(f"no bare entry for {name}")
 
 
 @torch.no_grad()
@@ -1279,9 +1390,9 @@ def time_spread(calls, dev, names, reps=20):
     """The spread of one launch's time: the largest recorded call of each
     kernel (level 0; window_topk by rows times k) timed reps times alone,
     each after an L2 flush, through its wrapper and through its bare C
-    entry; for the v2 CBL backward, how many neighbour atomics land on one
-    row; for the dense CBL backward, how its scatter's terms (slots with cd
-    != 0) spread over the support tiles, one block's work each at level 0."""
+    entry; for the dense and the v2 CBL backward, how their scatter's terms
+    (slots with a coefficient != 0) spread over the support tiles, one
+    block's work each at level 0."""
     flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     for name in names:
         args, kw, _ = max(calls[name], key=lambda call: call[0][0].numel() * (
@@ -1303,17 +1414,14 @@ def time_spread(calls, dev, names, reps=20):
                   f"{per_tile.numel()} support tiles, per tile min {int(per_tile.min())}, mean "
                   f"{float(per_tile.float().mean()):.1f}, max {int(per_tile.max())}", flush=True)
         if name == "cbl_tile2_bwd":
-            features, meta, li, stats, g, _, tile, width, window = args
-            m = features.shape[1]
-            starts = torch.as_tensor(cd.self_window_starts(m, tile, width, window), device=dev)
-            rows, member = tg._rows(li, starts, tile, width, m)
-            hit = (member & (meta.reshape(-1, 8)[rows, 1] > 0) & (stats[..., 6:7] > 0)
-                   & (g[:, None, None] != 0))
-            per_row = torch.bincount(rows[hit])
-            per_row = per_row[per_row > 0].float()
-            print(f"  {name} {tuple(features.shape)}: {int(hit.sum())} neighbour atomics on {per_row.numel()} "
-                  f"rows of {features.shape[-1]} channels, per row mean {float(per_row.mean()):.2f},"
-                  f" max {int(per_row.max())}", flush=True)
+            features, meta, li, stats, g, temperature, tile, width, window = args
+            coef, rows = c2.grad_coefs_plain(features, meta[..., 0], meta[..., 1], li, stats,
+                                             g, temperature, tile, width, window)
+            per_tile = torch.bincount(rows[coef != 0] // tile,
+                                      minlength=features.shape[0] * features.shape[1] // tile)
+            print(f"  {name} {tuple(features.shape)}: {int((coef != 0).sum())} scatter terms on "
+                  f"{per_tile.numel()} support tiles, per tile min {int(per_tile.min())}, mean "
+                  f"{float(per_tile.float().mean()):.1f}, max {int(per_tile.max())}", flush=True)
 
 
 def check_cbl_kernels(dev, pallas) -> list:

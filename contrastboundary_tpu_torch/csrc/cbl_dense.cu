@@ -77,8 +77,9 @@
 //      128 B line, and write the row-local part dq = sum(cd) q - sum(cd s)
 //      to dx. A row whose cotangent lanes 1 and 2 are both 0 has cd = 0 on
 //      every slot and skips its slots.
-//   2. cbl_bwd_scatter_kernel: the transpose, as window_gather_bwd.cu does
-//      it (window_sort.cuh). A block owns rows of one support tile and finds
+//   2. slot_scatter_kernel<32> (slot_scatter.cuh, shared with cbl_tile2.cu's
+//      v2 backward): the transpose, as window_gather_bwd.cu does it
+//      (window_sort.cuh). A block owns rows of one support tile and finds
 //      the query tiles whose windows hold it by two binary searches over the
 //      self geometry's starts clip(t - window, 0, M / tile - width). It
 //      scans their slots (pass 1 wrote each slot's support row, or -1 where
@@ -98,7 +99,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "window_sort.cuh"
+#include "slot_scatter.cuh"
 
 namespace {
 
@@ -348,6 +349,7 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 2)
 constexpr int kRowLanes = 8;  // lanes a query row (8 x float4 = 32 channels)
 constexpr int kRowThreads = 256;
 constexpr int kRowsPerBlock = kRowThreads / kRowLanes;
+constexpr int kMaxK = 256;  // slots a row (pass 1's shared memory)
 
 // dynamic shared memory of the pass-1 kernel: each row's slot coefficients
 // and support rows
@@ -456,159 +458,6 @@ __global__ void __launch_bounds__(kRowThreads)
                     __fsub_rn(__fmul_rn(cd_sum, q4.w), acc.w));
 }
 
-// ---- backward, pass 2: the ordered scatter of cd * (s - q) --------------
-
-constexpr int kScatterMaxRows = 256;  // rows a block (8-bit local row)
-constexpr int kMaxK = 256;            // slots a row (pass 1's shared memory)
-constexpr int kScatterAhead = 4;      // hits a lane loads before it adds
-// the block's accumulator and own rows, its hits in slot order and by bucket
-constexpr int kScatterSmem =
-    (2 * kScatterMaxRows * 32 + 2 * cbl_window_sort::kSuper) * 4;
-
-// Each block first compacts the slots that land in its rows (cd != 0) out
-// of its whole slot range, in slot order, into `hits` (up to kSuper of them:
-// at the flagship's level 0 a block keeps about 1 in 17 of the 27k slots
-// it scans), then sorts them by row once and adds them, instead of sorting
-// and adding every 4096-slot chunk of the range.
-template <int C>
-__global__ void __launch_bounds__(cbl_window_sort::kThreads)
-    cbl_bwd_scatter_kernel(const float* __restrict__ f,
-                           const int32_t* __restrict__ lands,
-                           const float* __restrict__ cd,
-                           float* __restrict__ dx, int m, int k, int tile,
-                           int width, int window, int rows) {
-  using namespace cbl_window_sort;
-  constexpr int NV = C / 4;           // float4 pieces of a row
-  constexpr int LPG = NV;             // lanes a row group, a float4 each
-  constexpr int NB = kThreads / LPG;  // buckets = lane groups
-  constexpr int AHEAD = kScatterAhead;
-  extern __shared__ float4 smem[];
-  float4* acc = smem;                 // rows x NV
-  float4* own = smem + rows * NV;     // the block's feature rows s
-  int* hits = reinterpret_cast<int*>(own + rows * NV);  // kSuper, slot order
-  int* list = hits + kSuper;          // kSuper, by bucket
-  __shared__ Counts counts;
-  __shared__ int warp_hits[kWarps];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int splits = tile / rows;
-  const int st = blockIdx.x / splits;  // support tile
-  const int row0 = st * tile + (blockIdx.x - st * splits) * rows;
-  const int b = blockIdx.y;
-  const int gq = m / tile;
-  const int kt = k * tile;
-  const auto start = [&](int t) { return min(max(t - window, 0), gq - width); };
-  const int2 range = slot_range(start, gq, width, st, kt);
-
-  const float4* f4 = reinterpret_cast<const float4*>(f) + (size_t)b * m * NV;
-  for (int i = tid; i < rows * NV; i += kThreads) {
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    own[i] = f4[(size_t)row0 * NV + i];
-  }
-  counts.cnt[tid] = 0;
-  __syncthreads();
-
-  const int32_t* lands_b = lands + (size_t)b * m * k;
-  const float* cd_b = cd + (size_t)b * m * k;
-  const int gi = tid / LPG, gl = tid % LPG;
-  // slot / k without a division: slot < 2^23 is exact in float, the
-  // product is within one of the quotient, and the compare fixes it
-  const float inv_k = 1.f / (float)k;
-  const auto query_of = [&](int slot) {
-    int q = (int)((float)slot * inv_k);
-    q += (slot >= (q + 1) * k) - (slot < q * k);
-    return q;
-  };
-  // sort the n hits by row (stably) and add lane group gi's rows' terms
-  const auto add_hits = [&](int n) {
-    if (sort_chunk<NB>(0, n, [&](int i) { return hits[i]; }, list, counts) == 0)
-      return;
-    const int e1 = counts.off[(gi + 1) * kWarps];
-    for (int e = counts.off[gi * kWarps]; e < e1; e += AHEAD) {
-      float4 qv[AHEAD];
-      float w[AHEAD];
-      int r[AHEAD];
-#pragma unroll
-      for (int u = 0; u < AHEAD; ++u) {
-        r[u] = -1;
-        if (e + u < e1) {
-          const int en = list[e + u];
-          const int slot = en >> 8;
-          r[u] = en & 255;
-          w[u] = cd_b[slot];
-          qv[u] = f4[(size_t)query_of(slot) * NV + gl];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < AHEAD; ++u) {
-        if (r[u] < 0) continue;
-        const int v = r[u] * NV + gl;
-        const float4 sv = own[v];
-        float4 a = acc[v];
-        a.x = __fadd_rn(a.x, __fmul_rn(w[u], __fsub_rn(sv.x, qv[u].x)));
-        a.y = __fadd_rn(a.y, __fmul_rn(w[u], __fsub_rn(sv.y, qv[u].y)));
-        a.z = __fadd_rn(a.z, __fmul_rn(w[u], __fsub_rn(sv.z, qv[u].z)));
-        a.w = __fadd_rn(a.w, __fmul_rn(w[u], __fsub_rn(sv.w, qv[u].w)));
-        acc[v] = a;
-      }
-    }
-    __syncthreads();
-  };
-
-  int n_hits = 0;  // block-uniform
-  const unsigned lower = (1u << lane) - 1u;
-  for (int base = range.x; base < range.y; base += kSuper) {
-    // the chunk's slots landing in the block's rows, all loads in flight
-    int ent[kSteps];
-#pragma unroll
-    for (int i = 0; i < kSteps; ++i) {
-      const int slot = base + (warp * kSteps + i) * 32 + lane;
-      int e = -1;
-      if (slot < range.y) {
-        const int r = lands_b[slot] - row0;  // lands is -1 where cd == 0
-        if (r >= 0 && r < rows) e = (slot << 8) | r;
-      }
-      ent[i] = e;
-    }
-    unsigned bal[kSteps];
-    int count = 0;
-#pragma unroll
-    for (int i = 0; i < kSteps; ++i) {
-      bal[i] = __ballot_sync(kFull, ent[i] >= 0);
-      count += __popc(bal[i]);
-    }
-    if (lane == 0) warp_hits[warp] = count;
-    __syncthreads();
-    int before = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      before += w < warp ? warp_hits[w] : 0;
-      total += warp_hits[w];
-    }
-    if (n_hits + total > kSuper) {  // full: add what is kept, then go on
-      add_hits(n_hits);
-      n_hits = 0;
-    }
-    int at = n_hits + before;
-#pragma unroll
-    for (int i = 0; i < kSteps; ++i) {
-      if (ent[i] >= 0) hits[at + __popc(bal[i] & lower)] = ent[i];
-      at += __popc(bal[i]);
-    }
-    n_hits += total;
-    __syncthreads();
-  }
-  add_hits(n_hits);
-
-  // dx = dq (pass 1) + the slot sum, every element once
-  float4* dx4 = reinterpret_cast<float4*>(dx) + ((size_t)b * m + row0) * NV;
-  for (int i = tid; i < rows * NV; i += kThreads) {
-    const float4 d = dx4[i], a = acc[i];
-    dx4[i] = make_float4(__fadd_rn(d.x, a.x), __fadd_rn(d.y, a.y),
-                         __fadd_rn(d.z, a.z), __fadd_rn(d.w, a.w));
-  }
-}
-
 template <int S, bool STAGED>
 int fwd_launch(const float* f, const float* meta, const int32_t* li,
                float* stats, int b, int m, int k, int tile, int width,
@@ -656,10 +505,6 @@ int bwd(const float* f, const float* meta, const int32_t* li,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)rows_smem(kMaxK));
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(cbl_bwd_scatter_kernel<C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kScatterSmem);
-    if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int n = b * m;
@@ -669,12 +514,8 @@ int bwd(const float* f, const float* meta, const int32_t* li,
           window, inv_t);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((m / tile) * (tile / rows), b);
-  const size_t smem =
-      (size_t)(2 * rows * C + 2 * cbl_window_sort::kSuper) * 4;
-  cbl_bwd_scatter_kernel<C><<<grid, cbl_window_sort::kThreads, smem, s>>>(
-      f, lands, cd, dx, m, k, tile, width, window, rows);
-  return (int)cudaGetLastError();
+  return launch_slot_scatter<C, false>(f, lands, cd, nullptr, nullptr, dx, b, m,
+                                       k, tile, width, window, rows, s);
 }
 
 }  // namespace

@@ -25,7 +25,7 @@ SOURCES = (
     "win_topk.cu", "tile_gather.cu", "window_gather_bwd.cu", "cbl_dense.cu", "pt_attn.cu",
     "cbl_tile2.cu", "gather_rows.cu",
 )
-HEADERS = ("window_sort.cuh",)  # included by sources; part of the hash
+HEADERS = ("window_sort.cuh", "slot_scatter.cuh")  # included by sources; part of the hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -56,12 +56,13 @@ SIGNATURES = {
     # tile, width, blocks, threads, rows a tile, slots a chunk, shared bytes,
     # stream
     "cbl_pt_attn_bwd": (_P,) * 10 + (_I,) * 11 + (_P,),
-    # features, meta, li, starts, stats, b, m, k, c, tile, width, temperature,
+    # features, meta, li, stats, b, m, k, c, tile, width, window, temperature,
+    # rows a label block, rows a block over the rows of the mask, stream
+    "cbl_tile2_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _I, _I, _P),
+    # features, meta, li, stats, g_loss, coef, lands, dx, b, m, k, c, tile,
+    # width, window, temperature, rows a block of pass 1, scatter rows a block,
     # stream
-    "cbl_tile2_fwd": (_P,) * 5 + (_I,) * 6 + (_F, _P),
-    # features, meta, li, starts, stats, g_loss, dx, b, m, k, c, tile, width,
-    # temperature, stream
-    "cbl_tile2_bwd": (_P,) * 7 + (_I,) * 6 + (_F, _P),
+    "cbl_tile2_bwd": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _P),
     # fused, li, starts, stats, b, m, k, c, ncls, tile, width, temperature,
     # stream
     "cbl_tile_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _P),

@@ -1,21 +1,27 @@
-"""Same-call A/B of the port's cbl_stats_fwd, pt_attn_fwd and pt_attn_bwd
-CUDA kernels against another checkout's, on one card.
+"""Same-call A/B of the port's cbl_stats_fwd, cbl_stats_bwd, pt_attn_fwd,
+pt_attn_bwd, cbl_tile2_fwd and cbl_tile2_bwd CUDA kernels against another
+checkout's, on one card.
 
     python3 scripts/ab_torch_kernels.py --parent DIR [--reps 10] [--ptxas]
+        [--only PART ...]
 
 from the repository root, on a machine with a CUDA card, nvcc and the
 trained checkpoint; DIR is the root of another checkout of the repository
 (for example the parent commit, unpacked with
 ``git archive <commit> | tar -x -C DIR`` into a directory .gitignore lists).
 Its kernel package is copied beside it as ``cbt_parent`` and built from its
-own sources. The script records the cbl_stats_fwd calls of one batch-BN
-flagship train step (dense CBL route), the pt_attn_fwd and pt_attn_bwd calls
-of one stale-BN train step, B=2 x N=65536 from the checkpoint, and the
+own sources. The script records the cbl_stats_fwd and cbl_stats_bwd calls of
+one batch-BN flagship train step (dense CBL route), the pt_attn_fwd and
+pt_attn_bwd calls of one stale-BN train step, the cbl_tile2_fwd and
+cbl_tile2_bwd calls of one batch-BN step on the v2 route (CBL_DENSE=off,
+ContrastConfig(impl='pallas')), B=2 x N=65536 from the checkpoint, and the
 pt_attn_fwd calls of one stale-BN served request (chip_smoke.py's setup),
 then for each call runs the other checkout's kernel ("old") and this tree's
 ("new") through their bare C entries on the same operands, each with its
-checkout's own launch geometry, in the order old, new, new, old, each the
-mean of --reps runs after an L2 flush. It checks on every call:
+checkout's own entry signature and launch geometry, in the order old, new,
+new, old, each the mean of --reps runs after an L2 flush. --only runs some
+of the parts (stats_fwd, stats_bwd, attn, tile2; all by default). It checks
+on every call:
 - cbl_stats_fwd: the new stats equal bit for bit to the old kernel's (all
   eight lanes; only reported with --old-may-differ), to a second run of
   the new kernel and to the new kernel's L2 path (the window read through
@@ -26,13 +32,25 @@ mean of --reps runs after an L2 flush. It checks on every call:
   of the plain version's and the same bits twice;
 - pt_attn_bwd: dq, dkv and the 12 parameter gradients of the new kernel within
   1e-4 of their scale of the plain version's, and dkv exact on integer
-  cotangents (chip_smoke.py's checks).
+  cotangents (chip_smoke.py's checks);
+- cbl_stats_bwd: the new gradient equal bit for bit to the old kernel's
+  (both scatter without atomics, in slot order);
+- cbl_tile2_fwd: the new stats equal bit for bit to the old kernel's on the
+  rows of the loss mask (all eight lanes), and in lanes 3, 4 and 6 on every
+  row, lane 5 equal in value (0 outside the mask; the old kernel wrote
+  loss·0, -0 where the loss is -0); outside the mask the new lanes 0-2 are
+  the fill (0, 0, 0); chip_smoke.py's checks against the plain version;
+- cbl_tile2_bwd: the new gradient the same bits on a second run, and within
+  1e-5 of its scale of the old kernel's (whose atomics reorder the sums);
+  chip_smoke.py's checks against the plain version. The old kernel adds
+  onto a gradient its wrapper zeroes first: that fill is timed beside it.
 It prints one line a call, the sums a step or request (the attention per
-width too), the level-0 attention calls 20 times each through the old and
-the new wrapper (ops/cuda/pt_attn.py) and, for the forward, the autograd
-entry (ops/pt_attn.py::pt_attn, which also makes the window starts), and
-the card's name and power limit; any failed check raises. --ptxas first
-prints nvcc's register and spill report of both sources.
+width too), the level-0 attention and v2 calls 20 times each through the
+old and the new wrapper (ops/cuda/pt_attn.py, ops/cuda/cbl_tile2.py) and,
+for the attention forward, the autograd entry (ops/pt_attn.py::pt_attn,
+which also makes the window starts), and the card's name and power limit;
+any failed check raises. --ptxas first prints nvcc's register and spill
+report of the sources.
 """
 from __future__ import annotations
 
@@ -58,12 +76,14 @@ from contrastboundary_tpu_torch.eval.voting import VotingEvaluator  # noqa: E402
 from contrastboundary_tpu_torch.kernels import build  # noqa: E402
 from contrastboundary_tpu_torch.losses import ContrastConfig  # noqa: E402
 from contrastboundary_tpu_torch.ops.cuda import cbl_dense as cd  # noqa: E402
+from contrastboundary_tpu_torch.ops.cuda import cbl_tile2 as c2  # noqa: E402
 from contrastboundary_tpu_torch.ops import PyramidSpec  # noqa: E402
 from contrastboundary_tpu_torch.ops import pt_attn as attn  # noqa: E402
 from contrastboundary_tpu_torch.ops.cuda import pt_attn as pa  # noqa: E402
 from contrastboundary_tpu_torch.train import TrainStepConfig, make_optimizer, make_train_step  # noqa: E402
 
 OLD_PKG = "cbt_parent"
+PARTS = ("stats_fwd", "stats_bwd", "attn", "tile2")
 
 
 def load_old(parent: Path):
@@ -75,16 +95,15 @@ def load_old(parent: Path):
     shutil.copytree(parent / "contrastboundary_tpu_torch", dest / OLD_PKG,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     sys.path.insert(0, str(dest))
-    mods = {name: importlib.import_module(f"{OLD_PKG}.{name}")
-            for name in ("kernels.build", "ops.cuda.cbl_dense", "ops.cuda.pt_attn", "ops.pt_attn")}
-    return (mods["kernels.build"], mods["ops.cuda.cbl_dense"], mods["ops.cuda.pt_attn"],
-            mods["ops.pt_attn"])
+    names = ("kernels.build", "ops.cuda.cbl_dense", "ops.cuda.pt_attn", "ops.pt_attn",
+             "ops.cuda.cbl_tile2")
+    return tuple(importlib.import_module(f"{OLD_PKG}.{name}") for name in names)
 
 
 def ptxas_report():
     """nvcc's resource report (registers, spills, shared memory) of the two
     sources, compiled as the build compiles them."""
-    for src in ("cbl_dense.cu", "pt_attn.cu"):
+    for src in ("cbl_dense.cu", "pt_attn.cu", "cbl_tile2.cu"):
         res = subprocess.run(
             [build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
              "-Xptxas", "-v", "-c", "-o", "/dev/null", str(build.CSRC / src)],
@@ -110,16 +129,17 @@ def record_request(dev) -> dict:
     return calls
 
 
-def record(dev, bn_mode: str) -> dict:
-    """The kernel calls of one flagship train step (dense CBL route)."""
+def record(dev, bn_mode: str, route: str = "dense") -> dict:
+    """The kernel calls of one flagship train step (on a CBL route of
+    chip_smoke.CBL_ROUTES)."""
     model, _ = cs.load_model(bn_mode)
     opt = make_optimizer(model.parameters(), cs.TRAIN_LR)
     cfg = TrainStepConfig(num_classes=cs.NUM_CLASSES, spec=cs.TRAIN_SPEC,
-                          contrast=ContrastConfig())
+                          contrast=ContrastConfig(impl=cs.CBL_ROUTES[route][1]))
     step = make_train_step(model, cfg, opt, device=dev)
     rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
     batch = train_batch(rooms, cs.B, cs.N, np.random.default_rng(0))
-    with cs.cbl_route_env("dense"):
+    with cs.cbl_route_env(route):
         step(batch)  # warm-up
         with cs.recording() as calls:
             step(batch)
@@ -264,6 +284,174 @@ def wrapper_times(calls, old_pa, old_attn, flush, reps=20):
                   f" ms", flush=True)
 
 
+def stats_bwd_entries(call, old_lib, old_cd):
+    """(old entry, new entry, their gradients, shape) of a cbl_stats_bwd
+    call: the same C signature, each checkout's scatter rows."""
+    features, meta, li, stats, g, temperature, tile, width, window = call[0]
+    f, mt, lii = cd._cuda_args(features, meta, li, tile, width)
+    b, m, c = f.shape
+    k = lii.shape[-1]
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    ops = (f, mt, lii, stats.contiguous(), g.contiguous())
+    outs = {}
+
+    def entry(lib, rows, key):
+        scratch = (torch.empty((b, m, k), device=f.device),
+                   torch.empty((b, m, k), dtype=torch.int32, device=f.device), torch.empty_like(f))
+        outs[key] = scratch[2]
+        ptrs = [t.data_ptr() for t in ops + scratch]
+        return lambda _keep=scratch: lib.cbl_stats_bwd(*ptrs, b, m, k, c, tile, width, window,
+                                                      cd._inv_t(temperature), rows, stream)
+
+    old = entry(old_lib, old_cd.bwd_plan(b, m, tile)[1], "old")
+    new = entry(build.library(), cd.bwd_plan(b, m, tile)[1], "new")
+    return old, new, outs, dict(M=m, K=k, tile=tile, width=width)
+
+
+def tile2_entries(name, call, old_lib, old_c2):
+    """(old entry, new entry, their outputs, shape) of a cbl_tile2_fwd or
+    cbl_tile2_bwd call, each checkout through its own entry: the old single
+    kernel (window starts as an operand, the gradient added with atomics
+    onto a zeroed tensor) or the new plan's."""
+    args = call[0]
+    features, meta, li = args[:3]
+    temperature, tile, width, window = args[-4:]
+    b, m, c = features.shape
+    k = li.shape[-1]
+    stream = torch.cuda.current_stream(features.device).cuda_stream
+    fwd = name == "cbl_tile2_fwd"
+    others = () if fwd else (args[3], args[4])
+    shape = (b, m, 8) if fwd else (b, m, c)
+    out_old = torch.zeros(shape, device=features.device)
+    if hasattr(old_c2, "fwd_plan"):  # a checkout of the new design
+        old = new_tile2_entry(name, old_lib, old_c2, args, out_old)
+    else:
+        f, lii, starts, *ops = old_c2.cuda_args(features, li, tile, width, window, meta, *others)
+        ptrs = [f.data_ptr(), ops[0].data_ptr(), lii.data_ptr(), starts.data_ptr()]
+        ptrs += [t.data_ptr() for t in ops[1:]] + [out_old.data_ptr()]
+        keep = (f, lii, starts, ops)
+        old = lambda _keep=keep: getattr(old_lib, name)(*ptrs, b, m, k, c, tile, width,
+                                                        float(temperature), stream)
+    out_new = torch.empty(shape, device=features.device)
+    new = new_tile2_entry(name, build.library(), c2, args, out_new)
+    return old, new, out_old, out_new, dict(M=m, K=k, C=c, tile=tile, width=width)
+
+
+def new_tile2_entry(name, lib, mod, args, out):
+    """The bare C entry of the new v2 design (module ``mod``'s plans and
+    operands) writing ``out``."""
+    features, meta, li = args[:3]
+    temperature, tile, width, window = args[-4:]
+    b, m, c = features.shape
+    k = li.shape[-1]
+    stream = torch.cuda.current_stream(features.device).cuda_stream
+    if name == "cbl_tile2_fwd":
+        ops = mod.v2_operands(features, meta, li, tile, width)
+        plan = mod.fwd_plan(b, m, k, c)
+        ptrs = [t.data_ptr() for t in ops] + [out.data_ptr()]
+        return lambda _keep=ops: lib.cbl_tile2_fwd(
+            *ptrs, b, m, k, plan.channels, tile, width, window, float(temperature),
+            plan.label_rows, plan.row_rows, stream)
+    ops = mod.v2_operands(features, meta, li, tile, width, args[3], args[4])
+    plan = mod.bwd_plan(b, m, k, c, tile)
+    scratch = (torch.empty((b, m, k), device=out.device),
+               torch.empty((b, m, k), dtype=torch.int32, device=out.device))
+    ptrs = [t.data_ptr() for t in ops + scratch] + [out.data_ptr()]
+    return lambda _keep=(ops, scratch): lib.cbl_tile2_bwd(
+        *ptrs, b, m, k, plan.pass1.channels, tile, width, window, float(temperature),
+        plan.pass1.row_rows, plan.scatter_rows, stream)
+
+
+def run_once(fn, what):
+    build.check(fn(), what)
+    torch.cuda.synchronize()
+
+
+def ab_stats_bwd(dev, old_lib, old_cd, flush, reps):
+    """cbl_stats_bwd, whose scatter moved into csrc/slot_scatter.cuh: the
+    same bits as the old kernel on the five dense calls, and the times."""
+    calls = record(dev, "batch")["cbl_stats_bwd"]
+    with torch.no_grad():
+        _ab_stats_bwd(calls, old_lib, old_cd, flush, reps)
+
+
+def _ab_stats_bwd(calls, old_lib, old_cd, flush, reps):
+    tot_old = tot_new = 0.0
+    for call in calls:
+        old, new, outs, shape = stats_bwd_entries(call, old_lib, old_cd)
+        run_once(old, "old cbl_stats_bwd")
+        run_once(new, "new cbl_stats_bwd")
+        same = torch.equal(outs["old"].view(torch.int32), outs["new"].view(torch.int32))
+        cs.require(same, f"cbl_stats_bwd {shape}: not the old kernel's bits")
+        t_old, t_new, t = ab_time(old, new, flush, reps)
+        tot_old, tot_new = tot_old + t_old, tot_new + t_new
+        print(f"cbl_stats_bwd {shape}: old {t_old:.4f} ms, new {t_new:.4f} ms "
+              f"({t_new / t_old - 1:+.2%}; runs {[round(x, 4) for x in t]}), the old kernel's bits",
+              flush=True)
+    print(f"cbl_stats_bwd, {len(calls)} calls a step: old {tot_old:.4f} ms, new {tot_new:.4f} ms "
+          f"({tot_new / tot_old - 1:+.2%})", flush=True)
+
+
+def ab_tile2(dev, old_lib, old_c2, flush, reps):
+    """The v2 kernels on the calls of one impl='pallas' step: the checks of
+    the module docstring, the times per call (one call a level) and a step,
+    and the level-0 calls through both checkouts' wrappers."""
+    calls = record(dev, "batch", "pallas")
+    with torch.no_grad():
+        _ab_tile2(calls, old_lib, old_c2, flush, reps)
+
+
+def _ab_tile2(calls, old_lib, old_c2, flush, reps):
+    for name in ("cbl_tile2_fwd", "cbl_tile2_bwd"):
+        tot_old = tot_new = tot_fill = 0.0
+        for call in calls[name]:
+            if name == "cbl_tile2_fwd":
+                cs.compare_tile_stats(name, call)
+            else:
+                cs.compare_tile_grad(name, call)
+            old, new, out_old, out_new, shape = tile2_entries(name, call, old_lib, old_c2)
+            run_once(old, f"old {name}")
+            run_once(new, f"new {name}")
+            if name == "cbl_tile2_fwd":
+                bits = lambda x: x.view(torch.int32)
+                mask = out_new[..., 6] > 0
+                cs.require(torch.equal(bits(out_new[mask]), bits(out_old[mask])),
+                           f"{name} {shape}: masked rows not the old kernel's bits")
+                cs.require(torch.equal(bits(out_new[..., [3, 4, 6]]), bits(out_old[..., [3, 4, 6]]))
+                           and torch.equal(out_new[..., 5], out_old[..., 5]),
+                           f"{name} {shape}: lanes 3-6 differ from the old kernel's")
+                cs.require(not out_new[~mask][:, :3].any(), f"{name} {shape}: not the fill")
+                note = f"{int(mask.sum())} masked rows the old kernel's bits, lanes 3-6 on all"
+            else:
+                first = out_new.clone()
+                run_once(new, f"new {name}")
+                cs.require(torch.equal(first.view(torch.int32), out_new.view(torch.int32)),
+                           f"{name} {shape}: runs differ")
+                err = cs.compare_scaled(f"{name} {shape} vs the old kernel", out_new, out_old, 1e-5)
+                note = f"the same bits twice, max|d| {err:.3g} from the old kernel"
+            t_old, t_new, t = ab_time(old, new, flush, reps)
+            tot_old, tot_new = tot_old + t_old, tot_new + t_new
+            if name == "cbl_tile2_bwd" and not hasattr(old_c2, "fwd_plan"):
+                # the old kernel adds onto a gradient its wrapper zeroes first
+                fill = cs.time_ms(lambda: out_old.zero_(), flush, reps)
+                tot_fill += fill
+                note += f"; the old gradient's zero fill {fill:.4f} ms"
+            print(f"{name} {shape}: old {t_old:.4f} ms, new {t_new:.4f} ms "
+                  f"({t_old / t_new:.2f}x; runs {[round(x, 4) for x in t]}); {note}", flush=True)
+        print(f"{name}, {len(calls[name])} calls a step: old {tot_old:.4f} ms, new {tot_new:.4f} ms "
+              f"({tot_old / tot_new:.2f}x)" + (f"; the old with its zero fills {tot_old + tot_fill:.4f}"
+                                             f" ms ({(tot_old + tot_fill) / tot_new:.2f}x)"
+                                             if tot_fill else ""), flush=True)
+    spread = lambda fn: sorted(cs.time_ms(fn, flush, reps=1) for _ in range(20))
+    for name in ("cbl_tile2_fwd", "cbl_tile2_bwd"):
+        args = max(calls[name], key=lambda call: call[0][0].numel())[0]
+        t = [spread(lambda: getattr(mod, name)(*args)) for mod in (old_c2, c2, c2, old_c2)]
+        print(f"{name} wrapper {tuple(args[0].shape)}, 20 runs each: old min/median "
+              f"{[round(x[0], 4) for x in (t[0], t[3])]} / {[round(x[10], 4) for x in (t[0], t[3])]}"
+              f" ms, new {[round(x[0], 4) for x in (t[1], t[2])]} / "
+              f"{[round(x[10], 4) for x in (t[1], t[2])]} ms", flush=True)
+
+
 def ab_time(old, new, flush, reps):
     """old, new, new, old: each the mean of reps launches after an L2 flush."""
     check = lambda fn: (lambda: build.check(fn(), "entry"))
@@ -271,28 +459,8 @@ def ab_time(old, new, flush, reps):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", type=Path, required=True)
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--old-may-differ", action="store_true",
-                    help="report, and do not require, that the old stats equal the new bit for bit")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("ab_torch_kernels: CUDA is not available", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"card: {cs.card_line()}", flush=True)
-    if args.ptxas:
-        ptxas_report()
-    old_build, old_cd, old_pa, old_attn = load_old(args.parent.resolve())
-    old_lib = old_build.library()
-    build.library()
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-
+def ab_stats_fwd(dev, old_lib, old_cd, flush, args):
+    """cbl_stats_fwd on the five dense calls (the module docstring's checks)."""
     calls = record(dev, "batch")["cbl_stats_fwd"]
     sums = [0.0, 0.0, 0.0, 0.0]
     for call in calls:
@@ -319,17 +487,55 @@ def main() -> int:
     print(f"cbl_stats_fwd, {len(calls)} calls a step: old {sums[0]:.4f} ms, new {sums[1]:.4f} ms "
           f"({sums[0] / sums[1]:.2f}x); new staged {sums[2]:.4f} ms, through L2 {sums[3]:.4f} ms "
           f"({sums[3] / sums[2]:.2f}x the staged)", flush=True)
-    del calls
-    torch.cuda.empty_cache()
 
+
+def ab_attn_all(dev, old_lib, old_pa, old_attn, flush, reps):
+    """pt_attn_fwd and pt_attn_bwd on a stale step's calls, their level-0
+    wrappers, and pt_attn_fwd on a stale request's calls."""
     calls = record(dev, "stale")
     for name in ("pt_attn_fwd", "pt_attn_bwd"):
-        ab_attn(name, calls[name], old_lib, old_pa, flush, args.reps, "a step")
+        ab_attn(name, calls[name], old_lib, old_pa, flush, reps, "a step")
     wrapper_times(calls, old_pa, old_attn, flush)
     del calls
     torch.cuda.empty_cache()
-    ab_attn("pt_attn_fwd", record_request(dev)["pt_attn_fwd"], old_lib, old_pa, flush, args.reps,
+    ab_attn("pt_attn_fwd", record_request(dev)["pt_attn_fwd"], old_lib, old_pa, flush, reps,
             "a request")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, required=True)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS)
+    ap.add_argument("--old-may-differ", action="store_true",
+                    help="report, and do not require, that the old stats equal the new bit for bit")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_torch_kernels: CUDA is not available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {cs.card_line()}", flush=True)
+    if args.ptxas:
+        ptxas_report()
+    old_build, old_cd, old_pa, old_attn, old_c2 = load_old(args.parent.resolve())
+    old_lib = old_build.library()
+    build.library()
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+
+    if "tile2" in args.only:
+        ab_tile2(dev, old_lib, old_c2, flush, args.reps)
+        torch.cuda.empty_cache()
+    if "stats_bwd" in args.only:
+        ab_stats_bwd(dev, old_lib, old_cd, flush, args.reps)
+        torch.cuda.empty_cache()
+    if "stats_fwd" in args.only:
+        ab_stats_fwd(dev, old_lib, old_cd, flush, args)
+        torch.cuda.empty_cache()
+    if "attn" in args.only:
+        ab_attn_all(dev, old_lib, old_pa, old_attn, flush, args.reps)
     print(f"card: {cs.card_line()}", flush=True)
     return 0
 
