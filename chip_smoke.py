@@ -113,7 +113,10 @@ is not 0:
            time, with the backward scatter's terms a support tile; v1
            (cbl_tile_fwd, cbl_tile_bwd), which no path runs,
            at that step's level-0 shape ([soft labels | latents], K = 35)
-           against its plain version and against v2 on the same inputs;
+           against its plain version as v2 is held (the backward's label
+           columns zero and its feature columns v2's backward bit for bit
+           on v1's split with v1's statistics) and against v2 on the same
+           inputs, its level-0 calls also 20 times alone;
            gather_rows, which no path runs either, equal to x[idx] at x
            [131072, 128] f32 with 131072 random rows, timed beside
            torch.index_select.
@@ -128,7 +131,9 @@ is not 0:
            cbl_tile2_bwd at every shape class the previous v2 kernels took
            (V2_SHAPES: C in {1, 20, 32, 33, 64, 128}, K in {1, 35, 300},
            M·K >= 2^23, tile x width 128 x 5 and 1024 x 1, every row and no
-           row in the loss mask) held as in phase 14.
+           row in the loss mask) held as in phase 14; and v1 at V1_SHAPES
+           (C in {1, 32, 33, 128}, ncls in {1, 13, 40} with ties among the
+           label columns, K in {1, 35}) held as in phase 14.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -505,26 +510,24 @@ def check_pt_attn_bwd_exact(call):
 
 
 def compare_tile_stats(name, call) -> float:
-    """Per-row statistics of a CBL tile kernel call against its plain
-    version: the counts and the mask exact on every row, the max, the sums
-    and loss·mask within 1e-4 of each lane's scale (the distances are
+    """Per-row statistics of a CBL tile kernel call (v2 or v1) against its
+    plain version: the counts and the mask exact on every row, the max, the
+    sums and loss·mask within 1e-4 of each lane's scale (the distances are
     rounded in one order on both sides; exp and log may round otherwise on
-    the card). v2 computes the max and the sums (lanes 0-2) only on the rows
-    of the mask: there they are held so, elsewhere they must be the fill
-    (0, 0, 0) with lane 5 zero; lane 7 is 0; the call run again gives the
-    same bits on every lane."""
+    the card). The kernels compute the max and the sums (lanes 0-2) only on
+    the rows of the mask: there they are held so, elsewhere they must be the
+    fill (0, 0, 0) with lane 5 zero (no output reads them there); lane 7 is
+    0; the call run again gives the same bits on every lane."""
     args, kw, out = call
-    ref = WRAPPERS[name][2](*args, **kw)
+    mod, attr, plain = WRAPPERS[name]
+    ref = plain(*args, **kw)
     exact = [3, 4, 6]
     require(torch.equal(out[..., exact], ref[..., exact]),
             f"{name} {tuple(out.shape)}: counts or mask differ")
-    if name == "cbl_tile_fwd":
-        return max(compare_scaled(f"{name} lane {i}", out[..., i], ref[..., i], 1e-4)
-                   for i in (0, 1, 2, 5))
     mask = out[..., 6] > 0
     require(not out[~mask][:, [0, 1, 2, 5]].any() and not out[..., 7].any(),
             f"{name} {tuple(out.shape)}: not the fill outside the mask")
-    again = WRAPPERS[name][0].cbl_tile2_fwd(*args, **kw)
+    again = getattr(mod, attr)(*args, **kw)
     require(torch.equal(again.view(torch.int32), out.view(torch.int32)),
             f"{name} {tuple(out.shape)}: differs between runs")
     return max(compare_scaled(f"{name} lane {i} (masked rows)", out[mask][:, i], ref[mask][:, i],
@@ -534,14 +537,26 @@ def compare_tile_stats(name, call) -> float:
 def compare_tile_grad(name, call) -> float:
     """A CBL tile backward call against its plain version: 1e-4 of the
     output's scale (the sums meet in another order, and the plain version's
-    index_add_ adds with atomics on the card); v1's label columns zero. v2
-    has no atomics: the call run again gives the same bits; and its first
-    pass's slot coefficients, on the rows it serves, are within 1e-5 of
-    their scale of the plain version's (the same roundings; exp may round
-    otherwise)."""
+    index_add_ adds with atomics on the card). Neither form has atomics: the
+    call run again gives the same bits. v2's first pass's slot
+    coefficients, on the rows it serves, are within 1e-5 of their scale of
+    the plain version's (the same roundings; exp may round otherwise). v1
+    runs v2's kernels on its split of the fused rows: its label columns are
+    zero and its feature columns are v2's backward bit for bit on the
+    split's features and meta (``cbl_tile.split_plain``) with the same
+    statistics."""
     args, kw, out = call
     if name == "cbl_tile_bwd":
-        require(not out[..., :args[4]].any(), "cbl_tile_bwd: a label column has a gradient")
+        fused, li, stats, g, ncls = args[:5]
+        what = f"{name} {tuple(out.shape)}"
+        require(not out[..., :ncls].any(), f"{what}: a label column has a gradient")
+        again = c1.cbl_tile_bwd(*args, **kw)
+        require(torch.equal(again.view(torch.int32), out.view(torch.int32)),
+                f"{what} differs between runs")
+        meta = c1.split_plain(fused, ncls)[1]
+        v2 = c2.cbl_tile2_bwd(fused[..., ncls:], meta, li, stats, g, *args[5:])
+        require(torch.equal(out[..., ncls:].contiguous().view(torch.int32), v2.view(torch.int32)),
+                f"{what}: the feature columns are not v2's backward bit for bit")
     else:
         again, coef = c2.cbl_tile2_bwd_passes(*args, **kw)
         require(torch.equal(again.view(torch.int32), out.view(torch.int32)),
@@ -1222,6 +1237,42 @@ def check_v2_shapes(dev, rng) -> None:
         torch.cuda.empty_cache()
 
 
+# direct v1 calls of phase plan-shapes: (C, ncls, K), M = 4096, tile 256 x
+# width 3, window 1, soft labels in halves (ties among the label columns), 10%
+# of the rows without a label; ncls = 1 gives one class and no masked row
+V1_SHAPES = ((1, 13, 35), (32, 1, 35), (32, 40, 35), (33, 13, 1), (33, 40, 35),
+             (128, 13, 35), (128, 40, 1), (32, 13, 1))
+
+
+def check_v1_shapes(dev, rng) -> None:
+    """v1 at V1_SHAPES against its plain version, as in phase cbl-kernels
+    (compare_tile_stats, compare_tile_grad): the split takes any ncls and
+    every C the plans take."""
+    m, tile, width, window = 4096, 256, 3, 1
+    for c, ncls, k in V1_SHAPES:
+        lab = rng.integers(0, 3, (B, m, ncls)).astype(np.float32) / 2
+        lab[rng.random((B, m)) < 0.1] = 0.0
+        feats = rng.standard_normal((B, m, c), dtype=np.float32)
+        fused = torch.as_tensor(np.concatenate([lab, feats], -1), device=dev)
+        li = torch.as_tensor(rng.integers(0, tile * width + 1, (B, m, k)).astype(np.int32),
+                             device=dev)
+        g = torch.as_tensor(rng.standard_normal(B).astype(np.float32), device=dev)
+        args = (fused, li, ncls, 0.5, tile, width, window)
+        stats = c1.cbl_tile_fwd(*args)
+        n_mask = int(stats[..., 6].sum())
+        if ncls == 1 or k == 1:
+            require(n_mask == 0, f"v1 C={c} ncls={ncls} K={k}: {n_mask} masked rows, not none")
+        err = compare_tile_stats("cbl_tile_fwd", (args, {}, stats))
+        bwd_args = (fused, li, stats, g) + args[2:]
+        dfused = c1.cbl_tile_bwd(*bwd_args)
+        require(dfused.shape == fused.shape, f"v1 gradient {tuple(dfused.shape)}")
+        err = max(err, compare_tile_grad("cbl_tile_bwd", (bwd_args, {}, dfused)))
+        plan = c1.launch_plan(B, m, k, ncls + c, ncls, tile)
+        print(f"  cbl_tile C={c} ncls={ncls} M={m} K={k} ({n_mask} masked rows): fwd plan "
+              f"{tuple(plan.pass1)}, scatter rows {plan.scatter_rows}: max|d| {err:.3g}, the same "
+              f"bits twice, the feature gradient v2's bits", flush=True)
+
+
 def check_plan_shapes(dev) -> None:
     """Phase 15: direct calls at the shapes whose plans take a smaller tile
     or slot chunks, against the plain versions: pt_attn_fwd and pt_attn_bwd
@@ -1233,7 +1284,9 @@ def check_plan_shapes(dev) -> None:
     the flagship's level-0 window equal bit for bit to the staged path;
     cbl_tile2_fwd and cbl_tile2_bwd at V2_SHAPES (C in {1, 20, 32, 33, 64,
     128}, K in {1, 35, 300}, M·K >= 2^23, tile x width 128 x 5 and 1024 x
-    1, every row and no row in the loss mask) as in phase 14."""
+    1, every row and no row in the loss mask) as in phase 14; and v1 at
+    V1_SHAPES (C in {1, 32, 33, 128}, ncls in {1, 13, 40}, K in {1, 35}) as
+    in phase 14."""
     rng = np.random.default_rng(6)
     with torch.no_grad():
         for m, k, tile, width in ((1024, 8, 256, 3), (256, 32, 256, 1), (256, 48, 256, 1)):
@@ -1272,6 +1325,7 @@ def check_plan_shapes(dev) -> None:
         del features, meta, labels, onehot
         torch.cuda.empty_cache()
         check_v2_shapes(dev, rng)
+        check_v1_shapes(dev, rng)
 
 
 def check_routes(metrics: dict) -> None:
@@ -1382,6 +1436,25 @@ def bare_entry(name, args, kw):
         return call(lib.cbl_tile2_bwd, (f, mt, lii, st, gl) + scratch, b, m, k,
                     plan.pass1.channels, tile, width, window, float(temperature),
                     plan.pass1.row_rows, plan.scatter_rows)
+    if name in ("cbl_tile_fwd", "cbl_tile_bwd"):
+        fused, li = args[:2]
+        ncls = args[2] if name == "cbl_tile_fwd" else args[4]
+        temperature, tile, width, window = args[-4:]
+        b, m, columns = fused.shape
+        k = li.shape[-1]
+        plan = c1.launch_plan(b, m, k, columns, ncls, tile)
+        empty = lambda *shape: torch.empty(shape, device=fused.device)
+        split = (empty(b, m, plan.pass1.channels), empty(b, m, 8))  # features, meta
+        dims = (b, m, k, columns - ncls, ncls, tile, width, window, float(temperature))
+        lii = li.to(torch.int32).contiguous()
+        if name == "cbl_tile_fwd":
+            return call(lib.cbl_tile_fwd, (fused, lii) + split + (empty(b, m, 8),), *dims,
+                        plan.pass1.label_rows, plan.pass1.row_rows)
+        scratch = split + (empty(b, m, k), torch.empty((b, m, k), dtype=torch.int32,
+                                                       device=fused.device),
+                           empty(b, m, plan.pass1.channels), torch.empty_like(fused))
+        return call(lib.cbl_tile_bwd, (fused, lii, args[2].contiguous(), args[3].contiguous())
+                    + scratch, *dims, plan.pass1.row_rows, plan.scatter_rows)
     raise ValueError(f"no bare entry for {name}")
 
 
@@ -1427,8 +1500,8 @@ def time_spread(calls, dev, names, reps=20):
 def check_cbl_kernels(dev, pallas) -> list:
     """Phase 14: every v2 call of the recorded cbl-pallas step against its
     plain version and timed; v1 at that step's level-0 shape ([its soft
-    labels | its latents], K = 35) against its plain version and against v2
-    on the same inputs; gather_rows exact on x [131072, 128] f32 with
+    labels | its latents], K = 35) against its plain version, as v2 is
+    held, and against v2 on the same inputs, timed, and 20 times alone; gather_rows exact on x [131072, 128] f32 with
     131072 random rows, torch.index_select timed beside it. The launches
     of v1 and gather_rows are those of the cbl-pallas step (0: no path runs
     them); their direct calls here are counted apart."""
@@ -1463,6 +1536,7 @@ def check_cbl_kernels(dev, pallas) -> list:
                           dfused)],
     }
     summary += time_calls(v1_calls, dev, pallas["no_path"], max_err, names[2:4], reps=5)
+    time_spread(v1_calls, dev, names[2:4])
 
     rng = np.random.default_rng(5)
     x = torch.as_tensor(rng.standard_normal((131072, 128), dtype=np.float32), device=dev)

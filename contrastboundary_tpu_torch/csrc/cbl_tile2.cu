@@ -20,17 +20,17 @@
 // Contract of ops/cuda/cbl_tile2.py::cbl_tile2_fwd_plain / ::
 // cbl_tile2_bwd_plain (and ops/cuda/cbl_tile.py for v1): li [B, M, K] int32
 // is window-relative: query tile t reads the W = width * tile rows from
-// tile clip(t - window, 0, M / tile - width) (v1: from starts[t], the same
-// self geometry); a slot outside [0, W) (the shadow W) adds nothing. For a
-// valid slot s of query q (s in the window, label valid):
+// tile clip(t - window, 0, M / tile - width) (the self geometry); a slot
+// outside [0, W) (the shadow W) adds nothing. For a valid slot s of query
+// q (s in the window, label valid):
 //   d = sqrt(sum_c (q_c - s_c)^2 + 1e-12), pos = (|argmax q - argmax s| <
 //   0.5), e = exp((-d - m) / T) with m the max of -d over valid slots.
 // The forward writes stats [B, M, 8] = (m, sum e*pos, sum e, pos count,
 // valid count, loss*mask, mask, 0), loss = -log(p / max(n, 1e-12) + 1e-12),
 // mask = pos count > 0 and < valid count and the query's label valid; the
-// caller sums lanes 5 and 6 over M. v2 computes lanes 0-2 only on the rows
-// of the mask: elsewhere it writes the fill (0, 0, 0) there, and 0 in lane
-// 5 (loss * 0). No output reads those lanes outside the mask (the caller
+// caller sums lanes 5 and 6 over M. Both forms compute lanes 0-2 only on
+// the rows of the mask: elsewhere they write the fill (0, 0, 0) there, and
+// 0 in lane 5 (loss * 0). No output reads those lanes outside the mask (the caller
 // sums lanes 5 and 6, the backward skips rows whose mask is 0), and the
 // plain backward fed with the fill stays finite (dP is then -1e24, times
 // mask 0). Lanes 3, 4, 6 and 7 hold on every row. The backward takes those
@@ -115,15 +115,44 @@
 // where the most terms land (about 6 times the mean at level 0) adds them in
 // rounds of 8 a lane group; at the smaller levels, two launches in turn.
 //
-// v1 design (unchanged): one warp owns one query row, its lanes over the
-// channels (lane l holds channels l, l + 32, ...; a 128-byte coalesced read
-// of a C = 32 row), and walks the K slots twice (the max, then the sums);
-// the squared distance is summed per lane, then by a butterfly of shuffles.
-// The backward adds each slot's -gk onto its row and the query's own sum
-// onto the query row with atomicAdd (dx zeroed by the caller), so dx's last
-// bits vary from run to run. It does not overlap a warp's K serial slot
-// reads (one dependent load chain a slot), nor skip the distances outside
-// the loss mask: latency-bound, far above its bound.
+// v1 design: v2's kernels on v2's operands, split from the fused rows once
+// a call. The fused row stride (ncls + C floats, 45 at the flagship) is not
+// 16 bytes, so v2's float4 row loads cannot read fused rows in place; a
+// copy reads and writes each row once (about 45 MB at the flagship's level
+// 0, ~14 us at the card's rate), where scalar loads of strided rows would
+// slow every masked row's slot reads, the kernels' critical path.
+//   Split (cbl_tile_split_kernel, 32 rows a block, so that even a small
+//   level's few rows spread over many blocks): a thread a row walks the
+//   label columns in order, 8 loads in flight, keeps the first maximum by a
+//   strict compare and sums them, and writes v2's meta row (lane 0 the
+//   argmax as a float, lane 1 1 where the sum is above 0, the rest 0:
+//   row_meta's); beside it the block's threads copy its features into [B,
+//   M, C'] with zero channels to C' = 32, 64 or 128 (v2's padding), C' / 8
+//   loads a thread issued together (a warp walking its rows in turn would
+//   chain a dependent load and store a row, tens of microseconds at every
+//   level). Any ncls: the loop runs over columns.
+//   Forward: the split, v2's label pass, and v2's kernel over the mask's
+//   rows with V1, which combines a row's slots as the previous v1 kernel
+//   did: the row's final max m first (from its one chunk's -d where one
+//   chunk holds K; else a pass over the chunks before the sums), then each
+//   lane forms e = exp((-d - m) / T) v and e pos for its slots and the 8
+//   lanes walk the slots in order with p = p + e pos and n = n + e, no
+//   rescale: the same distance tree, an exact max and sums in slot order,
+//   so lanes 0-2 and 5 of a masked row are the previous kernel's bits.
+//   Outside the mask lanes 0-2 and 5 are v2's fill.
+//   Backward: the split, v2's two passes into a padded gradient, then
+//   cbl_tile_join_kernel (32 rows a block, 8 loads a thread in flight)
+//   writes dfused whole: the gradient in the feature columns, zeros in the
+//   label columns. No atomics and no zero fill: every element written once,
+//   the same bits on every run, the feature columns v2's backward's bits on
+//   the split operands.
+// Limits: v2's, with any ncls >= 1 and C <= 128 feature columns.
+// Bound: the function's, as v2's with ncls label floats a row in place of
+// meta's 8 bytes (chip_smoke.py::tile_costs); at the flagship's level 0
+// 0.00895 ms forward and 0.01126 backward. The design adds the split's read
+// of the fused rows and write of C' + 8 floats a row (and the backward the
+// join's read of C' and write of ncls + C), ~0.013 ms each at level 0, to
+// v2's latency-bound kernels.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -135,251 +164,6 @@ namespace {
 constexpr float kNeg = -1e9f;     // _NEG of cbl_tile2.py, INF of core/masking.py
 constexpr float kEps = 1e-12f;    // EPS of core/masking.py
 constexpr float kLogEps = 1e-12f;  // _LOG_EPS, inside the sqrt
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// ---- v1: a warp per query row ---------------------------------------------
-
-constexpr int kWarps = 8;  // query rows (warps) per block
-
-struct Rows {
-  const float* f;  // fused [B*M, ncls + C]
-  int c;           // feature channels
-  int ncls;        // label columns in front of the features
-  int stride;      // floats a row: ncls + c
-};
-
-// Label argmax (as a float) and validity of row s, the same on every lane.
-__device__ __forceinline__ void row_label(const Rows& x, long long s, int lane,
-                                          float& amax, float& valid) {
-  const bool lab = lane < x.ncls;
-  float v = lab ? x.f[s * x.stride + lane] : 0.f;
-  float mx = lab ? v : -INFINITY;
-  int idx = lab ? lane : (1 << 30);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float omx = __shfl_xor_sync(kFullMask, mx, o);
-    const int oidx = __shfl_xor_sync(kFullMask, idx, o);
-    if (omx > mx || (omx == mx && oidx < idx)) {  // the first maximum
-      mx = omx;
-      idx = oidx;
-    }
-    v += __shfl_xor_sync(kFullMask, v, o);  // labels are >= 0: any order
-  }
-  amax = (float)idx;
-  valid = v > 0.f ? 1.f : 0.f;
-}
-
-template <int CPL>
-__device__ __forceinline__ void load_feat(const Rows& x, long long r, int lane,
-                                          float (&v)[CPL]) {
-  const float* row = x.f + r * x.stride + x.ncls;
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int ci = lane + 32 * j;
-    v[j] = ci < x.c ? row[ci] : 0.f;
-  }
-}
-
-// d = sqrt(|q - s|^2 + 1e-12) on every lane; diff = q - s on this lane's
-// channels. Per lane the squares are added in channel order, then the lanes
-// by a butterfly (the plain version's _lane_sum).
-template <int CPL>
-__device__ __forceinline__ float slot_dist(const Rows& x, long long s, int lane,
-                                           const float (&qv)[CPL],
-                                           float (&diff)[CPL]) {
-  const float* row = x.f + s * x.stride + x.ncls;
-  float acc = 0.f;
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int ci = lane + 32 * j;
-    diff[j] = ci < x.c ? __fsub_rn(qv[j], row[ci]) : 0.f;
-    acc = __fadd_rn(acc, __fmul_rn(diff[j], diff[j]));
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    acc = __fadd_rn(acc, __shfl_xor_sync(kFullMask, acc, o));
-  return sqrtf(__fadd_rn(acc, kLogEps));
-}
-
-struct Query {
-  long long r;     // flat (b, q)
-  long long base;  // flat row of the window's first row
-  int b;
-};
-
-__device__ __forceinline__ bool query_row(Query& qr, const int32_t* starts,
-                                          int b_sz, int m, int tile) {
-  qr.r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (qr.r >= (long long)b_sz * m) return false;
-  qr.b = (int)(qr.r / m);
-  const int q = (int)(qr.r - (long long)qr.b * m);
-  qr.base = (long long)qr.b * m + (long long)starts[q / tile] * tile;
-  return true;
-}
-
-// row of a valid slot (in the window, label valid) with its label argmax,
-// or -1; the same on every lane (li is read by all of them)
-__device__ __forceinline__ long long valid_slot(const Rows& x, const Query& qr,
-                                                int j, int w_sz, int lane,
-                                                float& amax, float& valid) {
-  if (j < 0 || j >= w_sz) return -1;
-  const long long s = qr.base + j;
-  row_label(x, s, lane, amax, valid);
-  return valid > 0.f ? s : -1;
-}
-
-// the max of -d over the valid slots first, then the sums
-template <int CPL>
-__global__ void cbl_tile_fwd_kernel(Rows x, const int32_t* __restrict__ li,
-                                    const int32_t* __restrict__ starts,
-                                    float* __restrict__ stats, int b_sz, int m,
-                                    int k, int tile, int w_sz,
-                                    float temperature) {
-  Query qr;
-  if (!query_row(qr, starts, b_sz, m, tile)) return;
-  const int lane = threadIdx.x & 31;
-  float qv[CPL], diff[CPL];
-  load_feat<CPL>(x, qr.r, lane, qv);
-  float qa, qvalid, sa, sv;
-  row_label(x, qr.r, lane, qa, qvalid);
-  const int32_t* lr = li + qr.r * k;
-
-  float mr = kNeg;
-  for (int kk = 0; kk < k; ++kk) {
-    const long long s = valid_slot(x, qr, lr[kk], w_sz, lane, sa, sv);
-    if (s >= 0) mr = fmaxf(mr, -slot_dist<CPL>(x, s, lane, qv, diff));
-  }
-  float p = 0.f, n = 0.f, pc = 0.f, vc = 0.f;
-  for (int kk = 0; kk < k; ++kk) {
-    const long long s = valid_slot(x, qr, lr[kk], w_sz, lane, sa, sv);
-    if (s < 0) continue;  // an invalid slot changes nothing
-    const float d = slot_dist<CPL>(x, s, lane, qv, diff);
-    const float pos = fabsf(__fsub_rn(sa, qa)) < 0.5f ? sv : 0.f;
-    const float e = __fmul_rn(expf((-d - mr) / temperature), sv);
-    p = __fadd_rn(p, __fmul_rn(e, pos));
-    n = __fadd_rn(n, e);
-    pc = __fadd_rn(pc, pos);
-    vc = __fadd_rn(vc, sv);
-  }
-  if (lane == 0) {
-    const float ratio = p / fmaxf(n, kEps);
-    const float loss = -logf(ratio + kEps);
-    const float mask = (pc > 0.f && pc < vc && qvalid > 0.f) ? 1.f : 0.f;
-    float4* out = reinterpret_cast<float4*>(stats + qr.r * 8);
-    out[0] = make_float4(mr, p, n, pc);
-    out[1] = make_float4(vc, loss * mask, mask, 0.f);
-  }
-}
-
-template <int CPL>
-__global__ void cbl_tile_bwd_kernel(Rows x, const int32_t* __restrict__ li,
-                                    const int32_t* __restrict__ starts,
-                                    const float* __restrict__ stats,
-                                    const float* __restrict__ g_loss,
-                                    float* __restrict__ dx, int b_sz, int m,
-                                    int k, int tile, int w_sz,
-                                    float temperature) {
-  Query qr;
-  if (!query_row(qr, starts, b_sz, m, tile)) return;
-  const float* st = stats + qr.r * 8;
-  const float mask = st[6], gl = g_loss[qr.b];
-  if (mask == 0.f || gl == 0.f) return;  // every gk of the row is 0
-  const int lane = threadIdx.x & 31;
-  const float mr = st[0], p = st[1];
-  const float n_safe = fmaxf(st[2], kEps);
-  const float inv = -1.f / (p / n_safe + kEps);  // dL/dratio
-  const float dP = inv / n_safe;
-  const float dN = -inv * p / (n_safe * n_safe);
-  float qv[CPL], diff[CPL], dfq[CPL];
-  load_feat<CPL>(x, qr.r, lane, qv);
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) dfq[j] = 0.f;
-  float qa, qvalid, sa, sv;
-  row_label(x, qr.r, lane, qa, qvalid);
-  const int32_t* lr = li + qr.r * k;
-  for (int kk = 0; kk < k; ++kk) {
-    const long long s = valid_slot(x, qr, lr[kk], w_sz, lane, sa, sv);
-    if (s < 0) continue;  // e = 0, so gk = 0
-    const float d = slot_dist<CPL>(x, s, lane, qv, diff);
-    const float pos = fabsf(__fsub_rn(sa, qa)) < 0.5f ? sv : 0.f;
-    const float e = __fmul_rn(expf((-d - mr) / temperature), sv);
-    const float dd = __fmul_rn(
-        __fmul_rn(__fmul_rn(__fadd_rn(__fmul_rn(dP, pos), dN), -e / temperature),
-                  mask),
-        gl);
-    const float coef = dd / d;
-    float* ds = dx + s * x.stride + x.ncls;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int ci = lane + 32 * j;
-      if (ci >= x.c) continue;
-      const float gk = __fmul_rn(coef, diff[j]);
-      dfq[j] = __fadd_rn(dfq[j], gk);
-      atomicAdd(ds + ci, -gk);
-    }
-  }
-  float* dq = dx + qr.r * x.stride + x.ncls;
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int ci = lane + 32 * j;
-    if (ci < x.c) atomicAdd(dq + ci, dfq[j]);
-  }
-}
-
-// channels a lane holds; 0 where the width is not taken
-int lanes_per_row(int c) { return c <= 32 ? 1 : c <= 64 ? 2 : c <= 128 ? 4 : 0; }
-
-unsigned blocks_for(int b, int m) {
-  return (unsigned)(((long long)b * m + kWarps - 1) / kWarps);
-}
-
-int v1_fwd(const Rows& x, const int32_t* li, const int32_t* starts,
-           float* stats, int b, int m, int k, int tile, int width,
-           float temperature, cudaStream_t s) {
-  const dim3 grid(blocks_for(b, m)), block(32 * kWarps);
-  const int w_sz = width * tile;
-  switch (lanes_per_row(x.c)) {
-    case 1:
-      cbl_tile_fwd_kernel<1><<<grid, block, 0, s>>>(x, li, starts, stats, b, m,
-                                                    k, tile, w_sz, temperature);
-      break;
-    case 2:
-      cbl_tile_fwd_kernel<2><<<grid, block, 0, s>>>(x, li, starts, stats, b, m,
-                                                    k, tile, w_sz, temperature);
-      break;
-    case 4:
-      cbl_tile_fwd_kernel<4><<<grid, block, 0, s>>>(x, li, starts, stats, b, m,
-                                                    k, tile, w_sz, temperature);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-int v1_bwd(const Rows& x, const int32_t* li, const int32_t* starts,
-           const float* stats, const float* g_loss, float* dx, int b, int m,
-           int k, int tile, int width, float temperature, cudaStream_t s) {
-  const dim3 grid(blocks_for(b, m)), block(32 * kWarps);
-  const int w_sz = width * tile;
-  switch (lanes_per_row(x.c)) {
-    case 1:
-      cbl_tile_bwd_kernel<1><<<grid, block, 0, s>>>(
-          x, li, starts, stats, g_loss, dx, b, m, k, tile, w_sz, temperature);
-      break;
-    case 2:
-      cbl_tile_bwd_kernel<2><<<grid, block, 0, s>>>(
-          x, li, starts, stats, g_loss, dx, b, m, k, tile, w_sz, temperature);
-      break;
-    case 4:
-      cbl_tile_bwd_kernel<4><<<grid, block, 0, s>>>(
-          x, li, starts, stats, g_loss, dx, b, m, k, tile, w_sz, temperature);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
 
 // ---- v2: labels first, the masked rows' slots in flight, no atomics ---------
 
@@ -526,8 +310,34 @@ __device__ __forceinline__ void slot_chunk(const V2& a, const int32_t* lr,
     d[j] = row_dist<CPL>(qv, f4 + (cloud + (sv[j] > 0.f ? sr[j] : qr)) * (8 * CPL));
 }
 
-// Forward statistics of a masked row r, its row group's 8 lanes together.
+__device__ __forceinline__ float group_max(float x, unsigned gmask) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(gmask, x, o, kLanes));
+  return x;
+}
+
+// v1: the max of -d over the valid slots of a row whose slots take more
+// than one chunk, a pass over the chunks before the sums (exact in any order)
 template <int CPL, int S>
+__device__ __forceinline__ float chunks_max(const V2& a, const int32_t* lr, long long base,
+                                            long long cloud, int qr, int lane, float qa,
+                                            const float4 (&qv)[8 * CPL], unsigned gmask) {
+  float mx = kNeg;
+  for (int c0 = 0; c0 < a.k; c0 += kLanes * S) {
+    int sr[S];
+    float sv[S], d[S];
+    unsigned pos;
+    slot_chunk<CPL, S>(a, lr, base, cloud, qr, c0, lane, qa, qv, sr, sv, d, pos);
+#pragma unroll
+    for (int j = 0; j < S; ++j)
+      if (sv[j] > 0.f) mx = fmaxf(mx, -d[j]);
+  }
+  return group_max(mx, gmask);
+}
+
+// Forward statistics of a masked row r, its row group's 8 lanes together.
+// V1 combines the slots as v1 does: the row's max first, then plain sums.
+template <int CPL, int S, bool V1>
 __device__ __forceinline__ void fwd_masked_row(const V2& a, int r, int lane,
                                                unsigned gmask, float temperature,
                                                float* __restrict__ stats) {
@@ -537,7 +347,11 @@ __device__ __forceinline__ void fwd_masked_row(const V2& a, int r, int lane,
   const long long base = window_base(a, r);
   const long long cloud = (long long)(r / a.m) * a.m;
   const int32_t* lr = a.li + (long long)r * a.k;
+  const bool one_chunk = a.k <= kLanes * S;
   float carry = kNeg;  // the running max over the slots before the chunk
+  // (V1: the row's max; taken from the chunk itself where it is the only one)
+  if (V1 && !one_chunk)
+    carry = chunks_max<CPL, S>(a, lr, base, cloud, (int)(r - cloud), lane, qm.x, qv, gmask);
   float p = 0.f, n = 0.f, pc = 0.f, vc = 0.f;
   for (int c0 = 0; c0 < a.k; c0 += kLanes * S) {
     int sr[S];
@@ -552,32 +366,48 @@ __device__ __forceinline__ void fwd_masked_row(const V2& a, int r, int lane,
       pc = __fadd_rn(pc, pos >> j & 1u ? sv[j] : 0.f);
       inc[j] = sv[j] > 0.f ? -d[j] : kNeg;
     }
-    // the running max before each slot (slot order j, then lane): an exact
-    // inclusive max over the lanes of each j, the j in turn carried
+    float scale[S], e[S], ep[S];
+    if constexpr (V1) {
+      // the row's max (one chunk: this one's), then each slot's terms with
+      // it: (0, 0) for a slot that adds nothing
+      if (one_chunk) {
+        float mx = kNeg;
 #pragma unroll
-    for (int o = 1; o < kLanes; o <<= 1) {
+        for (int j = 0; j < S; ++j) mx = fmaxf(mx, inc[j]);
+        carry = group_max(mx, gmask);
+      }
 #pragma unroll
       for (int j = 0; j < S; ++j) {
-        const float u = __shfl_up_sync(gmask, inc[j], o, kLanes);
-        if (lane >= o) inc[j] = fmaxf(inc[j], u);
-      }
-    }
-    // each slot's rescale and terms: (1, 0, 0) for a slot that adds nothing,
-    // which leaves every sum as it is
-    float scale[S], e[S], ep[S];
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      const float before = __shfl_up_sync(gmask, inc[j], 1, kLanes);
-      const float m_prev = lane > 0 ? fmaxf(carry, before) : carry;
-      carry = fmaxf(carry, __shfl_sync(gmask, inc[j], kLanes - 1, kLanes));
-      scale[j] = 1.f;
-      e[j] = 0.f;
-      ep[j] = 0.f;
-      if (sv[j] > 0.f) {
-        const float m_new = fmaxf(m_prev, -d[j]);
-        scale[j] = expf((m_prev - m_new) / temperature);
-        e[j] = __fmul_rn(expf((-d[j] - m_new) / temperature), sv[j]);
+        e[j] = sv[j] > 0.f ? __fmul_rn(expf((-d[j] - carry) / temperature), sv[j]) : 0.f;
         ep[j] = __fmul_rn(e[j], pos >> j & 1u ? sv[j] : 0.f);
+      }
+    } else {
+      // the running max before each slot (slot order j, then lane): an
+      // exact inclusive max over the lanes of each j, the j in turn carried
+#pragma unroll
+      for (int o = 1; o < kLanes; o <<= 1) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          const float u = __shfl_up_sync(gmask, inc[j], o, kLanes);
+          if (lane >= o) inc[j] = fmaxf(inc[j], u);
+        }
+      }
+      // each slot's rescale and terms: (1, 0, 0) for a slot that adds
+      // nothing, which leaves every sum as it is
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        const float before = __shfl_up_sync(gmask, inc[j], 1, kLanes);
+        const float m_prev = lane > 0 ? fmaxf(carry, before) : carry;
+        carry = fmaxf(carry, __shfl_sync(gmask, inc[j], kLanes - 1, kLanes));
+        scale[j] = 1.f;
+        e[j] = 0.f;
+        ep[j] = 0.f;
+        if (sv[j] > 0.f) {
+          const float m_new = fmaxf(m_prev, -d[j]);
+          scale[j] = expf((m_prev - m_new) / temperature);
+          e[j] = __fmul_rn(expf((-d[j] - m_new) / temperature), sv[j]);
+          ep[j] = __fmul_rn(e[j], pos >> j & 1u ? sv[j] : 0.f);
+        }
       }
     }
     // the sums in slot order, each slot's terms handed round
@@ -585,11 +415,16 @@ __device__ __forceinline__ void fwd_masked_row(const V2& a, int r, int lane,
     for (int j = 0; j < S; ++j) {
 #pragma unroll
       for (int l = 0; l < kLanes; ++l) {
-        const float sc = __shfl_sync(gmask, scale[j], l, kLanes);
         const float ee = __shfl_sync(gmask, e[j], l, kLanes);
         const float pe = __shfl_sync(gmask, ep[j], l, kLanes);
-        p = __fadd_rn(__fmul_rn(p, sc), pe);
-        n = __fadd_rn(__fmul_rn(n, sc), ee);
+        if constexpr (V1) {
+          p = __fadd_rn(p, pe);
+          n = __fadd_rn(n, ee);
+        } else {
+          const float sc = __shfl_sync(gmask, scale[j], l, kLanes);
+          p = __fadd_rn(__fmul_rn(p, sc), pe);
+          n = __fadd_rn(__fmul_rn(n, sc), ee);
+        }
       }
     }
   }
@@ -664,7 +499,7 @@ __device__ __forceinline__ void dealt_rows(int rows, int rows_pb, Flag flag,
 
 // Forward, 2: the rows of the mask (lane 6 of the label pass), rows_pb
 // dealt to a block.
-template <int CPL, int S>
+template <int CPL, int S, bool V1>
 __global__ void __launch_bounds__(kThreads, CPL == 1 ? 2 : 1)
     cbl_tile2_masked_kernel(V2 a, float* __restrict__ stats, float temperature,
                             int rows_pb) {
@@ -673,7 +508,7 @@ __global__ void __launch_bounds__(kThreads, CPL == 1 ? 2 : 1)
   dealt_rows(
       a.rows, rows_pb,
       [&](int r) { return stats[(long long)r * 8 + 6] != 0.f; },
-      [&](int r) { fwd_masked_row<CPL, S>(a, r, lane, gmask, temperature, stats); });
+      [&](int r) { fwd_masked_row<CPL, S, V1>(a, r, lane, gmask, temperature, stats); });
 }
 
 // Pass 1 of the backward for a row r whose mask and g are not 0.
@@ -785,10 +620,10 @@ __global__ void __launch_bounds__(kThreads, CPL == 1 ? 2 : 1)
       });
 }
 
-template <int CPL, int S>
+template <int CPL, int S, bool V1>
 int v2_fwd_launch(const V2& a, float* stats, float temperature, int row_rows,
                   cudaStream_t s) {
-  cbl_tile2_masked_kernel<CPL, S><<<(a.rows + row_rows - 1) / row_rows, kThreads, 0, s>>>(
+  cbl_tile2_masked_kernel<CPL, S, V1><<<(a.rows + row_rows - 1) / row_rows, kThreads, 0, s>>>(
       a, stats, temperature, row_rows);
   return (int)cudaGetLastError();
 }
@@ -839,10 +674,12 @@ struct FwdLaunch {
   float* stats;
   float temperature;
   int row_rows;
+  bool v1;
   cudaStream_t s;
   template <int CPL, int S>
   int run() const {
-    return v2_fwd_launch<CPL, S>(a, stats, temperature, row_rows, s);
+    return v1 ? v2_fwd_launch<CPL, S, true>(a, stats, temperature, row_rows, s)
+              : v2_fwd_launch<CPL, S, false>(a, stats, temperature, row_rows, s);
   }
 };
 
@@ -873,6 +710,125 @@ bool v2_args_ok(int b, int m, int k, int c, int tile, int width, int label_rows,
          row_rows % kDealChunk == 0;
 }
 
+// The forward's two kernels on v2's operands: the label pass, then the rows
+// of the mask (V1: v1's combination of their slots).
+int fwd_kernels(const V2& a, int c, float* stats, float temperature, int label_rows,
+                int row_rows, bool v1, cudaStream_t s) {
+  cbl_tile2_labels_kernel<<<(a.rows + label_rows - 1) / label_rows, kThreads, 0, s>>>(
+      a, stats, label_rows);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return by_width(c, a.k, FwdLaunch{a, stats, temperature, row_rows, v1, s});
+}
+
+// ---- v1: fused rows split into v2's operands, the gradient joined back ------
+
+constexpr int kSplitRows = 32;   // fused rows a block of the split and the join
+constexpr int kSplitAhead = 8;   // label columns a round (split), floats a thread a round (join)
+
+// fused [rows, ncls + c] -> meta [rows, 8] (lane 0 the first maximum of the
+// label columns as a float, lane 1 1 where they sum above 0, the rest 0) and
+// f [rows, CP] (the features, zero channels from c to CP). kSplitRows rows a
+// block; every load is unconditional (an address inside the rows stands in
+// for one past their end), so that a thread's loads are in flight together:
+// each thread loads CP / 8 of the block's feature floats, then thread t <
+// kSplitRows walks row t's label columns kSplitAhead at a time, then the
+// features are stored.
+template <int CP>
+__global__ void __launch_bounds__(kThreads)
+    cbl_tile_split_kernel(const float* __restrict__ fused, float* __restrict__ f,
+                          float* __restrict__ meta, int rows, int ncls, int c) {
+  constexpr int kPer = CP * kSplitRows / kThreads;  // feature floats a thread
+  const int stride = ncls + c, t = threadIdx.x;
+  const long long r0 = (long long)blockIdx.x * kSplitRows;
+  const int n = (int)min((long long)kSplitRows, rows - r0);
+  float v[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int e = u * kThreads + t;
+    v[u] = fused[(r0 + min(e / CP, n - 1)) * stride + ncls + min(e % CP, c - 1)];
+  }
+  if (t < n) {
+    const float* lab = fused + (r0 + t) * stride;
+    float best = -INFINITY, sum = 0.f;
+    int arg = 0;
+    for (int j0 = 0; j0 < ncls; j0 += kSplitAhead) {
+      float l[kSplitAhead];
+#pragma unroll
+      for (int u = 0; u < kSplitAhead; ++u) l[u] = lab[min(j0 + u, ncls - 1)];
+#pragma unroll
+      for (int u = 0; u < kSplitAhead; ++u) {
+        if (j0 + u >= ncls) break;
+        if (l[u] > best) {  // the first maximum
+          best = l[u];
+          arg = j0 + u;
+        }
+        sum = __fadd_rn(sum, l[u]);
+      }
+    }
+    float4* out = reinterpret_cast<float4*>(meta + (r0 + t) * 8);
+    out[0] = make_float4((float)arg, sum > 0.f ? 1.f : 0.f, 0.f, 0.f);
+    out[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int e = u * kThreads + t;
+    if (e < n * CP) f[r0 * CP + e] = e % CP < c ? v[u] : 0.f;
+  }
+}
+
+// dfused [rows, ncls + c] from the gradient dx [rows, cp]: zeros in the label
+// columns, dx's first c channels in the feature columns, every element
+// written once. kSplitRows rows a block, their floats kSplitAhead a thread a
+// round, every load of a round unconditional (a label column reads its
+// row's first channel and writes 0; past the end, the last element again).
+__global__ void __launch_bounds__(kThreads)
+    cbl_tile_join_kernel(const float* __restrict__ dx, float* __restrict__ dfused,
+                         int rows, int ncls, int c, int cp) {
+  const int stride = ncls + c;
+  const long long r0 = (long long)blockIdx.x * kSplitRows;
+  const int total = (int)min((long long)kSplitRows, rows - r0) * stride;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kThreads * kSplitAhead) {
+    float v[kSplitAhead];
+#pragma unroll
+    for (int u = 0; u < kSplitAhead; ++u) {
+      const int e = min(e0 + u * kThreads, total - 1);
+      const int row = e / stride, col = e - row * stride;
+      const float x = dx[(r0 + row) * cp + max(col - ncls, 0)];
+      v[u] = col < ncls ? 0.f : x;
+    }
+#pragma unroll
+    for (int u = 0; u < kSplitAhead; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e < total) dfused[r0 * stride + e] = v[u];
+    }
+  }
+}
+
+// the kernels' row width for c feature columns (0: not taken)
+int padded(int c) { return c < 1 ? 0 : c <= 32 ? 32 : c <= 64 ? 64 : c <= 128 ? 128 : 0; }
+
+unsigned split_blocks(int rows) { return (unsigned)((rows + kSplitRows - 1) / kSplitRows); }
+
+int split(const float* fused, float* f, float* meta, int rows, int ncls, int c, int cp,
+          cudaStream_t s) {
+  const unsigned grid = split_blocks(rows);
+  switch (cp) {
+    case 32:
+      cbl_tile_split_kernel<32><<<grid, kThreads, 0, s>>>(fused, f, meta, rows, ncls, c);
+      break;
+    case 64:
+      cbl_tile_split_kernel<64><<<grid, kThreads, 0, s>>>(fused, f, meta, rows, ncls, c);
+      break;
+    case 128:
+      cbl_tile_split_kernel<128><<<grid, kThreads, 0, s>>>(fused, f, meta, rows, ncls, c);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // v2 forward: features padded to C = 32, 64 or 128 channels (zeros beyond
@@ -887,12 +843,8 @@ extern "C" int cbl_tile2_fwd(const float* f, const float* meta,
   if (!v2_args_ok(b, m, k, c, tile, width, label_rows, row_rows))
     return (int)cudaErrorInvalidValue;
   const V2 a{f, meta, li, m, k, tile, width, window, b * m};
-  cudaStream_t s = (cudaStream_t)stream;
-  cbl_tile2_labels_kernel<<<(a.rows + label_rows - 1) / label_rows, kThreads, 0, s>>>(
-      a, stats, label_rows);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return by_width(c, k, FwdLaunch{a, stats, temperature, row_rows, s});
+  return fwd_kernels(a, c, stats, temperature, label_rows, row_rows, false,
+                     (cudaStream_t)stream);
 }
 
 // v2 backward: stats the forward's; cd [B, M, K] f32 and lands [B, M, K]
@@ -914,22 +866,46 @@ extern "C" int cbl_tile2_bwd(const float* f, const float* meta,
                                   row_rows, scatter_rows, (cudaStream_t)stream});
 }
 
-// v1: C up to 128, ncls <= 32; starts [M / tile] the window start tiles
-extern "C" int cbl_tile_fwd(const float* fused, const int32_t* li,
-                            const int32_t* starts, float* stats, int b, int m,
-                            int k, int c, int ncls, int tile, int width,
-                            float temperature, void* stream) {
-  if (ncls < 1 || ncls > 32) return (int)cudaErrorInvalidValue;
-  return v1_fwd(Rows{fused, c, ncls, ncls + c}, li, starts, stats, b, m, k,
-                tile, width, temperature, (cudaStream_t)stream);
+// v1 forward: fused [B, M, ncls + c] f32 (any ncls >= 1, c <= 128 feature
+// columns); f [B, M, C'] and meta [B, M, 8] scratch for the split (C' = 32,
+// 64 or 128, the least that holds c); label_rows and row_rows as for v2
+// (ops/cuda/cbl_tile2.py::fwd_plan on c).
+extern "C" int cbl_tile_fwd(const float* fused, const int32_t* li, float* f,
+                            float* meta, float* stats, int b, int m, int k,
+                            int c, int ncls, int tile, int width, int window,
+                            float temperature, int label_rows, int row_rows,
+                            void* stream) {
+  const int cp = padded(c);
+  if (ncls < 1 || !v2_args_ok(b, m, k, cp, tile, width, label_rows, row_rows))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int e = split(fused, f, meta, b * m, ncls, c, cp, s);
+  if (e != 0) return e;
+  const V2 a{f, meta, li, m, k, tile, width, window, b * m};
+  return fwd_kernels(a, cp, stats, temperature, label_rows, row_rows, true, s);
 }
 
+// v1 backward: stats the v1 forward's; f, meta, cd, lands and dx [B, M, C']
+// scratch (v2's operands and its backward's gradient); dfused [B, M, ncls +
+// c] written whole (uninitialised on entry); row_rows and scatter_rows as
+// for v2 (ops/cuda/cbl_tile2.py::bwd_plan on c).
 extern "C" int cbl_tile_bwd(const float* fused, const int32_t* li,
-                            const int32_t* starts, const float* stats,
-                            const float* g_loss, float* dx, int b, int m,
-                            int k, int c, int ncls, int tile, int width,
-                            float temperature, void* stream) {
-  if (ncls < 1 || ncls > 32) return (int)cudaErrorInvalidValue;
-  return v1_bwd(Rows{fused, c, ncls, ncls + c}, li, starts, stats, g_loss, dx,
-                b, m, k, tile, width, temperature, (cudaStream_t)stream);
+                            const float* stats, const float* g_loss, float* f,
+                            float* meta, float* cd, int32_t* lands, float* dx,
+                            float* dfused, int b, int m, int k, int c, int ncls,
+                            int tile, int width, int window, float temperature,
+                            int row_rows, int scatter_rows, void* stream) {
+  const int cp = padded(c);
+  if (ncls < 1 || !v2_args_ok(b, m, k, cp, tile, width, 1, row_rows))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int e = split(fused, f, meta, b * m, ncls, c, cp, s);
+  if (e != 0) return e;
+  const V2 a{f, meta, li, m, k, tile, width, window, b * m};
+  const int rc = by_width(cp, k, BwdLaunch{a, stats, g_loss, cd, lands, dx, temperature,
+                                           row_rows, scatter_rows, s});
+  if (rc != 0) return rc;
+  cbl_tile_join_kernel<<<split_blocks(b * m), kThreads, 0, s>>>(dx, dfused, b * m, ncls, c,
+                                                                cp);
+  return (int)cudaGetLastError();
 }

@@ -63,12 +63,14 @@ SIGNATURES = {
     # width, window, temperature, rows a block of pass 1, scatter rows a block,
     # stream
     "cbl_tile2_bwd": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _P),
-    # fused, li, starts, stats, b, m, k, c, ncls, tile, width, temperature,
-    # stream
-    "cbl_tile_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _P),
-    # fused, li, starts, stats, g_loss, dx, b, m, k, c, ncls, tile, width,
-    # temperature, stream
-    "cbl_tile_bwd": (_P,) * 6 + (_I,) * 7 + (_F, _P),
+    # fused, li, features, meta (the split's scratch), stats, b, m, k, c,
+    # ncls, tile, width, window, temperature, rows a label block, rows a
+    # block over the rows of the mask, stream
+    "cbl_tile_fwd": (_P,) * 5 + (_I,) * 8 + (_F, _I, _I, _P),
+    # fused, li, stats, g_loss, features, meta, coef, lands, dx (scratch),
+    # dfused, b, m, k, c, ncls, tile, width, window, temperature, rows a
+    # block of pass 1, scatter rows a block, stream
+    "cbl_tile_bwd": (_P,) * 10 + (_I,) * 8 + (_F, _I, _I, _P),
     # x, idx, out, n, m, row bytes, stream
     "cbl_gather_rows": (_P, _P, _P, _I, _I, _I, _P),
 }

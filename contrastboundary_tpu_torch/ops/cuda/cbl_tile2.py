@@ -25,11 +25,10 @@ halving tree (the kernel's shuffle butterfly); the running max and the
 rescaled sums of _chunk_update; the backward's neighbour terms added onto
 their rows by one index_add_ in ascending slot order (q, then k), the
 order of CPU index_add_ and of the kernel's scatter. ops/cuda/cbl_tile.py
-(v1) shares them.
+(v1) shares them, the plans and the kernels.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -280,15 +279,6 @@ def cbl_tile2_bwd_plain(features, meta, li, stats, g_loss, temperature: float,
                       temperature, tile, width, window)
 
 
-@functools.lru_cache(maxsize=None)
-def window_starts_on(m: int, tile: int, width: int, window: int,
-                     device: torch.device) -> torch.Tensor:
-    """The self geometry's window start tiles on ``device``, copied there
-    once per (M, tile, width, window, device); the kernels only read them."""
-    return torch.as_tensor(self_window_starts(m, tile, width, window), dtype=torch.int32,
-                           device=device)
-
-
 def _check_card(x, li, tile: int, width: int, others):
     if not (x.is_cuda and li.device == x.device and all(t.device == x.device for t in others)):
         raise ValueError(f"CBL tile kernel: tensors on {x.device}, {li.device}, "
@@ -297,15 +287,6 @@ def _check_card(x, li, tile: int, width: int, others):
     for t in others:
         if t.dtype != torch.float32:
             raise TypeError(f"the CBL tile kernels take float32, got {t.dtype}")
-
-
-def cuda_args(x, li, tile: int, width: int, window: int, *others):
-    """v1's contiguous kernel operands on x's card (li as int32, the window
-    starts appended); raises on other devices and widths."""
-    _check_card(x, li, tile, width, others)
-    starts = window_starts_on(x.shape[1], tile, width, window, x.device)
-    return (x.contiguous(), li.to(torch.int32).contiguous(), starts,
-            *(t.contiguous() for t in others))
 
 
 def _aligned(t):

@@ -1,6 +1,6 @@
 """Same-call A/B of the port's cbl_stats_fwd, cbl_stats_bwd, pt_attn_fwd,
-pt_attn_bwd, cbl_tile2_fwd and cbl_tile2_bwd CUDA kernels against another
-checkout's, on one card.
+pt_attn_bwd, cbl_tile2_fwd, cbl_tile2_bwd, cbl_tile_fwd and cbl_tile_bwd
+CUDA kernels against another checkout's, on one card.
 
     python3 scripts/ab_torch_kernels.py --parent DIR [--reps 10] [--ptxas]
         [--only PART ...]
@@ -14,14 +14,15 @@ own sources. The script records the cbl_stats_fwd and cbl_stats_bwd calls of
 one batch-BN flagship train step (dense CBL route), the pt_attn_fwd and
 pt_attn_bwd calls of one stale-BN train step, the cbl_tile2_fwd and
 cbl_tile2_bwd calls of one batch-BN step on the v2 route (CBL_DENSE=off,
-ContrastConfig(impl='pallas')), B=2 x N=65536 from the checkpoint, and the
-pt_attn_fwd calls of one stale-BN served request (chip_smoke.py's setup),
-then for each call runs the other checkout's kernel ("old") and this tree's
+ContrastConfig(impl='pallas')) and that step's five CBL stage inputs (v1
+runs on [soft labels | latents] with a seeded cotangent, as a step on v1
+would), B=2 x N=65536 from the checkpoint, and the pt_attn_fwd calls of one
+stale-BN served request (chip_smoke.py's setup), then for each call runs the other checkout's kernel ("old") and this tree's
 ("new") through their bare C entries on the same operands, each with its
 checkout's own entry signature and launch geometry, in the order old, new,
 new, old, each the mean of --reps runs after an L2 flush. --only runs some
-of the parts (stats_fwd, stats_bwd, attn, tile2; all by default). It checks
-on every call:
+of the parts (stats_fwd, stats_bwd, attn, tile2, tile1; all by default). It
+checks on every call:
 - cbl_stats_fwd: the new stats equal bit for bit to the old kernel's (all
   eight lanes; only reported with --old-may-differ), to a second run of
   the new kernel and to the new kernel's L2 path (the window read through
@@ -44,9 +45,19 @@ on every call:
   1e-5 of its scale of the old kernel's (whose atomics reorder the sums);
   chip_smoke.py's checks against the plain version. The old kernel adds
   onto a gradient its wrapper zeroes first: that fill is timed beside it.
+- cbl_tile_fwd (v1): the new stats equal bit for bit to the old kernel's in
+  lanes 0-2 and 5 on the rows of the loss mask, and in lanes 3, 4 and 6
+  (the counts and the mask) on every row; chip_smoke.py's checks against
+  the plain version;
+- cbl_tile_bwd (v1, both on the new forward's statistics): the new
+  gradient the same bits on a second run and within 1e-5 of its scale of
+  the old kernel's (whose atomics reorder the sums); chip_smoke.py's checks
+  (the plain version, zero label columns, the feature columns v2's backward
+  bit for bit). The old gradient's zero fill is timed beside it.
 It prints one line a call, the sums a step or request (the attention per
-width too), the level-0 attention and v2 calls 20 times each through the
-old and the new wrapper (ops/cuda/pt_attn.py, ops/cuda/cbl_tile2.py) and,
+width too), the level-0 attention, v2 and v1 calls 20 times each through the
+old and the new wrapper (ops/cuda/pt_attn.py, ops/cuda/cbl_tile2.py,
+ops/cuda/cbl_tile.py; v1 through both bare entries too) and,
 for the attention forward, the autograd entry (ops/pt_attn.py::pt_attn,
 which also makes the window starts), and the card's name and power limit;
 any failed check raises. --ptxas first prints nvcc's register and spill
@@ -61,7 +72,9 @@ import shutil
 import subprocess
 import sys
 from collections import defaultdict
+from contextlib import ExitStack
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -76,6 +89,7 @@ from contrastboundary_tpu_torch.eval.voting import VotingEvaluator  # noqa: E402
 from contrastboundary_tpu_torch.kernels import build  # noqa: E402
 from contrastboundary_tpu_torch.losses import ContrastConfig  # noqa: E402
 from contrastboundary_tpu_torch.ops.cuda import cbl_dense as cd  # noqa: E402
+from contrastboundary_tpu_torch.ops.cuda import cbl_tile as c1  # noqa: E402
 from contrastboundary_tpu_torch.ops.cuda import cbl_tile2 as c2  # noqa: E402
 from contrastboundary_tpu_torch.ops import PyramidSpec  # noqa: E402
 from contrastboundary_tpu_torch.ops import pt_attn as attn  # noqa: E402
@@ -83,7 +97,7 @@ from contrastboundary_tpu_torch.ops.cuda import pt_attn as pa  # noqa: E402
 from contrastboundary_tpu_torch.train import TrainStepConfig, make_optimizer, make_train_step  # noqa: E402
 
 OLD_PKG = "cbt_parent"
-PARTS = ("stats_fwd", "stats_bwd", "attn", "tile2")
+PARTS = ("stats_fwd", "stats_bwd", "attn", "tile2", "tile1")
 
 
 def load_old(parent: Path):
@@ -96,7 +110,7 @@ def load_old(parent: Path):
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     sys.path.insert(0, str(dest))
     names = ("kernels.build", "ops.cuda.cbl_dense", "ops.cuda.pt_attn", "ops.pt_attn",
-             "ops.cuda.cbl_tile2")
+             "ops.cuda.cbl_tile2", "ops.cuda.cbl_tile")
     return tuple(importlib.import_module(f"{OLD_PKG}.{name}") for name in names)
 
 
@@ -129,9 +143,10 @@ def record_request(dev) -> dict:
     return calls
 
 
-def record(dev, bn_mode: str, route: str = "dense") -> dict:
+def record(dev, bn_mode: str, route: str = "dense", stage_inputs=None) -> dict:
     """The kernel calls of one flagship train step (on a CBL route of
-    chip_smoke.CBL_ROUTES)."""
+    chip_smoke.CBL_ROUTES); on the v2 route, its CBL stage inputs appended
+    to ``stage_inputs`` where given."""
     model, _ = cs.load_model(bn_mode)
     opt = make_optimizer(model.parameters(), cs.TRAIN_LR)
     cfg = TrainStepConfig(num_classes=cs.NUM_CLASSES, spec=cs.TRAIN_SPEC,
@@ -139,9 +154,17 @@ def record(dev, bn_mode: str, route: str = "dense") -> dict:
     step = make_train_step(model, cfg, opt, device=dev)
     rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
     batch = train_batch(rooms, cs.B, cs.N, np.random.default_rng(0))
+    v2_fn = cs.cbl_losses.cbl_tile_softnn2
+
+    def rec_v2(*args, **kw):
+        stage_inputs.append(cs.frozen(args))
+        return v2_fn(*args, **kw)
+
     with cs.cbl_route_env(route):
         step(batch)  # warm-up
-        with cs.recording() as calls:
+        with cs.recording() as calls, ExitStack() as stack:
+            if stage_inputs is not None:
+                stack.enter_context(mock.patch.object(cs.cbl_losses, "cbl_tile_softnn2", rec_v2))
             step(batch)
             torch.cuda.synchronize()
     return calls
@@ -452,6 +475,127 @@ def _ab_tile2(calls, old_lib, old_c2, flush, reps):
               f"{[round(x[10], 4) for x in (t[1], t[2])]} ms", flush=True)
 
 
+def tile1_entries(args, g, old_lib, old_c2):
+    """(old fwd, new fwd, old bwd, new bwd, outputs, operands) of a v1 call
+    on fused rows: the old kernels through their entries (window starts from
+    the old module's table; the old backward adds onto a gradient its
+    wrapper zeroes, not zeroed between timed runs), the new ones through
+    theirs with the split's and the backward's scratch. Both backward
+    entries read ``out['stats']``, which the caller sets."""
+    fused, li, ncls, temperature, tile, width, window = args
+    b, m, columns = fused.shape
+    k, c = li.shape[-1], columns - ncls
+    dev, temp = fused.device, float(temperature)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lii = li.to(torch.int32).contiguous()
+    starts = old_c2.window_starts_on(m, tile, width, window, dev)
+    plan = c1.launch_plan(b, m, k, columns, ncls, tile)
+    ch = plan.pass1.channels
+    empty = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)
+    out = dict(stats=empty(b, m, 8), st_old=empty(b, m, 8), st_new=empty(b, m, 8),
+               dx_old=torch.zeros_like(fused), dx_new=torch.empty_like(fused))
+    split = (empty(b, m, ch), empty(b, m, 8))
+    scratch = split + (empty(b, m, k), empty(b, m, k, dtype=torch.int32), empty(b, m, ch))
+    g = g.contiguous()
+    p = lambda t: t.data_ptr()
+    old_fwd = lambda: old_lib.cbl_tile_fwd(p(fused), p(lii), p(starts), p(out["st_old"]), b, m,
+                                           k, c, ncls, tile, width, temp, stream)
+    new_fwd = lambda: build.library().cbl_tile_fwd(
+        p(fused), p(lii), *map(p, split), p(out["st_new"]), b, m, k, c, ncls, tile, width,
+        window, temp, plan.pass1.label_rows, plan.pass1.row_rows, stream)
+    old_bwd = lambda: old_lib.cbl_tile_bwd(p(fused), p(lii), p(starts), p(out["stats"]), p(g),
+                                           p(out["dx_old"]), b, m, k, c, ncls, tile, width, temp,
+                                           stream)
+    new_bwd = lambda: build.library().cbl_tile_bwd(
+        p(fused), p(lii), p(out["stats"]), p(g), *map(p, scratch), p(out["dx_new"]), b, m, k, c,
+        ncls, tile, width, window, temp, plan.pass1.row_rows, plan.scatter_rows, stream)
+    return old_fwd, new_fwd, old_bwd, new_bwd, out, (lii, starts, split, scratch, g)
+
+
+def ab_tile1(dev, old_lib, old_c1, old_c2, flush, reps):
+    """v1 on the five CBL stage inputs of one impl='pallas' step ([soft
+    labels | latents], a seeded cotangent): the checks of the module
+    docstring, the times per stage and summed, and the level-0 calls through
+    both checkouts' wrappers and bare entries."""
+    inputs = []
+    record(dev, "batch", "pallas", inputs)
+    with torch.no_grad():
+        _ab_tile1(inputs, old_lib, old_c1, old_c2, flush, reps)
+
+
+def _ab_tile1(inputs, old_lib, old_c1, old_c2, flush, reps):
+    bits = lambda t: t.contiguous().view(torch.int32)
+    g = torch.as_tensor(np.random.default_rng(4).standard_normal(cs.B), dtype=torch.float32,
+                        device=inputs[0][0].device)
+    tot = defaultdict(float)
+    level0 = None
+    for features, label_soft, li, temperature, tile, width, window in inputs:
+        ncls = label_soft.shape[-1]
+        fused = torch.cat([label_soft.float(), features.float()], -1).contiguous()
+        args = (fused, li, ncls, temperature, tile, width, window)
+        old_fwd, new_fwd, old_bwd, new_bwd, out, keep = tile1_entries(args, g, old_lib, old_c2)
+        run_once(old_fwd, "old cbl_tile_fwd")
+        run_once(new_fwd, "new cbl_tile_fwd")
+        new, old = out["st_new"], out["st_old"]
+        mask = new[..., 6] > 0
+        cs.compare_tile_stats("cbl_tile_fwd", (args, {}, new))
+        cs.require(torch.equal(bits(new[mask][:, [0, 1, 2, 5]]), bits(old[mask][:, [0, 1, 2, 5]])),
+                   f"cbl_tile_fwd {tuple(fused.shape)}: masked rows not the old kernel's bits")
+        cs.require(torch.equal(bits(new[..., [3, 4, 6]]), bits(old[..., [3, 4, 6]])),
+                   f"cbl_tile_fwd {tuple(fused.shape)}: counts or mask differ from the old kernel's")
+        out["stats"].copy_(new)
+        run_once(old_bwd, "old cbl_tile_bwd")
+        run_once(new_bwd, "new cbl_tile_bwd")
+        first = out["dx_new"].clone()
+        run_once(new_bwd, "new cbl_tile_bwd")
+        cs.require(torch.equal(bits(first), bits(out["dx_new"])),
+                   f"cbl_tile_bwd {tuple(fused.shape)}: runs differ")
+        err = cs.compare_scaled(f"cbl_tile_bwd {tuple(fused.shape)} vs the old kernel",
+                                out["dx_new"], out["dx_old"], 1e-5)
+        bwd_args = (fused, li, out["stats"], g, ncls, temperature, tile, width, window)
+        cs.compare_tile_grad("cbl_tile_bwd", (bwd_args, {}, out["dx_new"]))
+        t_fwd = ab_time(old_fwd, new_fwd, flush, reps)
+        t_bwd = ab_time(old_bwd, new_bwd, flush, reps)
+        fill = cs.time_ms(lambda: out["dx_old"].zero_(), flush, reps)
+        for key, v in (("fwd_old", t_fwd[0]), ("fwd_new", t_fwd[1]), ("bwd_old", t_bwd[0]),
+                       ("bwd_new", t_bwd[1]), ("fill", fill)):
+            tot[key] += v
+        print(f"cbl_tile {tuple(fused.shape)} K={li.shape[-1]}, {int(mask.sum())} masked rows: "
+              f"fwd old {t_fwd[0]:.4f} ms, new {t_fwd[1]:.4f} ms ({t_fwd[0] / t_fwd[1]:.2f}x; runs "
+              f"{[round(x, 4) for x in t_fwd[2]]}), masked rows the old kernel's bits in lanes "
+              f"0-2 and 5, counts and mask on every row; bwd old {t_bwd[0]:.4f} ms + zero fill "
+              f"{fill:.4f} ms, new {t_bwd[1]:.4f} ms ({(t_bwd[0] + fill) / t_bwd[1]:.2f}x with the "
+              f"fill; runs {[round(x, 4) for x in t_bwd[2]]}), the same bits twice, max|d| "
+              f"{err:.3g} from the old kernel", flush=True)
+        if level0 is None:
+            level0 = (args, bwd_args, old_fwd, new_fwd, old_bwd, new_bwd, out, keep)
+        else:
+            del out, keep
+    print(f"cbl_tile, {len(inputs)} stage inputs a step: fwd old {tot['fwd_old']:.4f} ms, new "
+          f"{tot['fwd_new']:.4f} ms ({tot['fwd_old'] / tot['fwd_new']:.2f}x); bwd old "
+          f"{tot['bwd_old']:.4f} ms + zero fills {tot['fill']:.4f} ms, new {tot['bwd_new']:.4f} ms "
+          f"({tot['bwd_old'] / tot['bwd_new']:.2f}x bare, {(tot['bwd_old'] + tot['fill']) / tot['bwd_new']:.2f}x"
+          f" with the fills)", flush=True)
+    args, bwd_args, old_fwd, new_fwd, old_bwd, new_bwd, _, _ = level0
+    spread = lambda fn: sorted(cs.time_ms(fn, flush, reps=1) for _ in range(20))
+    check = lambda fn: (lambda: build.check(fn(), "entry"))
+    cases = (("cbl_tile_fwd wrapper", lambda mod: (lambda: mod.cbl_tile_fwd(*args))),
+             ("cbl_tile_bwd wrapper", lambda mod: (lambda: mod.cbl_tile_bwd(*bwd_args))))
+    for what, make in cases:
+        t = [spread(make(mod)) for mod in (old_c1, c1, c1, old_c1)]
+        print(f"{what} {tuple(args[0].shape)}, 20 runs each: old min/median "
+              f"{[round(x[0], 4) for x in (t[0], t[3])]} / {[round(x[10], 4) for x in (t[0], t[3])]}"
+              f" ms, new {[round(x[0], 4) for x in (t[1], t[2])]} / "
+              f"{[round(x[10], 4) for x in (t[1], t[2])]} ms", flush=True)
+    for what, old, new in (("cbl_tile_fwd bare entry", old_fwd, new_fwd),
+                           ("cbl_tile_bwd bare entry", old_bwd, new_bwd)):
+        t = [spread(check(fn)) for fn in (old, new, new, old)]
+        print(f"{what} {tuple(args[0].shape)}, 20 runs each: old min/median "
+              f"{[round(x[0], 4) for x in (t[0], t[3])]} / {[round(x[10], 4) for x in (t[0], t[3])]}"
+              f" ms, new {[round(x[0], 4) for x in (t[1], t[2])]} / "
+              f"{[round(x[10], 4) for x in (t[1], t[2])]} ms", flush=True)
+
+
 def ab_time(old, new, flush, reps):
     """old, new, new, old: each the mean of reps launches after an L2 flush."""
     check = lambda fn: (lambda: build.check(fn(), "entry"))
@@ -520,13 +664,16 @@ def main() -> int:
     print(f"card: {cs.card_line()}", flush=True)
     if args.ptxas:
         ptxas_report()
-    old_build, old_cd, old_pa, old_attn, old_c2 = load_old(args.parent.resolve())
+    old_build, old_cd, old_pa, old_attn, old_c2, old_c1 = load_old(args.parent.resolve())
     old_lib = old_build.library()
     build.library()
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
 
     if "tile2" in args.only:
         ab_tile2(dev, old_lib, old_c2, flush, args.reps)
+        torch.cuda.empty_cache()
+    if "tile1" in args.only:
+        ab_tile1(dev, old_lib, old_c1, old_c2, flush, args.reps)
         torch.cuda.empty_cache()
     if "stats_bwd" in args.only:
         ab_stats_bwd(dev, old_lib, old_cd, flush, args.reps)

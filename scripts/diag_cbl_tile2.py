@@ -1,6 +1,6 @@
-"""Where the v2 CBL kernels' time goes, on the calls of one impl='pallas'
-flagship train step (chip_smoke.py's setup, B=2 x N=65536 from the trained
-checkpoint), on one card.
+"""Where the v2 CBL kernels' time goes (and v1's, which runs them), on the
+calls of one impl='pallas' flagship train step (chip_smoke.py's setup, B=2
+x N=65536 from the trained checkpoint), on one card.
 
     python3 scripts/diag_cbl_tile2.py profile [--reps 10]
     python3 scripts/diag_cbl_tile2.py clocks
@@ -8,7 +8,10 @@ checkpoint), on one card.
 from the repository root, on a machine with a CUDA card and nvcc.
 - profile: each level's forward and backward (bare C entries, as
   scripts/ab_torch_kernels.py drives them) under torch.profiler, the device
-  time of each kernel of the two entries; then each level's backward timed
+  time of each kernel of the two entries, and of v1's two entries on that
+  level's stage input ([soft labels | latents], the v2 backward's
+  cotangent): its split and join beside v2's kernels; then each level's
+  backward timed
   (L2 flushed, mean of --reps) with the scatter's rows a block swept over 16
   to 256 and the rows dealt to a block of pass 1 over 32 to 1024, beside the
   plan's (ops/cuda/cbl_tile2.py::bwd_plan), and the forward's rows dealt to
@@ -44,6 +47,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 import ab_torch_kernels as ab  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from contrastboundary_tpu_torch.kernels import build  # noqa: E402
+from contrastboundary_tpu_torch.ops.cuda import cbl_tile as c1  # noqa: E402
 from contrastboundary_tpu_torch.ops.cuda import cbl_tile2 as c2  # noqa: E402
 
 # (file, text, replacement) of the phase marks; g_clk[row] holds a forward
@@ -138,34 +142,61 @@ def entries(lib, fwd_call, bwd_call):
 
 
 def levels(dev):
-    """(forward call, backward call) of each level of one impl='pallas' step."""
-    calls = ab.record(dev, "batch", "pallas")
-    fwd = sorted(calls["cbl_tile2_fwd"], key=lambda call: -call[0][0].shape[1])
-    bwd = sorted(calls["cbl_tile2_bwd"], key=lambda call: -call[0][0].shape[1])
-    return list(zip(fwd, bwd))
+    """(forward call, backward call, stage input) of each level of one
+    impl='pallas' step."""
+    inputs = []
+    calls = ab.record(dev, "batch", "pallas", inputs)
+    by_rows = lambda call: -call[0][0].shape[1]
+    fwd = sorted(calls["cbl_tile2_fwd"], key=by_rows)
+    bwd = sorted(calls["cbl_tile2_bwd"], key=by_rows)
+    return list(zip(fwd, bwd, sorted(inputs, key=lambda args: -args[0].shape[1])))
+
+
+def device_times(fns, flush, reps) -> str:
+    """Device time a launch of each kernel the entries ``fns`` launch, run
+    reps times in turn after an L2 flush, under torch.profiler."""
+    for fn in fns:
+        build.check(fn(), "entry")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        name = re.search(r"(\w+_kernel)", e.key)
+        if name and "elementwise" not in e.key:
+            us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+            kernels.append(f"{name.group(1)} {us / e.count:.1f} us")
+    return ", ".join(kernels)
+
+
+def v1_entries(stage, g):
+    """v1's bare forward and backward entries (chip_smoke.bare_entry) on a
+    level's stage input, the backward on the forward's statistics."""
+    features, label_soft, li, temperature, tile, width, window = stage
+    ncls = label_soft.shape[-1]
+    fused = torch.cat([label_soft.float(), features.float()], -1).contiguous()
+    args = (fused, li, ncls, temperature, tile, width, window)
+    stats = c1.cbl_tile_fwd(*args)
+    fwd = cs.bare_entry("cbl_tile_fwd", args, {})
+    bwd = cs.bare_entry("cbl_tile_bwd", (fused, li, stats, g) + args[2:], {})
+    return (lambda: fwd() or 0), (lambda: bwd() or 0)  # they check their own return codes
 
 
 def profile(dev, calls, reps):
     lib = build.library()
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     timed = lambda fn: cs.time_ms(lambda: build.check(fn(), "entry"), flush, reps)
-    for fwd_call, bwd_call in calls:
+    for fwd_call, bwd_call, stage in calls:
         fwd, bwd, plan, keep = entries(lib, fwd_call, bwd_call)
         m = fwd_call[0][0].shape[1]
-        fwd(), bwd()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush.zero_()
-                fwd(), bwd()
-            torch.cuda.synchronize()
-        kernels = []
-        for e in prof.key_averages():
-            name = re.search(r"(\w+_kernel)", e.key)
-            if name and "elementwise" not in e.key:
-                us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-                kernels.append(f"{name.group(1)} {us / e.count:.1f} us")
-        print(f"M={m}: device time a launch: " + ", ".join(kernels), flush=True)
+        print(f"M={m}: device time a launch: {device_times((fwd, bwd), flush, reps)}", flush=True)
+        v1 = v1_entries(stage, bwd_call[0][4])
+        print(f"M={m}: v1 device time a launch: {device_times(v1, flush, reps)}", flush=True)
+        del v1
         tile = fwd_call[0][4]
         sweep = {r: round(timed(lambda: bwd(scatter_rows=r)), 4)
                  for r in (16, 32, 64, 128, 256) if r <= tile}
@@ -201,7 +232,7 @@ def clocks(dev, calls):
         lib.read_clk.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
         stat = lambda a: f"mean {a.mean():.0f} median {np.median(a):.0f} max {a.max()}"
-        for fwd_call, bwd_call in calls:
+        for fwd_call, bwd_call, _ in calls:
             fwd, bwd, plan, keep = entries(lib, fwd_call, bwd_call)
             b, m = fwd_call[0][0].shape[:2]
             assert lib.zero_clk() == 0
