@@ -134,6 +134,41 @@ is not 0:
            row in the loss mask) held as in phase 14; and v1 at V1_SHAPES
            (C in {1, 32, 33, 128}, ncls in {1, 13, 40} with ties among the
            label columns, K in {1, 35}) held as in phase 14.
+16. bf16-serve the checkpoint in PointTransformerSeg(dtype=bfloat16), batch
+           BN, on phase serve's crops: one request with the counts reset
+           (window_gather launched on bfloat16 rows), the running statistics
+           untouched, probs against the plain versions' within half of the
+           bf16-vs-f32 probs gap from the same weights (phase serve's probs;
+           printed as the scale beside it), argmax agreement >= 99.5%, crop
+           OA >= 0.5, the median of 3 warm requests and the peak memory
+           beside phase serve's, one voting request.
+17. bf16-train phase 8 with the bf16 model: the launches by dtype (window_gather
+           18 bfloat16 and 21 float32, window_gather_bwd 18 bfloat16 and 12
+           float32: the attention layers' kv rows are bfloat16, the other
+           gathers' inputs come out of a BN), kernel vs plain step (loss rel
+           <= 1e-3, gradient norm rel <= 1e-2, running statistics rel <=
+           1e-2) with the bf16-vs-f32 step gap from the same weights (phase
+           8's step) printed beside them, five steps that lower the loss, the
+           step median, peak memory and busy share beside phase 8's and
+           PERF.md's f32 numbers.
+18. bf16-stale phases 7 and 10 with the bf16 model under bn_mode='stale': a
+           request (pt_attn_fwd 18 bfloat16 launches, the same probs, OA and
+           timing checks as phase 16 against phase serve's probs, one voting
+           request) and the train step (pt_attn_fwd and pt_attn_bwd 18
+           bfloat16 launches each, the checks of phase 17 against phase 10's
+           step).
+19. bf16-kernels the four bfloat16 kernel instances on the recorded calls of
+           phases 17 (the gathers) and 18 (the attention) against their plain
+           versions: window_gather bit for bit; window_gather_bwd within one
+           bfloat16 ulp of the plain version's float32 sum, exact on integer
+           cotangents, the same bits when run again and the plain version's
+           CPU sum rounded once bit for bit; pt_attn_fwd and pt_attn_bwd out,
+           dq and dkv within one bfloat16 ulp plus 1e-4 of scale, the
+           statistics and the 12 gradients within 1e-4 of scale, the forward
+           the same bits twice; each timed as in phase 4, with the bound from
+           the bfloat16 bytes and the library calls x[b, rows] and a float32
+           index_add_ of g.float() then .to(bfloat16); and each call beside
+           its float32 twin (the operands widened) in turns, summed.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -142,8 +177,10 @@ are per serving request, with those of one train step under "train"; the
 training kernels' numbers are per train step; v1 and gather_rows, which
 no path runs, have the launches read from phase 13's step, which must be
 0 as in every train run, and their direct calls under "direct_launches"),
-and as its last line {"ok": true, "device": {...}}. Without CUDA it exits with 2
-before doing anything.
+and the bfloat16 instances as entries of their own, per train step (the
+gathers of phase 17's step, the attention of phase 18's), and as its last
+line {"ok": true, "device": {...}}. Without CUDA it exits with 2 before
+doing anything.
 """
 from __future__ import annotations
 
@@ -237,7 +274,32 @@ KERNELS = {
         source="contrastboundary_tpu_torch/csrc/gather_rows.cu",
         replaces="contrastboundary_tpu/ops/pallas/gather_dma.py:52",
     ),
+    # the bfloat16 instances: the same C entries on bfloat16 operands
+    "window_gather_bf16": dict(
+        source="contrastboundary_tpu_torch/csrc/tile_gather.cu",
+        replaces="contrastboundary_tpu/ops/pallas/tile_gather_pl.py:124",
+    ),
+    "window_gather_bwd_bf16": dict(
+        source="contrastboundary_tpu_torch/csrc/window_gather_bwd.cu",
+        replaces="contrastboundary_tpu/ops/pallas/tile_gather_pl.py:156",
+    ),
+    "pt_attn_fwd_bf16": dict(
+        source="contrastboundary_tpu_torch/csrc/pt_attn.cu",
+        replaces="contrastboundary_tpu/ops/pallas/pt_attn.py:406",
+    ),
+    "pt_attn_bwd_bf16": dict(
+        source="contrastboundary_tpu_torch/csrc/pt_attn.cu",
+        replaces="contrastboundary_tpu/ops/pallas/pt_attn.py:830",
+    ),
 }
+BF16 = torch.bfloat16
+# each bfloat16 instance's kernel (wrapper, plain version, C entry)
+BF16_KERNELS = {"window_gather_bf16": "window_gather",
+                "window_gather_bwd_bf16": "window_gather_bwd",
+                "pt_attn_fwd_bf16": "pt_attn_fwd", "pt_attn_bwd_bf16": "pt_attn_bwd"}
+# the float32 batch-BN step's numbers recorded in PERF.md section 5 (NVIDIA
+# H100 80GB HBM3, 700.00 W)
+F32_STEP_PERF = "8.25 GB, 241.063 ms"
 # each kernel's wrapper (module, attribute) and its plain version
 WRAPPERS = {
     "window_topk": (wt, "window_topk", wt.window_topk_plain),
@@ -277,6 +339,49 @@ ROUTE_RTOL = {"dense": 3e-5, "pallas": 1e-5}
 ATTENTION_LAYERS = 18
 TRAIN_SPEC = PyramidSpec(k_contrast=(36, 24, 24, 24, 24), with_subscene=True)
 TRAIN_LR = 0.05
+# gathers of a batch-BN bf16 step by dtype: the attention layers' kv rows are
+# bfloat16; TransitionDown's [p | x], TransitionUp's and the head's rows and
+# the training pyramid's and CBL's gathers come out of a BN or are float32
+BF16_STEP_GATHERS = {"window_gather": {"bfloat16": ATTENTION_LAYERS, "float32": 21},
+                     "window_gather_bwd": {"bfloat16": ATTENTION_LAYERS, "float32": 12}}
+
+
+def base(name: str) -> str:
+    """The kernel an entry of KERNELS runs (a bfloat16 instance's kernel)."""
+    return BF16_KERNELS.get(name, name)
+
+
+def split_bf16(calls: dict) -> dict:
+    """Recorded calls with each kernel's bfloat16 calls (of its first
+    operand: x, g or q) moved to its bfloat16 instance's entry."""
+    out = dict(calls)
+    for name, kernel in BF16_KERNELS.items():
+        out[name] = [c for c in calls[kernel] if c[0][0].dtype == BF16]
+        out[kernel] = [c for c in calls[kernel] if c[0][0].dtype != BF16]
+    return out
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at |x|: 2^(e − 8) for |x| = m·2^e, m in [0.5, 1)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), (e - 8).clamp_min(-133))
+
+
+def compare_bf16(name, got, ref, tol) -> float:
+    """bfloat16 ``got`` within one bfloat16 ulp of ``ref`` plus ``tol`` of
+    ref's scale (each side rounds its float32 value to bfloat16 once; the
+    two float32 values differ by sum order, so they may round one ulp
+    apart)."""
+    d = (got.float() - ref.float()).abs()
+    scale = float(ref.float().abs().max()) if ref.numel() else 0.0
+    ok = bool((d <= bf16_ulp(ref) + tol * scale).all())
+    require(ok, f"{name} {tuple(got.shape)}: max|d|={float(d.max()):.3g}, scale {scale:.3g}")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def bits(t):
+    """The bits of a float32 or bfloat16 tensor, on the CPU."""
+    return t.detach().cpu().view(torch.int32 if t.dtype == torch.float32 else torch.int16)
 
 
 def require(ok: bool, what: str):
@@ -312,13 +417,16 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def frozen(x):
+def frozen(x, device=None):
     """A copy of a call's tensor arguments (the attention layer passes views
-    of weights that the optimizer then updates in place)."""
+    of weights that the optimizer then updates in place), on ``device``
+    where given."""
     if isinstance(x, torch.Tensor):
-        return x.detach().clone()
+        return x.detach().clone() if device is None else x.detach().to(device)
     if isinstance(x, (tuple, list)):
-        return type(x)(frozen(v) for v in x)
+        return type(x)(frozen(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: frozen(v, device) for k, v in x.items()}
     return x
 
 
@@ -348,6 +456,9 @@ def plain_kernels():
 
 def reset_counts():
     wt.launches = tg.launches = tg.bwd_launches = 0
+    for counts in (tg.dtype_launches, tg.bwd_dtype_launches, pa.fwd_dtype_launches,
+                   pa.bwd_dtype_launches):
+        counts.update(dict.fromkeys(counts, 0))
     cd.fwd_launches = cd.bwd_launches = 0
     pa.fwd_launches = pa.bwd_launches = 0
     c2.fwd_launches = c2.bwd_launches = c1.fwd_launches = c1.bwd_launches = 0
@@ -362,6 +473,13 @@ def read_counts() -> dict:
             "pt_attn_bwd": pa.bwd_launches, "cbl_tile2_fwd": c2.fwd_launches,
             "cbl_tile2_bwd": c2.bwd_launches, "cbl_tile_fwd": c1.fwd_launches,
             "cbl_tile_bwd": c1.bwd_launches, "gather_rows": gd.launches}
+
+
+def read_dtype_counts() -> dict:
+    """The gather and attention launches by the dtype of their operands."""
+    return {"window_gather": dict(tg.dtype_launches),
+            "window_gather_bwd": dict(tg.bwd_dtype_launches),
+            "pt_attn_fwd": dict(pa.fwd_dtype_launches), "pt_attn_bwd": dict(pa.bwd_dtype_launches)}
 
 
 def grid_cloud(rng, b, n, side=64):
@@ -388,9 +506,11 @@ def compare_topk(call, exact: bool) -> float:
 
 
 def compare_gather(call) -> float:
+    """Bit for bit (float32 or bfloat16 rows)."""
     args, _, out = call
     ref = tg.window_gather_plain(*args)
-    require(torch.equal(out, ref), f"window_gather {tuple(out.shape)} differs")
+    require(out.dtype == ref.dtype and torch.equal(bits(out), bits(ref)),
+            f"window_gather {tuple(out.shape)} {out.dtype} differs")
     return 0.0
 
 
@@ -409,16 +529,20 @@ def compare_gather_bwd(call) -> float:
     exactly in any order). The kernel sums each row in slot order without
     atomics: the call run again gives the same bits, and so does the plain
     version on CPU copies (CPU index_add_ adds in index order)."""
-    (g, li, starts, tile, width, ns), _, out = call
-    what = f"window_gather_bwd {tuple(g.shape)}"
-    err = compare_scaled("window_gather_bwd", out, tg.window_gather_bwd_plain(*call[0]), 1e-5)
+    (g, li, starts, tile, width, ns), kw, out = call
+    what = f"window_gather_bwd {tuple(g.shape)} {g.dtype}"
+    if g.dtype == BF16:  # one rounding of the plain version's float32 sum
+        f32 = tg.window_gather_bwd_plain(g, li, starts, tile, width, ns, dtype=torch.float32)
+        err = compare_bf16("window_gather_bwd", out, f32, 0.0)
+    else:
+        err = compare_scaled("window_gather_bwd", out, tg.window_gather_bwd_plain(*call[0]), 1e-5)
     g_int = torch.randint_like(g, -3, 4)
-    require(torch.equal(tg.window_gather_bwd(g_int, li, starts, tile, width, ns),
-                        tg.window_gather_bwd_plain(g_int, li, starts, tile, width, ns)),
+    require(torch.equal(tg.window_gather_bwd(g_int, li, starts, tile, width, ns, **kw),
+                        tg.window_gather_bwd_plain(g_int, li, starts, tile, width, ns, **kw)),
             f"{what} not exact on integer cotangents")
-    bits = lambda t: t.cpu().view(torch.int32)
-    require(torch.equal(bits(tg.window_gather_bwd(*call[0])), bits(out)), f"{what} differs between runs")
-    cpu = tg.window_gather_bwd_plain(g.cpu(), li.cpu(), starts.cpu(), tile, width, ns)
+    require(torch.equal(bits(tg.window_gather_bwd(*call[0], **kw)), bits(out)),
+            f"{what} differs between runs")
+    cpu = tg.window_gather_bwd_plain(g.cpu(), li.cpu(), starts.cpu(), tile, width, ns, **kw)
     require(torch.equal(bits(cpu), bits(out)), f"{what} is not the plain version's CPU sum bit for bit")
     return err
 
@@ -469,8 +593,11 @@ def compare_pt_attn_fwd(call) -> float:
     err = 0.0
     for what, a, r, a2 in zip(("out", "s1", "s2"), got, ref, again):
         name = f"pt_attn_fwd {what} {tuple(a.shape)}"
-        err = max(err, compare_scaled(name, a, r, 1e-4))
-        require(torch.equal(a.view(torch.int32), a2.view(torch.int32)), f"{name} differs between runs")
+        if a.dtype == BF16:  # a bfloat16 out: one rounding of each side's float32 out
+            err = max(err, compare_bf16(name, a, r, 1e-4))
+        else:
+            err = max(err, compare_scaled(name, a, r, 1e-4))
+        require(torch.equal(bits(a), bits(a2)), f"{name} differs between runs")
     return err
 
 
@@ -488,6 +615,9 @@ def compare_pt_attn_bwd(call) -> float:
     got, ref = (dq, dkv, *grads), (r_dq, r_dkv, *r_grads)
     err = 0.0
     for name, a, b in zip(PT_GRADS, got, ref):
+        if a.dtype == BF16:  # dq and dkv of bfloat16 q and kv
+            err = max(err, compare_bf16(f"pt_attn_bwd {name}", a, b, 1e-4))
+            continue
         scale_of = ref[PT_GRADS.index("dW4")] if name == "db4" else b
         e = float((a - b).abs().max())
         require(e <= 1e-4 * float(scale_of.abs().max()),
@@ -570,6 +700,7 @@ def compare_tile_grad(name, call) -> float:
 
 
 def compare_call(name, call, exact_topk=False) -> float:
+    name = base(name)
     if name in ("cbl_tile2_fwd", "cbl_tile_fwd"):
         return compare_tile_stats(name, call)
     if name in ("cbl_tile2_bwd", "cbl_tile_bwd"):
@@ -692,8 +823,8 @@ def random_flax_tree(model, seed: int) -> dict:
     return tree
 
 
-def load_model(bn_mode="batch"):
-    model = PointTransformerSeg(num_classes=NUM_CLASSES, bn_mode=bn_mode)
+def load_model(bn_mode="batch", dtype=torch.float32):
+    model = PointTransformerSeg(num_classes=NUM_CLASSES, bn_mode=bn_mode, dtype=dtype)
     if CKPT.exists():
         return load_jax_variables(model, load_checkpoint(str(CKPT))), True
     print(f"checkpoint {CKPT} is absent: seeded random weights, no accuracy floor",
@@ -750,14 +881,18 @@ def gather_library_call(x, local_idx, starts, tile, width):
     return lambda: x[bidx, rows]
 
 
-def gather_bwd_library_call(g, local_idx, starts, tile, width, n_support):
+def gather_bwd_library_call(g, local_idx, starts, tile, width, n_support, dtype=None):
     """index_add_ of g's rows onto zeros with the global rows built outside
-    the timed call (shadow slots add onto row 0 instead of nothing)."""
+    the timed call (shadow slots add onto row 0 instead of nothing); for a
+    bfloat16 g, the float32 index_add_ of g.float(), then .to(bfloat16)."""
     b, m, k, c = g.shape
     row0 = torch.repeat_interleave(starts.long() * tile, tile)
     rows = (row0[None, :, None] + local_idx.long()).clamp_max(n_support - 1)
     rows = (rows + torch.arange(b, device=g.device)[:, None, None] * n_support).reshape(-1)
     src = g.reshape(-1, c)
+    if g.dtype == BF16:
+        return lambda: torch.zeros(b * n_support, c, device=g.device).index_add_(
+            0, rows, src.float()).to(BF16)
     return lambda: torch.zeros(b * n_support, c, device=g.device).index_add_(0, rows, src)
 
 
@@ -827,6 +962,7 @@ def call_costs(name, call):
     """(kernel fn, plain fn, library fn or None, bytes, operations, shape)
     of one recorded call."""
     args, kw, out = call
+    name = base(name)
     mod, attr, plain_fn = WRAPPERS[name]
     kern = lambda: getattr(mod, attr)(*args, **kw)
     plain = lambda: plain_fn(*args, **kw)
@@ -838,16 +974,18 @@ def call_costs(name, call):
         n_ops = 10.0 * b * m * w_sz  # 9 FLOPs of distance + 1 compare a pair
         shape = dict(k=k, B=b, M=m, Ns=support.shape[1], W=w_sz, mode=kw.get("mode", "plain"))
         return kern, plain, topk_library_call(query, support, k, **kw), n_bytes, n_ops, shape
+    size = lambda t: t.element_size() * t.numel()  # bytes, at the tensor's dtype
     if name == "window_gather":
         x, li, starts, tile, width = args
-        n_bytes = 4 * (x.numel() + li.numel() + starts.numel() + out.numel())
-        shape = dict(x=list(x.shape), idx=list(li.shape), W=tile * width)
+        n_bytes = size(x) + size(li) + size(starts) + size(out)
+        shape = dict(x=list(x.shape), idx=list(li.shape), W=tile * width, dtype=str(x.dtype))
         return kern, plain, gather_library_call(*args), n_bytes, 0.0, shape
     if name == "window_gather_bwd":
         g, li, starts, tile, width, ns = args
-        n_bytes = 4 * (g.numel() + li.numel() + starts.numel() + out.numel())
-        shape = dict(g=list(g.shape), Ns=ns, W=tile * width)
-        return kern, plain, gather_bwd_library_call(*args), n_bytes, float(g.numel()), shape
+        n_bytes = size(g) + size(li) + size(starts) + size(out)
+        shape = dict(g=list(g.shape), Ns=ns, W=tile * width, dtype=str(g.dtype))
+        return (kern, plain, gather_bwd_library_call(*args, **kw), n_bytes, float(g.numel()),
+                shape)
     if name in ("cbl_tile2_fwd", "cbl_tile2_bwd", "cbl_tile_fwd", "cbl_tile_bwd"):
         n_bytes, n_ops, shape = tile_costs(name, args, out)
         return kern, plain, None, n_bytes, n_ops, shape
@@ -861,22 +999,23 @@ def call_costs(name, call):
         return (kern, plain, lambda: torch.index_select(x, 0, idx_long), n_bytes, 0.0,
                 shape)
     if name in ("pt_attn_fwd", "pt_attn_bwd"):
-        # inputs read once, outputs written once; FP32 operations of the
-        # plain versions' slot-rows (attn_slot_ops)
+        # inputs read once, outputs written once, each at its dtype (q, kv,
+        # out, g_out, dq and dkv bfloat16 in a bf16 call); FP32 operations of
+        # the plain versions' slot-rows (attn_slot_ops)
         q, kv, rel, li, starts, tile, width, params = args[:8]
         b, m, c = q.shape
         k, cs = li.shape[-1], params[6].shape[-1]
         fwd_ops, bwd_ops = attn_slot_ops(c, cs)
-        numel = lambda ts: sum(t.numel() for t in ts)
-        n_bytes = 4 * (numel((q, kv, rel, li, starts)) + numel(params))
+        nbytes = lambda ts: sum(size(t) for t in ts)
+        n_bytes = nbytes((q, kv, rel, li, starts)) + nbytes(params)
         if name == "pt_attn_fwd":
-            n_bytes += 4 * numel(out)
+            n_bytes += nbytes(out)
             n_ops = b * m * k * fwd_ops
         else:
             dq, dkv, grads = out
-            n_bytes += 4 * (args[8].numel() + dq.numel() + dkv.numel() + numel(grads))
+            n_bytes += nbytes((args[8], dq, dkv)) + nbytes(grads)
             n_ops = b * m * k * bwd_ops
-        shape = dict(B=b, M=m, C=c, K=k, W=tile * width)
+        shape = dict(B=b, M=m, C=c, K=k, W=tile * width, dtype=str(q.dtype))
         return kern, plain, None, n_bytes, float(n_ops), shape
     # stats: inputs read once, outputs written once; per valid listed slot
     # about 4C + 12 FP32 operations forward and 8C + 16 backward
@@ -918,7 +1057,7 @@ def time_calls(calls, dev, launches, max_err, names, reps=10, records=None) -> l
             print(f"  {name} {shape}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
                   f"library {lib_txt}, bound {bnd:.5f} ms", flush=True)
             if records is not None:
-                records.append((name, shape, t_k, bnd))
+                records.append((base(name), shape, t_k, bnd))
             for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l or 0.0),
                            ("bound_ms", bnd), ("t_bytes", t_b), ("t_ops", t_o)):
                 tot[key] += v
@@ -979,17 +1118,24 @@ def buffers(model) -> dict:
     return {k: v.detach().clone() for k, v in model.named_buffers()}
 
 
-def run_train(dev, bn_mode="batch", route="dense") -> dict:
-    """Phases 8, 10, 12 and 13: the flagship train step at B x N from the
-    checkpoint, with flax batch BN or stale BN, on one of the CBL routes
-    (the caller selects it with cbl_route_env)."""
+def run_train(dev, bn_mode="batch", route="dense", dtype=torch.float32) -> dict:
+    """Phases 8, 10, 12, 13, 17 and 18: the flagship train step at B x N from
+    the checkpoint, with flax batch BN or stale BN, on one of the CBL routes
+    (the caller selects it with cbl_route_env), float32 or bfloat16. The
+    kernel-vs-plain step tolerances of a bfloat16 step (loss 1e-3, gradient
+    norm and running statistics 1e-2) allow for the values that the
+    kernels' and the plain versions' float32 sums, in their different
+    orders, leave at a bfloat16 rounding boundary: those round one ulp
+    (2^-8) apart and move the step further than float32 order does."""
     _, impl, cbl_kernels = CBL_ROUTES[route]
     require(cbl_losses.dense_route() == (route == "dense"), f"CBL_DENSE does not select {route}")
     kernels = PATH_KERNELS + cbl_kernels
     if bn_mode == "stale":
         kernels += ("pt_attn_fwd", "pt_attn_bwd")
-    what = f"{bn_mode} BN" + ("" if route == "dense" else f", CBL route {route}")
-    model, trained = load_model(bn_mode)
+    bf16 = dtype == BF16
+    what = f"{bn_mode} BN" + ("" if route == "dense" else f", CBL route {route}") + (
+        ", bfloat16" if bf16 else "")
+    model, trained = load_model(bn_mode, dtype)
     opt = make_optimizer(model.parameters(), TRAIN_LR)
     cfg = TrainStepConfig(num_classes=NUM_CLASSES, spec=TRAIN_SPEC,
                           contrast=ContrastConfig(impl=impl))
@@ -1044,10 +1190,10 @@ def run_train(dev, bn_mode="batch", route="dense") -> dict:
             mock.patch.object(cbl_losses, "cbl_tile_softnn2", rec_v2):
         m = step(batch)
         torch.cuda.synchronize()
-    counts, wide = read_counts(), knn.wide_calls
+    counts, wide, by_dtype = read_counts(), knn.wide_calls, read_dtype_counts()
     launches = {k: counts[k] for k in kernels}
     print(f"launches in one train step ({what}): {launches}; wide-window searches "
-          f"(plain PyTorch): {wide}", flush=True)
+          f"(plain PyTorch): {wide}; by dtype {by_dtype}", flush=True)
     require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
     require(all(launches[k] == STAGES for k in cbl_kernels),
             f"not one launch of each CBL kernel a stage: {launches}")
@@ -1072,11 +1218,13 @@ def run_train(dev, bn_mode="batch", route="dense") -> dict:
           f"(rel {abs(loss_k - loss_p) / abs(loss_p):.3g}), gradient norm {gn_k:.7f} vs "
           f"{gn_p:.7f} (rel {abs(gn_k - gn_p) / gn_p:.3g}), running statistics rel "
           f"{stats_rel:.3g}", flush=True)
-    require(abs(loss_k - loss_p) <= 1e-4 * abs(loss_p), "train losses disagree")
-    require(abs(gn_k - gn_p) <= 1e-3 * gn_p, "gradient norms disagree")
-    require(stats_rel <= 1e-4, "running statistics disagree")
+    tol_loss, tol_gn, tol_stats = (1e-3, 1e-2, 1e-2) if bf16 else (1e-4, 1e-3, 1e-4)
+    require(abs(loss_k - loss_p) <= tol_loss * abs(loss_p), "train losses disagree")
+    require(abs(gn_k - gn_p) <= tol_gn * gn_p, "gradient norms disagree")
+    require(stats_rel <= tol_stats, "running statistics disagree")
     return dict(calls=calls, launches=launches, model=model, step=step, peak=peak, med=med,
-                metrics=metrics, stage_inputs=stage_inputs, no_path=no_path)
+                metrics=metrics, stage_inputs=stage_inputs, no_path=no_path, loss=loss_k,
+                grad_norm=gn_k, busy_ms=busy_ms, by_dtype=by_dtype)
 
 
 def check_train_kernels(dev, train) -> list:
@@ -1367,17 +1515,19 @@ def bare_entry(name, args, kw):
         x, li, starts, tile, width = args
         b, ns, c = x.shape
         m, k = li.shape[1:]
-        out = torch.empty((b, m, k, c), dtype=torch.float32, device=x.device)
-        plan = tg.gather_plan(b * m * k, c, x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+        out = torch.empty((b, m, k, c), dtype=x.dtype, device=x.device)
+        eb = x.element_size()
+        plan = tg.gather_plan(b * m * k, c, x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0,
+                              eb)
         ops = (x, li.to(torch.int32).contiguous(), starts.to(torch.int32).contiguous(), out)
         return call(lib.cbl_window_gather, ops, b, ns, m, k, c, tile, width, plan.lpg, plan.nt,
-                    plan.rw)
+                    plan.rw, eb)
     if name == "window_gather_bwd":
         g, li, starts, tile, width, ns = args
         b, m, k, c = g.shape
-        dx = torch.empty((b, ns, c), dtype=torch.float32, device=g.device)
+        dx = torch.empty((b, ns, c), dtype=g.dtype, device=g.device)
         ops = (g, li.to(torch.int32).contiguous(), starts.to(torch.int32).contiguous(), dx)
-        return call(lib.cbl_window_gather_bwd, ops, b, ns, m, k, c, tile, width)
+        return call(lib.cbl_window_gather_bwd, ops, b, ns, m, k, c, tile, width, g.element_size())
     if name == "cbl_stats_fwd":
         features, meta, li, temperature, tile, width, window = args
         f, mt, lii = cd._cuda_args(features, meta, li, tile, width)
@@ -1397,16 +1547,17 @@ def bare_entry(name, args, kw):
             plan = pa.fwd_plan(b, m, k, c)
             out = (torch.empty_like(q), torch.empty((plan.blocks, 2 * c + 2 * cs_), device=q.device))
             entry = lib.cbl_pt_attn_fwd
-        else:
+        else:  # g_out in q's dtype; dq and dk|dv float32 (the wrapper casts them after)
             plan = pa.bwd_plan(b, m, k, c)
-            out = (args[8].float().contiguous(), torch.empty_like(q), torch.zeros_like(kv),
+            out = (args[8].to(q.dtype).contiguous(), torch.empty_like(q, dtype=torch.float32),
+                   torch.zeros_like(kv, dtype=torch.float32),
                    torch.empty((plan.blocks, sum(pa._prow(c, cs_))), device=q.device))
             entry = lib.cbl_pt_attn_bwd
         ptr_args = head + tuple(t.data_ptr() for t in out)
         keep = (q, kv, rel, li, st, ps, ptrs, out)
         return lambda _keep=keep: build.check(entry(
             *ptr_args, b, m, k, c, tile, width, plan.blocks, plan.threads, plan.rows, plan.chunk,
-            plan.smem, stream), name)
+            plan.smem, q.element_size(), stream), name)
     if name == "cbl_stats_bwd":
         features, meta, li, stats, g, temperature, tile, width, window = args
         f, mt, lii = cd._cuda_args(features, meta, li, tile, width)
@@ -1553,15 +1704,83 @@ def check_cbl_kernels(dev, pallas) -> list:
     return summary
 
 
-def serve(dev, batch, bn_mode="batch", ref_probs=None) -> dict:
-    """Phases 3 and 7: the checkpoint served with flax batch BN or stale BN
-    on one B x N batch: one request with the launch counts reset just before
-    and read just after (each kernel of the path > 0) and its calls
-    recorded, the running statistics untouched, three timed requests, probs
-    against the plain versions' (and against ``ref_probs`` where given:
-    eval-mode BN is the same function in both modes), crop OA."""
+def require_bf16_counts(by_dtype: dict, expect: dict, what: str) -> None:
+    """The launches of each kernel in ``expect`` by dtype, exactly."""
+    for name, want in expect.items():
+        got = {k: by_dtype[name][k] for k in want}
+        require(got == want, f"{name} in {what}: launches by dtype {got}, not {want}")
+
+
+def bf16_calls_on_host(calls: dict, names) -> dict:
+    """The bfloat16 calls of ``names`` among a step's recorded calls, moved
+    to host memory: the later phases' peak memory does not count them."""
+    return frozen({name: split_bf16(calls)[name] for name in names}, torch.device("cpu"))
+
+
+def check_bf16_kernels(dev, host_calls, launches) -> list:
+    """Phase 19: the bfloat16 calls of the recorded bf16 steps (the gathers
+    of phase 17's, the attention of phase 18's; kept in host memory until
+    now) against the plain versions and timed as in phase 4; the bounds from
+    the bfloat16 bytes."""
+    calls = frozen(host_calls, dev)
+    names = tuple(BF16_KERNELS)
+    for name in names:
+        require(len(calls[name]) == launches[name], f"{name}: {len(calls[name])} recorded calls, "
+                f"{launches[name]} launches")
+    with torch.no_grad():
+        for c in calls["pt_attn_bwd_bf16"]:
+            check_pt_attn_bwd_exact(c)
+    max_err = {name: 0.0 for name in names}
+    records = []
+    summary = time_calls(calls, dev, launches, max_err, names, reps=5, records=records)
+    print_widths([r for r in records if r[0].startswith("pt_attn")])
+    time_against_f32(calls, dev, names)
+    return summary
+
+
+def as_f32(call):
+    """A bfloat16 call's float32 twin: its bfloat16 operands (x, g, q, kv,
+    g_out) widened exactly, the backward's dx dtype float32."""
+    args, kw, _ = call
+    widen = lambda t: t.float() if isinstance(t, torch.Tensor) and t.dtype == BF16 else t
+    return tuple(widen(a) for a in args), {k: torch.float32 if v is BF16 else v
+                                           for k, v in kw.items()}
+
+
+@torch.no_grad()
+def time_against_f32(calls, dev, names, reps=5) -> None:
+    """Each bfloat16 call and its float32 twin through the same wrapper,
+    timed in turns (f32, bf16, bf16, f32; L2 flushed, mean of ``reps``
+    each), summed over the calls: what the element type alone changes."""
+    flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    for name in names:
+        mod, attr, _ = WRAPPERS[base(name)]
+        fn = getattr(mod, attr)
+        tot = {"f32": 0.0, "bf16": 0.0}
+        for call in calls[name]:
+            args, kw = call[0], call[1]
+            args32, kw32 = as_f32(call)
+            for what, a, k in (("f32", args32, kw32), ("bf16", args, kw), ("bf16", args, kw),
+                               ("f32", args32, kw32)):
+                tot[what] += time_ms(lambda: fn(*a, **k), flush_buf, reps) / 2
+        print(f"  {name} on the same {len(calls[name])} calls in turns: bfloat16 {tot['bf16']:.4f} "
+              f"ms, float32 {tot['f32']:.4f} ms ({tot['bf16'] / tot['f32']:.3f}x)", flush=True)
+
+
+def serve(dev, batch, bn_mode="batch", ref_probs=None, dtype=torch.float32) -> dict:
+    """Phases 3, 7, 16 and 18: the checkpoint served with flax batch BN or
+    stale BN, float32 or bfloat16, on one B x N batch: one request with the
+    launch counts reset just before and read just after (each kernel of the
+    path > 0) and its calls recorded, the running statistics untouched,
+    three timed requests, probs against the plain versions' (and against
+    ``ref_probs`` where given: eval-mode BN is the same function in both
+    modes), crop OA. A bfloat16 model's ``ref_probs`` are the float32
+    model's on the same weights: their gap is the scale, and the kernels'
+    probs are held within half of it of the plain versions' (argmax agreeing
+    on >= 99.5% of points)."""
     kernels = SERVE_KERNELS if bn_mode == "batch" else STALE_SERVE_KERNELS
-    model, trained = load_model(bn_mode)
+    bf16 = dtype == BF16
+    model, trained = load_model(bn_mode, dtype)
     step = make_eval_step(model, PyramidSpec(), device=dev, num_classes=NUM_CLASSES)
 
     def predict(bt):
@@ -1576,7 +1795,9 @@ def serve(dev, batch, bn_mode="batch", ref_probs=None) -> dict:
         probs, conf = step(batch)
         torch.cuda.synchronize()
     launches = {k: v for k, v in read_counts().items() if k in kernels}
-    print(f"launches in one request ({bn_mode} BN): {launches}", flush=True)
+    by_dtype = read_dtype_counts()
+    print(f"launches in one request ({bn_mode} BN{', bfloat16' if bf16 else ''}): {launches}, "
+          f"by dtype {by_dtype}", flush=True)
     require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
     require(bool(torch.isfinite(probs).all()) and probs.shape == (B, N, NUM_CLASSES),
             f"probs {tuple(probs.shape)} not finite")
@@ -1589,16 +1810,28 @@ def serve(dev, batch, bn_mode="batch", ref_probs=None) -> dict:
         t0 = time.perf_counter()
         predict(batch)
         lat.append(time.perf_counter() - t0)
-    med = statistics.median(lat)
-    print(f"request latency ({bn_mode} BN) median {med * 1e3:.3f} ms over "
-          f"{[round(x * 1e3, 3) for x in lat]}, {B * N / med:.1f} points/s, "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B", flush=True)
+    med, peak = statistics.median(lat), torch.cuda.max_memory_allocated()
+    print(f"request latency ({bn_mode} BN{', bfloat16' if bf16 else ''}) median {med * 1e3:.3f} "
+          f"ms over {[round(x * 1e3, 3) for x in lat]}, {B * N / med:.1f} points/s, "
+          f"max_memory_allocated {peak} B", flush=True)
 
     with plain_kernels():
         p_plain, _ = step(batch)
-    refs = {"plain versions": p_plain}
-    if ref_probs is not None:
-        refs["batch-BN model"] = ref_probs
+    if bf16:
+        require(ref_probs is not None, "a bfloat16 request needs the float32 model's probs")
+        gap = float((probs - ref_probs).abs().max())
+        agree32 = float((probs.argmax(-1) == ref_probs.argmax(-1)).float().mean())
+        d = float((probs - p_plain).abs().max())
+        agree = float((probs.argmax(-1) == p_plain.argmax(-1)).float().mean())
+        print(f"kernels vs plain versions (bfloat16): max|dprobs| {d:.3g}, argmax agreement "
+              f"{agree:.6f}; bfloat16 vs float32 model, same weights: max|dprobs| {gap:.3g}, "
+              f"argmax agreement {agree32:.6f}", flush=True)
+        require(d <= 0.5 * gap and agree >= 0.995, "bfloat16 probs disagree with the plain versions")
+        refs = {}
+    else:
+        refs = {"plain versions": p_plain}
+        if ref_probs is not None:
+            refs["batch-BN model"] = ref_probs
     for what, ref in refs.items():
         d = float((probs - ref).abs().max())
         agree = float((probs.argmax(-1) == ref.argmax(-1)).float().mean())
@@ -1609,17 +1842,18 @@ def serve(dev, batch, bn_mode="batch", ref_probs=None) -> dict:
     print(f"crop OA {oa:.4f} ({'trained' if trained else 'random'} weights)", flush=True)
     if trained:
         require(oa >= 0.5, f"crop OA {oa:.4f} < 0.5")
-    return dict(step=step, predict=predict, calls=calls, launches=launches, probs=probs, med=med)
+    return dict(step=step, predict=predict, calls=calls, launches=launches, probs=probs, med=med,
+                peak=peak, by_dtype=by_dtype)
 
 
-def voting(predict, what="request") -> None:
-    """Phase 6: VotingEvaluator over room 0 for three requests."""
+def voting(predict, what="request", steps=3) -> None:
+    """Phase 6: VotingEvaluator over room 0 for ``steps`` requests."""
     ev = VotingEvaluator(room0(), predict, NUM_CLASSES, N, batch_size=B,
                          voxel_size=0.04, num_votes=20, seed=0)
     t0 = time.perf_counter()
-    m = ev.run(max_steps=3)
-    per = (time.perf_counter() - t0) / 3
-    print(f"voting: {per * 1e3:.3f} ms per {what} over 3 requests "
+    m = ev.run(max_steps=steps)
+    per = (time.perf_counter() - t0) / steps
+    print(f"voting: {per * 1e3:.3f} ms per {what} over {steps} requests "
           f"(sub mIoU so far {m['sub']['mIoU']:.4f})", flush=True)
 
 
@@ -1629,6 +1863,8 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bfloat16 products summed in float32, as the reference's are
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
@@ -1682,6 +1918,7 @@ def main() -> int:
         stale_summary = time_calls(stale_served.pop("calls"), dev, stale_served["launches"],
                                    {"pt_attn_fwd": 0.0}, ("pt_attn_fwd",), records=records)
         print_widths(records)
+    f32_serve = dict(probs=served["probs"], med=served["med"], peak=served["peak"])
     del served, stale_served, step, predict
     torch.cuda.empty_cache()
 
@@ -1692,6 +1929,7 @@ def main() -> int:
         train_summary = check_train_kernels(dev, train)
     batch_launches, batch_peak = train["launches"], train["peak"]
     dense_med, dense_metrics = train["med"], train["metrics"]
+    f32_steps = {"batch": {k: train[k] for k in ("loss", "grad_norm", "med", "peak", "busy_ms")}}
     del train
     torch.cuda.empty_cache()
 
@@ -1710,6 +1948,7 @@ def main() -> int:
 
     with phase("stale-kernels"), cbl_route_env("dense"):
         train_summary += check_stale_kernels(dev, stale)
+    f32_steps["stale"] = {k: stale[k] for k in ("loss", "grad_norm", "med", "peak", "busy_ms")}
     del stale
     torch.cuda.empty_cache()
 
@@ -1747,6 +1986,62 @@ def main() -> int:
     with phase("plan-shapes"):
         check_plan_shapes(dev)
 
+    def bf16_serve(bn_mode):
+        out = serve(dev, batch, bn_mode, f32_serve["probs"], dtype=BF16)
+        print(f"bfloat16 request ({bn_mode} BN): median {out['med'] * 1e3:.3f} ms, peak memory "
+              f"{out['peak']} B, beside the float32 batch-BN request's {f32_serve['med'] * 1e3:.3f}"
+              f" ms, {f32_serve['peak']} B", flush=True)
+        voting(out["predict"], f"bfloat16 {bn_mode}-BN request", steps=1)
+        return out
+
+    def bf16_train(bn_mode):
+        out, ref = run_train(dev, bn_mode, dtype=BF16), f32_steps[bn_mode]
+        print(f"bfloat16 vs float32 step ({bn_mode} BN), same weights and batch: loss "
+              f"{out['loss']:.7f} vs {ref['loss']:.7f} (rel "
+              f"{abs(out['loss'] - ref['loss']) / abs(ref['loss']):.3g}), gradient norm "
+              f"{out['grad_norm']:.7f} vs {ref['grad_norm']:.7f} (rel "
+              f"{abs(out['grad_norm'] - ref['grad_norm']) / ref['grad_norm']:.3g})", flush=True)
+        print(f"bfloat16 step ({bn_mode} BN): median {out['med'] * 1e3:.3f} ms, peak memory "
+              f"{out['peak']} B, busy share {out['busy_ms'] / (out['med'] * 1e3):.3f}; float32 "
+              f"step of this run: {ref['med'] * 1e3:.3f} ms, {ref['peak']} B, busy share "
+              f"{ref['busy_ms'] / (ref['med'] * 1e3):.3f}; PERF.md's float32 step: "
+              f"{F32_STEP_PERF}", flush=True)
+        return out
+
+    bf16_launches = {}
+    with phase("bf16-serve"):
+        out = bf16_serve("batch")
+        require_bf16_counts(out["by_dtype"], {"window_gather": {"bfloat16": ATTENTION_LAYERS}},
+                            "a bfloat16 batch-BN request")
+        del out
+    with phase("bf16-train"), cbl_route_env("dense"):
+        bf16_step = bf16_train("batch")
+        require_bf16_counts(bf16_step["by_dtype"], BF16_STEP_GATHERS, "a bfloat16 batch-BN step")
+        bf16_calls = bf16_calls_on_host(bf16_step["calls"],
+                                        ("window_gather_bf16", "window_gather_bwd_bf16"))
+        for name in ("window_gather", "window_gather_bwd"):
+            bf16_launches[f"{name}_bf16"] = bf16_step["by_dtype"][name]["bfloat16"]
+        del bf16_step
+    torch.cuda.empty_cache()
+    with phase("bf16-stale"), cbl_route_env("dense"):
+        out = bf16_serve("stale")
+        require_bf16_counts(out["by_dtype"], {"pt_attn_fwd": {"bfloat16": ATTENTION_LAYERS}},
+                            "a bfloat16 stale request")
+        del out
+        stale_bf16 = bf16_train("stale")
+        attn = {"bfloat16": ATTENTION_LAYERS, "float32": 0}
+        require_bf16_counts(stale_bf16["by_dtype"], {"pt_attn_fwd": attn, "pt_attn_bwd": attn},
+                            "a bfloat16 stale step")
+        bf16_calls.update(bf16_calls_on_host(stale_bf16["calls"],
+                                             ("pt_attn_fwd_bf16", "pt_attn_bwd_bf16")))
+        for name in ("pt_attn_fwd", "pt_attn_bwd"):
+            bf16_launches[f"{name}_bf16"] = stale_bf16["by_dtype"][name]["bfloat16"]
+        del stale_bf16
+    torch.cuda.empty_cache()
+    with phase("bf16-kernels"), cbl_route_env("dense"):
+        bf16_summary = check_bf16_kernels(dev, bf16_calls, bf16_launches)
+    del bf16_calls
+
     summary = []
     for entry in train_summary:
         per_request = next(
@@ -1757,7 +2052,7 @@ def main() -> int:
             summary.append({**per_request, "train": {k: entry[k] for k in (
                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}})
-
+    summary += bf16_summary  # per bfloat16 train step
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

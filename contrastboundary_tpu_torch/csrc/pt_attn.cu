@@ -22,6 +22,15 @@
 // plus the sums of w_pre, w_pre^2 (per C) and bvec, bvec^2 (per CS) over
 // every slot, shadow slots included, for the running-statistic updates.
 //
+// q, kv, out and the backward's g_out are float32 or bfloat16 (the element
+// type E of both kernels, one for all four): a bfloat16 value is widened to
+// float32 where it is loaded and out rounded once to bfloat16 where it is
+// stored, as the TPU kernel upcasts q and kv in the kernel and writes out in
+// q's dtype. rel, the folded tower arrays, the statistics, dq, dk|dv and the
+// parameter gradients are float32 in both (the wrapper casts dq and dk|dv to
+// q's dtype afterwards, where the reference casts them); all arithmetic is
+// float32.
+//
 // Both kernels take tiles of slot-rows, as the TPU kernel's batched body
 // (_fwd_kernel_b) folds K into the row dimension: a block takes R query rows
 // and all K slots of each (R K slot-rows; the geometry comes from
@@ -99,10 +108,18 @@
 // P2's separately rounded chains (instruction issue) most of it at
 // C >= 256, and P0, the softmax and the output's gathers the rest; in the
 // backward P6 takes 35-40% of a tile and P1 up to a third (PERF.md).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// an element of q, kv, out or g_out, widened where it is loaded and rounded
+// (to nearest even) where it is stored
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 constexpr int SHARES = 8;
 constexpr float NEG = -1e9f;  // the masked score of a shadow slot
@@ -242,10 +259,10 @@ __device__ __forceinline__ int tile_row(int sl, int k, int k0, int kn) {
 // P0: each slot-row's support row (-1 a shadow slot, -2 past the last row),
 // rel (in REL where KEEP) and the PE tower's first layer, term by term; the
 // tile's q rows.
-template <int CS, bool KEEP>
+template <int CS, bool KEEP, class E>
 __device__ __forceinline__ void tile_support(
     const float* sp, int r0, int R, int k, long long rows, int m, int tile,
-    int w_sz, const float* __restrict__ q, const float* __restrict__ rel,
+    int w_sz, const E* __restrict__ q, const float* __restrict__ rel,
     const int32_t* __restrict__ li, const int32_t* __restrict__ starts,
     int* SRC, float* REL, float* PE1, float* QR) {
   using L = Tiling<CS>;
@@ -275,7 +292,7 @@ __device__ __forceinline__ void tile_support(
     }
   }
   for (int e = threadIdx.x; e < R * C; e += L::T)
-    QR[e] = r0 + e / C < rows ? q[(long long)r0 * C + e] : 0.f;
+    QR[e] = r0 + e / C < rows ? widen(q[(long long)r0 * C + e]) : 0.f;
 }
 
 // P1: r1 of the chunk's slot-rows (and w_pre, where W), rounded as the
@@ -284,9 +301,9 @@ __device__ __forceinline__ void tile_support(
 // kv row's v half where V, else 0) and returns a term summed over the
 // shares, which unit(s, j, sum) takes (the backward's dalpha). Two units'
 // gathers in flight at once.
-template <int CS, bool V, bool W, class Chan, class Unit>
+template <int CS, bool V, bool W, class E, class Chan, class Unit>
 __device__ __forceinline__ void tile_r1(const float* sp, int R, int k, int k0,
-                                        int kn, const float* __restrict__ kv,
+                                        int kn, const E* __restrict__ kv,
                                         const int* SRC, const float* PE1,
                                         const float* QR, float* R1, float* WP,
                                         Chan&& chan, Unit&& unit) {
@@ -309,8 +326,8 @@ __device__ __forceinline__ void tile_r1(const float* sp, int R, int k, int k0,
 #pragma unroll
       for (int i = 0; i < 3; ++i)
         pe = __fadd_rn(pe, __fmul_rn(rp[i], sp[L::W2 + i * C + c]));
-      const float kk = src >= 0 ? kv[(long long)src * (2 * C) + c] : 0.f;
-      const float vv = V && src >= 0 ? kv[(long long)src * (2 * C) + C + c] : 0.f;
+      const float kk = src >= 0 ? widen(kv[(long long)src * (2 * C) + c]) : 0.f;
+      const float vv = V && src >= 0 ? widen(kv[(long long)src * (2 * C) + C + c]) : 0.f;
       const float wpre = __fadd_rn(__fsub_rn(kk, QR[rr * C + c]), pe);
       const float a = __fadd_rn(__fmul_rn(wpre, sp[L::G1 + c]), sp[L::H1 + c]);
       R1[sl * L::RS + c] = fmaxf(a, 0.f);
@@ -445,14 +462,14 @@ __device__ __forceinline__ void tile_softmax(int r0, int R, int k,
 
 // ---- forward -------------------------------------------------------------
 
-template <int CS>
+template <int CS, class E>
 __global__ void __launch_bounds__(Tiling<CS>::T, Tiling<CS>::FWD_BLOCKS)
-    pt_attn_fwd_kernel(const float* __restrict__ q,
-                       const float* __restrict__ kv,
+    pt_attn_fwd_kernel(const E* __restrict__ q,
+                       const E* __restrict__ kv,
                        const float* __restrict__ rel,
                        const int32_t* __restrict__ li,
                        const int32_t* __restrict__ starts, Params P,
-                       float* __restrict__ out, float* __restrict__ stats,
+                       E* __restrict__ out, float* __restrict__ stats,
                        long long rows, int m, int k, int tile, int w_sz,
                        int R, int kc) {
   using L = Tiling<CS>;
@@ -546,7 +563,7 @@ __global__ void __launch_bounds__(Tiling<CS>::T, Tiling<CS>::FWD_BLOCKS)
 #pragma unroll 8
       for (int kk = 0; kk < k; ++kk) {
         const int src = SRC[s0 + kk];
-        const float vv = src >= 0 ? kv[(long long)src * (2 * C) + C + c] : 0.f;
+        const float vv = src >= 0 ? widen(kv[(long long)src * (2 * C) + C + c]) : 0.f;
         acc = fmaf(SC[(s0 + kk) * CS + jc], vv, acc);
       }
       const float4 a = AP[rr * CS + jc];
@@ -554,7 +571,7 @@ __global__ void __launch_bounds__(Tiling<CS>::T, Tiling<CS>::FWD_BLOCKS)
       acc = fmaf(w2c[0], a.y, acc);
       acc = fmaf(w2c[1], a.z, acc);
       acc = fmaf(w2c[2], a.w, acc);
-      if (r0 + rr < rows) out[(long long)(r0 + rr) * C + c] = acc;
+      if (r0 + rr < rows) store(out + (long long)(r0 + rr) * C + c, acc);
     }
   }
 
@@ -593,14 +610,14 @@ __global__ void __launch_bounds__(Tiling<CS>::T, Tiling<CS>::FWD_BLOCKS)
 
 // ---- backward ------------------------------------------------------------
 
-template <int CS>
+template <int CS, class E>
 __global__ void __launch_bounds__(Tiling<CS>::T, Tiling<CS>::BWD_BLOCKS)
-    pt_attn_bwd_kernel(const float* __restrict__ q,
-                       const float* __restrict__ kv,
+    pt_attn_bwd_kernel(const E* __restrict__ q,
+                       const E* __restrict__ kv,
                        const float* __restrict__ rel,
                        const int32_t* __restrict__ li,
                        const int32_t* __restrict__ starts, Params P,
-                       const float* __restrict__ gout, float* __restrict__ dq,
+                       const E* __restrict__ gout, float* __restrict__ dq,
                        float* __restrict__ dkv, float* __restrict__ dparams,
                        long long rows, int m, int k, int tile, int w_sz,
                        int R, int kc) {
@@ -660,7 +677,7 @@ __global__ void __launch_bounds__(Tiling<CS>::T, Tiling<CS>::BWD_BLOCKS)
     tile_support<CS, true>(sp, r0, R, k, rows, m, tile, w_sz, q, rel, li, starts,
                            SRC, REL, PE1, QR);
     for (int e = tid; e < R * C; e += T)  // the tile's g rows, once
-      GR[e] = r0 + e / C < rows ? gout[(long long)r0 * C + e] : 0.f;
+      GR[e] = r0 + e / C < rows ? widen(gout[(long long)r0 * C + e]) : 0.f;
     __syncthreads();
     // pass A: P1 (with dalpha) to P3, chunk by chunk
     for (int k0 = 0; k0 < k; k0 += kc) {
@@ -785,7 +802,7 @@ __global__ void __launch_bounds__(Tiling<CS>::T, Tiling<CS>::BWD_BLOCKS)
               float pe = b2c;
 #pragma unroll
               for (int i = 0; i < 3; ++i) pe = __fadd_rn(pe, __fmul_rn(fmaxf(pe1[i], 0.f), w2c[i]));
-              const float kk = src >= 0 ? kv[(long long)src * (2 * C) + c] : 0.f;
+              const float kk = src >= 0 ? widen(kv[(long long)src * (2 * C) + c]) : 0.f;
               wpre = __fadd_rn(__fsub_rn(kk, qc), pe);
             }
             const float da = act && r1v[u] > 0.f ? dr1[u] : 0.f;  // a > 0
@@ -911,38 +928,40 @@ cudaError_t configure_once(Kernel kernel, bool& configured) {
   return e;
 }
 
-template <int CS>
-int launch_fwd(const float* q, const float* kv, const float* rel,
+template <int CS, class E>
+int launch_fwd(const void* q, const void* kv, const float* rel,
                const int32_t* li, const int32_t* starts, const Params& P,
-               float* out, float* stats, long long rows, int m, int k,
+               void* out, float* stats, long long rows, int m, int k,
                int tile, int w_sz, int grid, int threads, int R, int kc,
                int smem, cudaStream_t stream) {
   if (bad_geometry<CS>(grid, threads, R, k, kc, smem,
                        fwd_smem_floats<CS>(R, k, kc), false))
     return (int)cudaErrorInvalidValue;
   static bool configured = false;
-  const cudaError_t e = configure_once(pt_attn_fwd_kernel<CS>, configured);
+  const cudaError_t e = configure_once(pt_attn_fwd_kernel<CS, E>, configured);
   if (e != cudaSuccess) return (int)e;
-  pt_attn_fwd_kernel<CS><<<grid, threads, smem, stream>>>(
-      q, kv, rel, li, starts, P, out, stats, rows, m, k, tile, w_sz, R, kc);
+  pt_attn_fwd_kernel<CS, E><<<grid, threads, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(kv), rel, li, starts, P,
+      static_cast<E*>(out), stats, rows, m, k, tile, w_sz, R, kc);
   return (int)cudaGetLastError();
 }
 
-template <int CS>
-int launch_bwd(const float* q, const float* kv, const float* rel,
+template <int CS, class E>
+int launch_bwd(const void* q, const void* kv, const float* rel,
                const int32_t* li, const int32_t* starts, const Params& P,
-               const float* gout, float* dq, float* dkv, float* dparams,
+               const void* gout, float* dq, float* dkv, float* dparams,
                long long rows, int m, int k, int tile, int w_sz, int grid,
                int threads, int R, int kc, int smem, cudaStream_t stream) {
   if (bad_geometry<CS>(grid, threads, R, k, kc, smem,
                        bwd_smem_floats<CS>(R, k, kc), true))
     return (int)cudaErrorInvalidValue;
   static bool configured = false;
-  const cudaError_t e = configure_once(pt_attn_bwd_kernel<CS>, configured);
+  const cudaError_t e = configure_once(pt_attn_bwd_kernel<CS, E>, configured);
   if (e != cudaSuccess) return (int)e;
-  pt_attn_bwd_kernel<CS><<<grid, threads, smem, stream>>>(
-      q, kv, rel, li, starts, P, gout, dq, dkv, dparams, rows, m, k, tile,
-      w_sz, R, kc);
+  pt_attn_bwd_kernel<CS, E><<<grid, threads, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(kv), rel, li, starts, P,
+      static_cast<const E*>(gout), dq, dkv, dparams, rows, m, k, tile, w_sz, R,
+      kc);
   return (int)cudaGetLastError();
 }
 
@@ -951,33 +970,20 @@ Params params_of(const float* const* p) {
                 p[6], p[7], p[8], p[9], p[10], p[11]};
 }
 
-}  // namespace
-
 #define PT_ATTN_WIDTHS(X) X(2) X(4) X(8) X(16) X(32) X(64)
 
-// q [B, M, C], kv [B, M, 2C], rel [B, M, K, 3] f32; li [B, M, K] int32
-// window-relative; starts [M / tile] int32 (tiles); params: 12 pointers;
-// out [B, M, C]; stats [blocks, 2C + 2CS]: one partial row of the sums of
-// w_pre, w_pre^2, bvec, bvec^2 a block, summed by the caller. blocks,
-// threads, rows_a_tile, slots_a_chunk and smem come from
-// ops/cuda/pt_attn.py::fwd_plan: a block takes tiles of rows_a_tile query
-// rows, every slot of them, slots_a_chunk slots of each row at a time, with
-// smem dynamic shared bytes (at least fwd_smem_floats floats).
-extern "C" int cbl_pt_attn_fwd(const float* q, const float* kv,
-                               const float* rel, const int32_t* li,
-                               const int32_t* starts, const float* const* params,
-                               float* out, float* stats, int b, int m, int k,
-                               int c, int tile, int width, int blocks,
-                               int threads, int rows_a_tile, int slots_a_chunk,
-                               int smem, void* stream) {
-  const Params P = params_of(params);
-  const long long rows = (long long)b * m;
+template <class E>
+int fwd_entry(const void* q, const void* kv, const float* rel,
+              const int32_t* li, const int32_t* starts, const Params& P,
+              void* out, float* stats, long long rows, int m, int k, int c,
+              int tile, int width, int blocks, int threads, int rows_a_tile,
+              int slots_a_chunk, int smem, cudaStream_t stream) {
   switch (c) {
-#define PT_ATTN_FWD_CASE(CS_)                                                \
-  case CS_ * SHARES:                                                         \
-    return launch_fwd<CS_>(q, kv, rel, li, starts, P, out, stats, rows, m, k, \
-                           tile, width * tile, blocks, threads, rows_a_tile,  \
-                           slots_a_chunk, smem, (cudaStream_t)stream);
+#define PT_ATTN_FWD_CASE(CS_)                                                   \
+  case CS_ * SHARES:                                                            \
+    return launch_fwd<CS_, E>(q, kv, rel, li, starts, P, out, stats, rows, m, k, \
+                              tile, width * tile, blocks, threads, rows_a_tile,  \
+                              slots_a_chunk, smem, stream);
     PT_ATTN_WIDTHS(PT_ATTN_FWD_CASE)
 #undef PT_ATTN_FWD_CASE
     default:
@@ -985,33 +991,85 @@ extern "C" int cbl_pt_attn_fwd(const float* q, const float* kv,
   }
 }
 
-// As the forward, plus gout [B, M, C]; dq [B, M, C] written, dkv [B, M, 2C]
-// zeroed by the caller and added to; dparams [blocks, prow]: one packed
-// partial row of the parameter gradients a block (dA1 9 | dc1 3 | dW2 3C |
-// db2 C | dg1 C | dh1 C | dW3 C*CS | db3 CS | dg2 CS | dh2 CS | dW4 CS*CS |
-// db4 CS), summed by the caller. The geometry comes from
-// ops/cuda/pt_attn.py::bwd_plan (rows_a_tile a multiple of threads / C;
-// smem at least bwd_smem_floats floats).
-extern "C" int cbl_pt_attn_bwd(const float* q, const float* kv,
-                               const float* rel, const int32_t* li,
-                               const int32_t* starts, const float* const* params,
-                               const float* gout, float* dq, float* dkv,
-                               float* dparams, int b, int m, int k, int c,
-                               int tile, int width, int blocks, int threads,
-                               int rows_a_tile, int slots_a_chunk, int smem,
-                               void* stream) {
-  const Params P = params_of(params);
-  const long long rows = (long long)b * m;
+template <class E>
+int bwd_entry(const void* q, const void* kv, const float* rel,
+              const int32_t* li, const int32_t* starts, const Params& P,
+              const void* gout, float* dq, float* dkv, float* dparams,
+              long long rows, int m, int k, int c, int tile, int width,
+              int blocks, int threads, int rows_a_tile, int slots_a_chunk,
+              int smem, cudaStream_t stream) {
   switch (c) {
-#define PT_ATTN_BWD_CASE(CS_)                                                 \
-  case CS_ * SHARES:                                                          \
-    return launch_bwd<CS_>(q, kv, rel, li, starts, P, gout, dq, dkv, dparams, \
-                           rows, m, k, tile, width * tile, blocks, threads,   \
-                           rows_a_tile, slots_a_chunk, smem,                  \
-                           (cudaStream_t)stream);
+#define PT_ATTN_BWD_CASE(CS_)                                                    \
+  case CS_ * SHARES:                                                             \
+    return launch_bwd<CS_, E>(q, kv, rel, li, starts, P, gout, dq, dkv, dparams, \
+                              rows, m, k, tile, width * tile, blocks, threads,   \
+                              rows_a_tile, slots_a_chunk, smem, stream);
     PT_ATTN_WIDTHS(PT_ATTN_BWD_CASE)
 #undef PT_ATTN_BWD_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// q [B, M, C], kv [B, M, 2C] of elem_bytes bytes an element (4: float32, 2:
+// bfloat16), rel [B, M, K, 3] f32; li [B, M, K] int32 window-relative;
+// starts [M / tile] int32 (tiles); params: 12 f32 pointers; out [B, M, C]
+// of q's element; stats [blocks, 2C + 2CS] f32: one partial row of the sums
+// of w_pre, w_pre^2, bvec, bvec^2 a block, summed by the caller. blocks,
+// threads, rows_a_tile, slots_a_chunk and smem come from
+// ops/cuda/pt_attn.py::fwd_plan: a block takes tiles of rows_a_tile query
+// rows, every slot of them, slots_a_chunk slots of each row at a time, with
+// smem dynamic shared bytes (at least fwd_smem_floats floats).
+extern "C" int cbl_pt_attn_fwd(const void* q, const void* kv,
+                               const float* rel, const int32_t* li,
+                               const int32_t* starts, const float* const* params,
+                               void* out, float* stats, int b, int m, int k,
+                               int c, int tile, int width, int blocks,
+                               int threads, int rows_a_tile, int slots_a_chunk,
+                               int smem, int elem_bytes, void* stream) {
+  const Params P = params_of(params);
+  const long long rows = (long long)b * m;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (elem_bytes == 4)
+    return fwd_entry<float>(q, kv, rel, li, starts, P, out, stats, rows, m, k,
+                            c, tile, width, blocks, threads, rows_a_tile,
+                            slots_a_chunk, smem, s);
+  if (elem_bytes == 2)
+    return fwd_entry<__nv_bfloat16>(q, kv, rel, li, starts, P, out, stats,
+                                    rows, m, k, c, tile, width, blocks,
+                                    threads, rows_a_tile, slots_a_chunk, smem,
+                                    s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// As the forward, plus gout [B, M, C] of q's element; dq [B, M, C] f32
+// written, dkv [B, M, 2C] f32 zeroed by the caller and added to; dparams
+// [blocks, prow]: one packed partial row of the parameter gradients a block
+// (dA1 9 | dc1 3 | dW2 3C | db2 C | dg1 C | dh1 C | dW3 C*CS | db3 CS | dg2
+// CS | dh2 CS | dW4 CS*CS | db4 CS), summed by the caller. The geometry
+// comes from ops/cuda/pt_attn.py::bwd_plan (rows_a_tile a multiple of
+// threads / C; smem at least bwd_smem_floats floats).
+extern "C" int cbl_pt_attn_bwd(const void* q, const void* kv,
+                               const float* rel, const int32_t* li,
+                               const int32_t* starts, const float* const* params,
+                               const void* gout, float* dq, float* dkv,
+                               float* dparams, int b, int m, int k, int c,
+                               int tile, int width, int blocks, int threads,
+                               int rows_a_tile, int slots_a_chunk, int smem,
+                               int elem_bytes, void* stream) {
+  const Params P = params_of(params);
+  const long long rows = (long long)b * m;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (elem_bytes == 4)
+    return bwd_entry<float>(q, kv, rel, li, starts, P, gout, dq, dkv, dparams,
+                            rows, m, k, c, tile, width, blocks, threads,
+                            rows_a_tile, slots_a_chunk, smem, s);
+  if (elem_bytes == 2)
+    return bwd_entry<__nv_bfloat16>(q, kv, rel, li, starts, P, gout, dq, dkv,
+                                    dparams, rows, m, k, c, tile, width,
+                                    blocks, threads, rows_a_tile,
+                                    slots_a_chunk, smem, s);
+  return (int)cudaErrorInvalidValue;
 }

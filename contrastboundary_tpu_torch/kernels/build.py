@@ -1,12 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every source under ``csrc/`` is compiled by one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), at first use, into ``_build/<hash of the sources, the headers they
-include and the flags>/``
-inside the package. A finished library is found again by its hash; a build
-writes to a temporary name and renames it into place, so a cut build leaves
-no library behind. A failed or timed-out build raises.
+Every source under ``csrc/`` is compiled by its own ``nvcc -c`` call, all of
+them started together, and the objects are linked by one more into one
+shared library with a plain C interface (no PyTorch headers), at first use,
+into ``_build/<hash of the sources, the headers they include and the
+flags>/`` inside the package. A finished library is found again by its hash;
+a build writes to temporary names and renames the library into place, so a
+cut build leaves no library behind. A failed or timed-out build raises.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -28,8 +29,9 @@ SOURCES = (
 HEADERS = ("window_sort.cuh", "slot_scatter.cuh")  # included by sources; part of the hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 BUILD_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -38,10 +40,10 @@ SIGNATURES = {
     # query, support, idx, val, b, m, ns, k, tile, width, window, gs, mode, stream
     "cbl_win_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, li, starts, out, b, ns, m, k, c, tile, width, lanes a row, pieces a
-    # lane, rows a warp, stream
-    "cbl_window_gather": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),
-    # g, li, starts, dx, b, ns, m, k, c, tile, width, stream
-    "cbl_window_gather_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # lane, rows a warp, bytes an element, stream
+    "cbl_window_gather": (_P, _P, _P, _P) + (_I,) * 11 + (_P,),
+    # g, li, starts, dx, b, ns, m, k, c, tile, width, bytes an element, stream
+    "cbl_window_gather_bwd": (_P, _P, _P, _P) + (_I,) * 8 + (_P,),
     # features, meta, li, stats, b, m, k, c, tile, width, window, inv_t,
     # blocks a cloud, threads, shared bytes, stream
     "cbl_stats_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
@@ -50,12 +52,12 @@ SIGNATURES = {
     "cbl_stats_bwd": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P),
     # q, kv, rel, li, starts, params (12 pointers), out, stats, b, m, k, c,
     # tile, width, blocks, threads, rows a tile, slots a chunk, shared bytes,
-    # stream
-    "cbl_pt_attn_fwd": (_P,) * 8 + (_I,) * 11 + (_P,),
+    # bytes an element of q, kv and out, stream
+    "cbl_pt_attn_fwd": (_P,) * 8 + (_I,) * 12 + (_P,),
     # q, kv, rel, li, starts, params, g_out, dq, dkv, dparams, b, m, k, c,
     # tile, width, blocks, threads, rows a tile, slots a chunk, shared bytes,
-    # stream
-    "cbl_pt_attn_bwd": (_P,) * 10 + (_I,) * 11 + (_P,),
+    # bytes an element of q, kv and g_out, stream
+    "cbl_pt_attn_bwd": (_P,) * 10 + (_I,) * 12 + (_P,),
     # features, meta, li, stats, b, m, k, c, tile, width, window, temperature,
     # rows a label block, rows a block over the rows of the mask, stream
     "cbl_tile2_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _I, _I, _P),
@@ -87,7 +89,7 @@ def _nvcc() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -98,31 +100,50 @@ def library_path() -> Path:
     return BUILD_ROOT / source_hash() / "libcbl_kernels.so"
 
 
+def _run(cmds) -> None:
+    """Run the nvcc commands together; raise (after stopping the others) if
+    one fails or the batch outlasts BUILD_TIMEOUT_S."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    deadline = time.monotonic() + BUILD_TIMEOUT_S
+    try:
+        for cmd, p in zip(cmds, procs):
+            try:
+                stdout, stderr = p.communicate(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired as e:
+                raise RuntimeError(
+                    f"nvcc timed out after {BUILD_TIMEOUT_S} s: {' '.join(cmd)}"
+                ) from e
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}"
+                )
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def build() -> Path:
-    """Compile the sources unless a library with their hash exists."""
+    """Compile the sources unless a library with their hash exists: one
+    ``nvcc -c`` a source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.with_name(f".{Path(s).stem}.{tag}.o") for s in SOURCES]
+    tmp = out.with_name(f".{out.name}.{tag}")
     try:
-        res = subprocess.run(
-            cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S
-        )
-    except subprocess.TimeoutExpired as e:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc timed out after {BUILD_TIMEOUT_S} s: {' '.join(cmd)}"
-        ) from e
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, out)
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+              for s, o in zip(SOURCES, objs)])
+        _run([[nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]])
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 

@@ -14,6 +14,14 @@ running statistics; in train mode with the batch statistics. Under
 bn_mode='stale' every BN is a StaleBatchNorm, and each attention layer runs
 the fused kernel (ops/pt_attn.py) with its BNs folded into the towers, as
 the reference does.
+
+``dtype`` is the flax modules' compute dtype (float32, or bfloat16 as in the
+reference's bf16 presets). Parameters stay float32. Each op rounds where the
+JAX module's op of the same dtype does: each Dense as flax
+nn.Dense(dtype=...) (``dense``), each ``dtype`` elementwise op once, each
+jnp.sum of ``dtype`` values in float32 rounded once, and every BN computes
+in float32 and returns float32 (the reference's default BN dtype), so
+activations are ``dtype`` after a Dense and float32 after a BN.
 """
 from __future__ import annotations
 
@@ -25,6 +33,17 @@ from torch import nn
 
 from ..ops.pt_attn import pt_attn
 from ..ops.tile_gather import cross_window_gather, tile_window_gather
+
+
+def dense(layer: nn.Linear, x, dtype: torch.dtype):
+    """flax nn.Dense(dtype=dtype): input, kernel and bias cast to ``dtype``,
+    the product rounded to ``dtype``, then the bias added in ``dtype`` (two
+    roundings, where a fused addmm would round once). float32 is the layer's
+    own forward."""
+    if dtype == torch.float32:
+        return layer(x)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class BatchNorm(nn.Module):
@@ -61,7 +80,7 @@ class BatchNorm(nn.Module):
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        return (x.float() - mean) * mul + self.bias
 
 
 class StaleBatchNorm(BatchNorm):
@@ -114,10 +133,12 @@ class PointTransformerLayer(nn.Module):
     w = linear_w(k_nb − q + δ), out = Σ_k softmax_k(w) ⊙ (v_nb + δ), with
     δ = linear_p(p_nb − p) and ``share_planes`` channels per weight."""
 
-    def __init__(self, planes: int, share_planes: int = 8, bn_mode: str = "batch"):
+    def __init__(self, planes: int, share_planes: int = 8, bn_mode: str = "batch",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         c, s = planes, share_planes
         self.share_planes = s
+        self.dtype = dtype
         self.stale = bn_mode == "stale"
         self.linear_q = nn.Linear(c, c)
         self.linear_k = nn.Linear(c, c)
@@ -132,33 +153,37 @@ class PointTransformerLayer(nn.Module):
 
     def forward(self, x, nb_idx, rel, local):
         tile, width = local
-        c, s = x.shape[-1], self.share_planes
-        q = self.linear_q(x)
-        kv = torch.cat([self.linear_k(x), self.linear_v(x)], -1)
+        c, s, dt = x.shape[-1], self.share_planes, self.dtype
+        q = dense(self.linear_q, x, dt)
+        kv = torch.cat([dense(self.linear_k, x, dt), dense(self.linear_v, x, dt)], -1)
         if self.stale:
             return self._fused(q, kv, nb_idx, rel, tile, width)
         kv_nb = tile_window_gather(kv, nb_idx, tile, width)
         k_nb, v_nb = kv_nb[..., :c], kv_nb[..., c:]
 
-        pe = self.p_fc2(F.relu(self.p_bn(self.p_fc1(rel))))
+        pe = dense(self.p_fc2, F.relu(self.p_bn(dense(self.p_fc1, rel.to(dt), dt))), dt)
         w = k_nb - q[:, :, None, :] + pe
-        w = self.w_fc1(F.relu(self.w_bn1(w)))
-        w = self.w_fc2(F.relu(self.w_bn2(w)))
+        w = dense(self.w_fc1, F.relu(self.w_bn1(w)), dt)
+        w = dense(self.w_fc2, F.relu(self.w_bn2(w)), dt).float()
         # shadow slots (tiny levels); slot 0 is the query itself, so no row
         # is all shadow
         w = w.masked_fill((nb_idx == tile * width)[..., None], float("-inf"))
-        w = torch.softmax(w, dim=2)
+        w = torch.softmax(w, dim=2).to(dt)
 
         b, n, kk, _ = v_nb.shape
         vp = (v_nb + pe).reshape(b, n, kk, s, c // s)
-        return (vp * w[:, :, :, None, :]).sum(2).reshape(b, n, c)
+        # jnp.sum of a dtype product: float32 sums, rounded once
+        out = (vp * w[:, :, :, None, :]).sum(2, dtype=torch.float32).to(dt)
+        return out.reshape(b, n, c)
 
     def _fused(self, q, kv, nb_idx, rel, tile, width):
         """The whole attention in the fused kernel, with the three stale BNs
         folded into the 12 tower arrays (nn.Linear's [out, in] weights
         transposed into the kernel's [in, out]); in train mode the running
         updates follow: w_bn1 and w_bn2 from the kernel's batch statistics,
-        p_bn by moment algebra over rel (its input is affine in rel)."""
+        p_bn by moment algebra over rel (its input is affine in rel). q and
+        kv come in ``dtype`` and out leaves in it; the kernel computes in
+        float32, and rel and the tower arrays are float32."""
         sp, hp = self.p_bn.fold()
         g1, h1 = self.w_bn1.fold()
         g2, h2 = self.w_bn2.fold()
@@ -185,19 +210,21 @@ class PointTransformerLayer(nn.Module):
 class PointTransformerBlock(nn.Module):
     """Dense+BN+ReLU → attention+BN+ReLU → Dense+BN, then ReLU(x + identity)."""
 
-    def __init__(self, planes: int, share_planes: int = 8, bn_mode: str = "batch"):
+    def __init__(self, planes: int, share_planes: int = 8, bn_mode: str = "batch",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.linear1 = nn.Linear(planes, planes, bias=False)
         self.bn1 = make_bn(bn_mode, planes)
-        self.transformer2 = PointTransformerLayer(planes, share_planes, bn_mode)
+        self.transformer2 = PointTransformerLayer(planes, share_planes, bn_mode, dtype)
         self.bn2 = make_bn(bn_mode, planes)
         self.linear3 = nn.Linear(planes, planes, bias=False)
         self.bn3 = make_bn(bn_mode, planes)
 
     def forward(self, x, nb_idx, rel, local):
-        y = F.relu(self.bn1(self.linear1(x)))
+        y = F.relu(self.bn1(dense(self.linear1, x, self.dtype)))
         y = F.relu(self.bn2(self.transformer2(y, nb_idx, rel, local)))
-        y = self.bn3(self.linear3(y))
+        y = self.bn3(dense(self.linear3, y, self.dtype))
         return F.relu(y + x)
 
 
@@ -206,23 +233,26 @@ class TransitionDown(nn.Module):
     of [p_prev | x_prev], relative xyz, Dense(no bias)+BN+ReLU, max over k."""
 
     def __init__(self, in_planes: int, out_planes: int, stride: int = 1,
-                 bn_mode: str = "batch"):
+                 bn_mode: str = "batch", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride = stride
+        self.dtype = dtype
         extra = 3 if stride > 1 else 0
         self.Dense_0 = nn.Linear(in_planes + extra, out_planes, bias=False)
         self.BatchNorm_0 = make_bn(bn_mode, out_planes)
 
     def forward(self, p_prev, x_prev, p_cur=None, local=None):
+        dt = self.dtype
         if self.stride == 1:
-            return F.relu(self.BatchNorm_0(self.Dense_0(x_prev)))
+            return F.relu(self.BatchNorm_0(dense(self.Dense_0, x_prev, dt)))
         li, tile, width, window = local
-        fused = torch.cat([p_prev, x_prev], -1)
+        fused = torch.cat([p_prev.to(x_prev.dtype), x_prev], -1)
         nb = cross_window_gather(fused, li, p_prev.shape[1], tile, width, window)
-        rel = nb[..., :3] - p_cur[:, :, None, :]
+        rel = nb[..., :3] - p_cur[:, :, None, :].to(nb.dtype)
         rel = torch.where((li < tile * width)[..., None], rel, 0.0)
-        g = torch.cat([rel, nb[..., 3:]], -1)
-        g = F.relu(self.BatchNorm_0(self.Dense_0(g)))
+        # rel rounded to dtype, then promoted with the features (JAX's concat)
+        g = torch.cat([rel.to(dt).to(nb.dtype), nb[..., 3:]], -1)
+        g = F.relu(self.BatchNorm_0(dense(self.Dense_0, g, dt)))
         return g.amax(2)
 
 
@@ -232,9 +262,10 @@ class TransitionUp(nn.Module):
     per-cloud mean through linear2 = Dense+ReLU instead."""
 
     def __init__(self, in_planes: int, out_planes: int, is_head: bool = False,
-                 bn_mode: str = "batch"):
+                 bn_mode: str = "batch", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.is_head = is_head
+        self.dtype = dtype
         self.linear2_fc = nn.Linear(in_planes, out_planes)
         self.linear2_bn = None if is_head else make_bn(bn_mode, out_planes)
         d_skip = in_planes + out_planes if is_head else out_planes
@@ -242,27 +273,30 @@ class TransitionUp(nn.Module):
         self.linear1_bn = make_bn(bn_mode, out_planes)
 
     def _linear1(self, x):
-        return F.relu(self.linear1_bn(self.linear1_fc(x)))
+        return F.relu(self.linear1_bn(dense(self.linear1_fc, x, self.dtype)))
 
     def forward(self, x_skip, x_deep=None, up_w=None, local=None):
         if self.is_head:
-            g = F.relu(self.linear2_fc(x_skip.mean(1, keepdim=True)))
+            # the mean through a Dense in dtype, promoted with x_skip
+            g = F.relu(dense(self.linear2_fc, x_skip.mean(1, keepdim=True), self.dtype))
             return self._linear1(
-                torch.cat([x_skip, g.expand(-1, x_skip.shape[1], -1)], -1)
+                torch.cat([x_skip, g.expand(-1, x_skip.shape[1], -1).to(x_skip.dtype)], -1)
             )
-        deep = F.relu(self.linear2_bn(self.linear2_fc(x_deep)))
+        deep = F.relu(self.linear2_bn(dense(self.linear2_fc, x_deep, self.dtype)))
         li, tile, width, window = local
         deep_up = cross_window_gather(deep, li, deep.shape[1], tile, width, window)
-        deep_up = (deep_up * up_w[..., None]).sum(2)
+        deep_up = (deep_up * up_w[..., None].to(deep_up.dtype)).sum(2)
         return self._linear1(x_skip) + deep_up
 
 
 class MLPTower(nn.Module):
     """Dense+BN+ReLU per width in ``dims`` (submodules fc<i>, bn<i>)."""
 
-    def __init__(self, d_in: int, dims: Sequence[int], bn_mode: str = "batch"):
+    def __init__(self, d_in: int, dims: Sequence[int], bn_mode: str = "batch",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.depth = len(dims)
+        self.dtype = dtype
         for i, d in enumerate(dims):
             self.add_module(f"fc{i}", nn.Linear(d_in, d))
             self.add_module(f"bn{i}", make_bn(bn_mode, d))
@@ -270,5 +304,5 @@ class MLPTower(nn.Module):
 
     def forward(self, x):
         for i in range(self.depth):
-            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"fc{i}")(x)))
+            x = F.relu(getattr(self, f"bn{i}")(dense(getattr(self, f"fc{i}"), x, self.dtype)))
         return x

@@ -4,6 +4,8 @@
 Only the flagship head is ported: ``multi-Ua-concat-latent`` (a latent tower
 per up stage, each stage's latent taken to level 0 by its nearest point,
 concatenated, one linear classifier). Submodule names are the flax names.
+``dtype`` (float32, or bfloat16 as the reference's bf16 presets) is every
+block's compute dtype (models/blocks.py); the classifier stays float32.
 """
 from __future__ import annotations
 
@@ -33,11 +35,11 @@ class MultiHead(nn.Module):
     ``base_fdim``), nearest-point upsample to level 0, concat, linear ``cls``."""
 
     def __init__(self, planes: Sequence[int], num_classes: int, base_fdim: int = 32,
-                 bn_mode: str = "batch"):
+                 bn_mode: str = "batch", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_levels = len(planes)
         for i, c in enumerate(planes):
-            self.add_module(f"latent{i}", MLPTower(c, (base_fdim,), bn_mode))
+            self.add_module(f"latent{i}", MLPTower(c, (base_fdim,), bn_mode, dtype))
         self.cls = nn.Linear(base_fdim * len(planes), num_classes)
 
     def forward(self, up_feats, pyramid: Pyramid):
@@ -66,29 +68,34 @@ class PointTransformerSeg(nn.Module):
                  planes: Sequence[int] = (32, 64, 128, 256, 512),
                  blocks: Sequence[int] = (2, 3, 4, 6, 3),
                  share_planes: int = 8, base_fdim: int = 32, in_features: int = 3,
-                 bn_mode: str = "batch"):
+                 bn_mode: str = "batch", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.planes, self.blocks = tuple(planes), tuple(blocks)
+        self.dtype = dtype
         nl = len(planes)
         c_in = 3 + in_features
         for l in range(nl):
             stride = 1 if l == 0 else 4
-            self.add_module(f"enc{l}_down", TransitionDown(c_in, planes[l], stride, bn_mode))
+            self.add_module(f"enc{l}_down",
+                            TransitionDown(c_in, planes[l], stride, bn_mode, dtype))
             for b in range(1, blocks[l]):
                 self.add_module(
-                    f"enc{l}_blk{b}", PointTransformerBlock(planes[l], share_planes, bn_mode)
+                    f"enc{l}_blk{b}",
+                    PointTransformerBlock(planes[l], share_planes, bn_mode, dtype),
                 )
             c_in = planes[l]
         self.add_module(
-            f"dec{nl - 1}_up", TransitionUp(planes[-1], planes[-1], True, bn_mode)
+            f"dec{nl - 1}_up", TransitionUp(planes[-1], planes[-1], True, bn_mode, dtype)
         )
         self.add_module(
-            f"dec{nl - 1}_blk", PointTransformerBlock(planes[-1], share_planes, bn_mode)
+            f"dec{nl - 1}_blk", PointTransformerBlock(planes[-1], share_planes, bn_mode, dtype)
         )
         for l in range(nl - 2, -1, -1):
-            self.add_module(f"dec{l}_up", TransitionUp(planes[l + 1], planes[l], False, bn_mode))
-            self.add_module(f"dec{l}_blk", PointTransformerBlock(planes[l], share_planes, bn_mode))
-        self.multihead = MultiHead(planes, num_classes, base_fdim, bn_mode)
+            self.add_module(f"dec{l}_up",
+                            TransitionUp(planes[l + 1], planes[l], False, bn_mode, dtype))
+            self.add_module(f"dec{l}_blk",
+                            PointTransformerBlock(planes[l], share_planes, bn_mode, dtype))
+        self.multihead = MultiHead(planes, num_classes, base_fdim, bn_mode, dtype)
 
     def forward(self, features: torch.Tensor, pyramid: Pyramid):
         """features [B, N0, in_features] in the pyramid's sorted row order →
@@ -105,7 +112,7 @@ class PointTransformerSeg(nn.Module):
         def meta(local, metas, l):
             return (local[l],) + metas[l]
 
-        x = torch.cat([pts[0], features], -1).float()
+        x = torch.cat([pts[0], features], -1).to(self.dtype)
         down_feats = []
         for l in range(nl):
             if l == 0:

@@ -6,7 +6,8 @@ Replaces contrastboundary_tpu/ops/pallas/pt_attn.py::pt_attn, forward
 ``csrc/pt_attn.cu``; the design and the bound are noted there.
 
 Contract (both versions): q [B, M, C] and kv [B, M, 2C] (linear_k | linear_v)
-float32, rel [B, M, K, 3] float32, li [B, M, K] window-relative in the self
+of one dtype, float32 or bfloat16, rel [B, M, K, 3] float32, li [B, M, K]
+window-relative in the self
 geometry (shadow slot = width·tile), starts int32 [M / tile] window starts in
 tiles, and the 12 folded tower arrays ``params`` = (A1 [3, 3], c1 [1, 3],
 W2 [3, C], b2 [1, C], g1 [1, C], h1 [1, C], W3 [C, Cs], b3 [1, Cs],
@@ -14,7 +15,11 @@ g2 [1, Cs], h2 [1, Cs], W4 [Cs, Cs], b4 [1, Cs]), Cs = C / shares. The
 forward returns out [B, M, C] and the batch statistics s1 = [mean, mean of
 squares] [2, C] of w_pre and s2 [2, Cs] of bvec, over all B·M·K slots (shadow
 slots included). The backward takes g_out [B, M, C] to (dq, dkv, the 12
-parameter gradients); rel and li take none. The kernels are built for
+parameter gradients); rel and li take none. Everything is computed in
+float32, bfloat16 q, kv and g_out widened exactly, as the TPU kernel does:
+out is rounded once to q's dtype, dq and dkv are float32 sums cast to q's
+and kv's dtype afterwards (where the reference casts them), and the
+statistics and the 12 gradients are float32. The kernels are built for
 shares = 8 (the flagship's share_planes) and C in {16, ..., 512}; the plain
 versions take any shares.
 """
@@ -32,6 +37,10 @@ from . import tile_gather as _tg
 # kernel launches made by the wrappers below (plain-version calls not counted)
 fwd_launches = 0
 bwd_launches = 0
+# the same launches by the dtype of q and kv
+DTYPES = _tg.DTYPES
+fwd_dtype_launches = dict.fromkeys(DTYPES.values(), 0)
+bwd_dtype_launches = dict.fromkeys(DTYPES.values(), 0)
 
 SHARES = 8  # share_planes the kernels are built for
 CHANNELS = (16, 32, 64, 128, 256, 512)
@@ -114,7 +123,7 @@ def pt_attn_plain(q, kv, rel, li, starts, tile: int, width: int, params):
     att = torch.softmax(t["w4o"].masked_fill(~t["valid"][..., None], float("-inf")), dim=2)
     vpe = (t["v_nb"] + t["pe"]).reshape(b, m, k, c // cs, cs)
     out = (vpe * att[:, :, :, None, :]).sum(2).reshape(b, m, c)
-    return out, s1, s2
+    return out.to(q.dtype), s1, s2
 
 
 def pt_attn_bwd_plain(q, kv, rel, li, starts, tile: int, width: int, params, g_out):
@@ -158,17 +167,22 @@ def pt_attn_bwd_plain(q, kv, rel, li, starts, tile: int, width: int, params, g_o
     d_w2, d_b2 = rowdot(t["r_pe"], dpe), colsum(dpe)
     dr_pe = (dpe @ t["w2"].T) * (t["pe1"] > 0)
     d_a1, d_c1 = rowdot(t["rel"], dr_pe), colsum(dr_pe)
-    return dq, dkv, (d_a1, d_c1, d_w2, d_b2, d_g1, d_h1, d_w3, d_b3, d_g2, d_h2, d_w4, d_b4)
+    return (dq.to(q.dtype), dkv.to(kv.dtype),
+            (d_a1, d_c1, d_w2, d_b2, d_g1, d_h1, d_w3, d_b3, d_g2, d_h2, d_w4, d_b4))
 
 
 def _cuda_args(q, kv, rel, li, starts, tile, width, params):
-    """Contiguous float32 operands on one CUDA device and the geometry;
-    raises on what the kernels do not take."""
+    """Contiguous operands on one CUDA device (q and kv float32 or bfloat16
+    alike, rel and the tower arrays float32) and the geometry; raises on
+    what the kernels do not take."""
     tensors = (q, kv, rel, li, starts) + tuple(params)
     if not all(x.is_cuda and x.device == q.device for x in tensors):
         raise ValueError(f"pt_attn: tensors on {sorted({str(x.device) for x in tensors})}")
-    if any(x.dtype != torch.float32 for x in (q, kv, rel) + tuple(params)):
-        raise TypeError("pt_attn takes float32")
+    if q.dtype not in DTYPES or kv.dtype != q.dtype:
+        raise TypeError(f"pt_attn takes float32 or bfloat16 q and kv alike, got {q.dtype}, "
+                        f"{kv.dtype}")
+    if any(x.dtype != torch.float32 for x in (rel,) + tuple(params)):
+        raise TypeError("pt_attn takes float32 rel and tower arrays")
     b, m, c, k, cs = _check(q, kv, rel, li, starts, tile, width, params)
     if c not in CHANNELS or c != SHARES * cs:
         raise ValueError(f"pt_attn kernels take C in {CHANNELS} with shares {SHARES}; got C={c}, Cs={cs}")
@@ -315,7 +329,7 @@ def pt_attn_fwd(q, kv, rel, li, starts, tile: int, width: int, params):
     (q, kv, rel, li, st), ps, (b, m, k, c, cs) = _cuda_args(
         q, kv, rel, li, starts, tile, width, params)
     plan = fwd_plan(b, m, k, c)
-    out = torch.empty((b, m, c), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, m, c), dtype=q.dtype, device=q.device)
     stats = torch.empty((plan.blocks, 2 * c + 2 * cs), dtype=torch.float32, device=q.device)
     ptrs = _pointers(ps)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -323,9 +337,10 @@ def pt_attn_fwd(q, kv, rel, li, starts, tile: int, width: int, params):
         q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p), out.data_ptr(), stats.data_ptr(),
         b, m, k, c, tile, width, plan.blocks, plan.threads, plan.rows, plan.chunk, plan.smem,
-        stream,
+        q.element_size(), stream,
     )
     fwd_launches += 1
+    fwd_dtype_launches[DTYPES[q.dtype]] += 1
     build.check(rc, "cbl_pt_attn_fwd")
     sums = stats.sum(0) / (b * m * k)
     return out, sums[: 2 * c].view(2, c), sums[2 * c:].view(2, cs)
@@ -333,7 +348,9 @@ def pt_attn_fwd(q, kv, rel, li, starts, tile: int, width: int, params):
 
 def pt_attn_bwd(q, kv, rel, li, starts, tile: int, width: int, params, g_out):
     """Backward: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. → (dq, dkv, 12 parameter gradients shaped as ``params``)."""
+    tensors. → (dq, dkv, 12 parameter gradients shaped as ``params``). The
+    kernel reads g_out in q's dtype (a float32 g_out for bfloat16 q is
+    refused: rounding it would lose what the reference keeps)."""
     global bwd_launches
     if q.device.type == "cpu":
         return pt_attn_bwd_plain(q, kv, rel, li, starts, tile, width, params, g_out)
@@ -341,7 +358,9 @@ def pt_attn_bwd(q, kv, rel, li, starts, tile: int, width: int, params, g_out):
         q, kv, rel, li, starts, tile, width, params)
     if g_out.shape != q.shape or g_out.device != q.device:
         raise ValueError(f"g_out {tuple(g_out.shape)} on {g_out.device} vs q {tuple(q.shape)}")
-    g_out = g_out.float().contiguous()
+    if g_out.dtype not in DTYPES or g_out.element_size() > q.element_size():
+        raise TypeError(f"pt_attn_bwd takes g_out of q's dtype {q.dtype}, got {g_out.dtype}")
+    g_out = g_out.to(q.dtype).contiguous()
     sizes = _prow(c, cs)
     plan = bwd_plan(b, m, k, c)
     dq = torch.empty((b, m, c), dtype=torch.float32, device=q.device)
@@ -353,10 +372,11 @@ def pt_attn_bwd(q, kv, rel, li, starts, tile: int, width: int, params, g_out):
         q.data_ptr(), kv.data_ptr(), rel.data_ptr(), li.data_ptr(), st.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p), g_out.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
         dp.data_ptr(), b, m, k, c, tile, width, plan.blocks, plan.threads, plan.rows,
-        plan.chunk, plan.smem, stream,
+        plan.chunk, plan.smem, q.element_size(), stream,
     )
     bwd_launches += 1
+    bwd_dtype_launches[DTYPES[q.dtype]] += 1
     build.check(rc, "cbl_pt_attn_bwd")
     flat = dp.sum(0)
     grads = tuple(g.view(p.shape) for g, p in zip(torch.split(flat, sizes), params))
-    return dq, dkv, grads
+    return dq.to(q.dtype), dkv.to(kv.dtype), grads

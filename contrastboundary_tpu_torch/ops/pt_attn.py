@@ -7,7 +7,9 @@ backward ::pt_attn_bwd; the plain PyTorch versions of both
 ``pt_attn_reference``, and ``pt_attn_bwd_plain``, the analytic backward) are
 the CPU path and the on-card reference. The backward keeps only (q, kv, rel,
 li, params) and recomputes every per-slot activation, as the TPU kernel's
-VJP does.
+VJP does. Dtypes pass through: bfloat16 q and kv give a bfloat16 out, whose
+bfloat16 cotangent gives bfloat16 dq and dkv; s1, s2 and the 12 gradients
+are float32.
 """
 from __future__ import annotations
 

@@ -203,6 +203,14 @@ def _geometry(plan) -> tuple:
     return (plan.blocks, plan.threads, plan.rows) + chunk + (plan.smem,)
 
 
+def elem_arg(entry, q) -> tuple:
+    """The element-size argument of an attention C entry that takes one
+    (entries from before bfloat16 q and kv have one parameter fewer than
+    build.SIGNATURES gives)."""
+    full = len(build.SIGNATURES[entry.__name__])
+    return (q.element_size(),) if len(entry.argtypes) == full else ()
+
+
 def attn_entries(name, call, old_lib, old_pa):
     """(old entry, new entry, operands kept alive, shape) of a pt_attn_fwd or
     pt_attn_bwd call, each checkout with its own launch geometry: its tile
@@ -228,24 +236,28 @@ def attn_entries(name, call, old_lib, old_pa):
         out = torch.empty_like(q)
         st_old = torch.empty((o_rows, 2 * c + 2 * cs_), device=q.device)
         st_new = torch.empty((plan.blocks, 2 * c + 2 * cs_), device=q.device)
+        o_elem, elem = (elem_arg(lib.cbl_pt_attn_fwd, q) for lib in (old_lib, build.library()))
         old = lambda: old_lib.cbl_pt_attn_fwd(*head, out.data_ptr(), st_old.data_ptr(), *dims,
-                                              *o_geo, stream)
+                                              *o_geo, *o_elem, stream)
         new = lambda: build.library().cbl_pt_attn_fwd(*head, out.data_ptr(), st_new.data_ptr(),
-                                                      *dims, *_geometry(plan), stream)
+                                                      *dims, *_geometry(plan), *elem, stream)
         keep = (out, st_old, st_new)
     else:
         plan = pa.bwd_plan(b, m, k, c)
         o_plan = old_pa.bwd_plan(b, m, k, c)
-        g = call[0][8].float().contiguous()
+        g = call[0][8].to(q.dtype).contiguous()
         prow = sum(pa._prow(c, cs_))
-        dq, dkv = torch.empty_like(q), torch.zeros_like(kv)  # dkv is added to, not zeroed
+        # float32 dq and dk|dv (dkv is added to, not zeroed)
+        dq = torch.empty_like(q, dtype=torch.float32)
+        dkv = torch.zeros_like(kv, dtype=torch.float32)
         dp_old = torch.empty((o_plan.blocks, prow), device=q.device)
         dp_new = torch.empty((plan.blocks, prow), device=q.device)
         grads = (g.data_ptr(), dq.data_ptr(), dkv.data_ptr())
+        o_elem, elem = (elem_arg(lib.cbl_pt_attn_bwd, q) for lib in (old_lib, build.library()))
         old = lambda: old_lib.cbl_pt_attn_bwd(*head, *grads, dp_old.data_ptr(), *dims,
-                                              *_geometry(o_plan), stream)
+                                              *_geometry(o_plan), *o_elem, stream)
         new = lambda: build.library().cbl_pt_attn_bwd(*head, *grads, dp_new.data_ptr(), *dims,
-                                                      *_geometry(plan), stream)
+                                                      *_geometry(plan), *elem, stream)
         keep = (g, dq, dkv, dp_old, dp_new)
     keep += (q, kv, rel, li, st, ps, ptrs)
     return old, new, keep, dict(C=c, M=m, K=k, plan=tuple(plan))

@@ -221,7 +221,7 @@ def clocks(dev, calls):
                             raise RuntimeError(f"clock mark not found in {name}: {a[:60]!r}")
                         text = text.replace(a, b, 1)
                 (tmp / name).write_text(text)
-        res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(tmp / "lib.so"),
+        res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(tmp / "lib.so"),
                               str(tmp / "cbl_tile2.cu")], capture_output=True, text=True,
                              timeout=900)
         if res.returncode:

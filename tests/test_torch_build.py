@@ -1,7 +1,7 @@
-"""kernels/build.py without a GPU: one nvcc call over every source with the
-sm_90a target, a library cached by the sources' hash, and a build that
-fails or finds no nvcc raises and leaves no library behind. nvcc is a
-stand-in script here."""
+"""kernels/build.py without a GPU: one nvcc compile of each source with the
+sm_90a target, all started together, and one link into a library cached by
+the sources' hash; a build that fails or finds no nvcc raises and leaves no
+library (and no object) behind. nvcc is a stand-in script here."""
 import os
 import stat
 
@@ -27,6 +27,8 @@ def build_root(tmp_path, monkeypatch):
 
 
 def test_one_nvcc_call_over_all_sources_then_cached(tmp_path, build_root, monkeypatch):
+    """One compile call a source (-c, the sm_90a target), then one link
+    call over their objects (-shared); a second build reuses the library."""
     log = tmp_path / "calls.txt"
     # record the arguments, then create the file named after -o
     home = _fake_nvcc(tmp_path, f'echo "$@" >> {log}\nwhile [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n')
@@ -34,11 +36,18 @@ def test_one_nvcc_call_over_all_sources_then_cached(tmp_path, build_root, monkey
     out = build.build()
     assert out.exists() and out.parent.parent == build_root
     assert out.parent.name == build.source_hash()
-    args = log.read_text().split()
-    assert "arch=compute_90a,code=sm_90a" in args and "-shared" in args
-    assert [a for a in args if a.endswith(".cu")] == [str(build.CSRC / s) for s in build.SOURCES]
+    calls = [line.split() for line in log.read_text().splitlines()]
+    compiles = [c for c in calls if "-c" in c]
+    links = [c for c in calls if "-shared" in c]
+    assert len(calls) == len(build.SOURCES) + 1 and len(links) == 1
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+    assert sorted(a for c in compiles for a in c if a.endswith(".cu")) == sorted(
+        str(build.CSRC / s) for s in build.SOURCES)
+    objects = sorted(c[c.index("-o") + 1] for c in compiles)
+    assert sorted(a for a in links[0] if a.endswith(".o")) == objects
+    assert not any(p.name.endswith(".o") for p in out.parent.iterdir())  # objects removed
     assert build.build() == out
-    assert len(log.read_text().splitlines()) == 1  # second call reuses the library
+    assert len(log.read_text().splitlines()) == len(calls)  # second call reuses the library
 
 
 def test_failed_build_raises_and_leaves_no_library(tmp_path, build_root, monkeypatch):
@@ -58,7 +67,7 @@ def test_missing_nvcc_raises(tmp_path, build_root, monkeypatch):
 
 
 def test_every_source_is_built_and_every_entry_is_bound():
-    """The one nvcc call covers every .cu file, the hash every .cuh header,
+    """The build compiles every .cu file, the hash covers every .cuh header,
     and each C entry point a wrapper calls has its ctypes signature."""
     assert sorted(build.SOURCES) == sorted(p.name for p in build.CSRC.glob("*.cu"))
     # the headers the sources include are part of the library's hash

@@ -50,14 +50,14 @@ ATTN_CALLS = ([(32, 65536, 8)] + [(64, 16384, 16)] * 2 + [(128, 4096, 16)] * 3
 SMEM_PER_SM = 233472  # an H100 SM's shared memory; each resident block takes 1 KB more
 
 
-def _check_gather_plan(rows, c, aligned):
-    plan = tg.gather_plan(rows, c, aligned)
+def _check_gather_plan(rows, c, aligned, elem_bytes=4):
+    plan = tg.gather_plan(rows, c, aligned, elem_bytes)
     blocks, chunks = plan.grid
     assert plan.rw & (plan.rw - 1) == 0 and plan.rw <= 32
     assert blocks * tg.WARPS_PER_BLOCK * plan.rw >= rows
     assert (blocks - 1) * tg.WARPS_PER_BLOCK * plan.rw < rows
-    if c % 4 == 0 and aligned:
-        cv = c // 4
+    if (c * elem_bytes) % 16 == 0 and aligned:
+        cv = c * elem_bytes // 16
         assert (plan.lpg, plan.nt) in VECTOR_KERNELS
         chunk = plan.lpg * plan.nt
         assert chunks * chunk >= cv > (chunks - 1) * chunk
@@ -67,8 +67,8 @@ def _check_gather_plan(rows, c, aligned):
         min_rw, row_bytes, target = 32 // plan.lpg, 16 * min(cv, chunk), tg.VEC_WARP_BYTES
     else:
         assert plan.lpg == 0 and chunks == 1
-        assert plan.rw % 4 == 0  # the warp's run starts 16-byte aligned
-        min_rw, row_bytes, target = 4, 4 * c, tg.SCALAR_WARP_BYTES
+        assert plan.rw % 4 == 0  # the warp's run starts aligned to 4 elements
+        min_rw, row_bytes, target = 4, elem_bytes * c, tg.SCALAR_WARP_BYTES
     assert plan.rw >= min_rw
     assert plan.rw == min_rw or plan.rw * row_bytes <= target
     assert plan.rw == 32 or 2 * plan.rw * row_bytes > target
@@ -83,6 +83,28 @@ def test_gather_plan_at_flagship_calls(x, idx):
     assert (plan.lpg == 0) == (c % 4 != 0)  # odd widths take the scalar-read path
     # a misaligned x or out always takes the scalar-read path
     assert _check_gather_plan(b * m * k, c, False).lpg == 0
+
+
+# (kv, idx) of the bfloat16 window_gather calls of the flagship bf16 step:
+# the 18 attention layers' [k | v] rows, 2C = 64 ... 1024 of them
+BF16_GATHER_CALLS = [((2, 65536, 64), (2, 65536, 8)), ((2, 16384, 128), (2, 16384, 16)),
+                     ((2, 4096, 256), (2, 4096, 16)), ((2, 1024, 512), (2, 1024, 16)),
+                     ((2, 256, 1024), (2, 256, 16))]
+
+
+@pytest.mark.parametrize("x,idx", BF16_GATHER_CALLS)
+def test_gather_plan_for_bf16_rows(x, idx):
+    """A bfloat16 row of C elements moves as the bits of a float32 row of
+    C / 2: the same vector-path plan at every flagship bf16 call; widths that
+    are not whole 16-byte pieces (C % 8 != 0) take the scalar-read path, and
+    so does a misaligned x or out."""
+    b, m, k = idx
+    c = x[2]
+    plan = _check_gather_plan(b * m * k, c, True, elem_bytes=2)
+    assert plan.lpg > 0 and plan == tg.gather_plan(b * m * k, c // 2, True)
+    assert _check_gather_plan(b * m * k, c, False, elem_bytes=2).lpg == 0
+    for odd in (c + 2, c + 4, c - 1):
+        assert _check_gather_plan(b * m * k, odd, True, elem_bytes=2).lpg == 0
 
 
 @pytest.mark.parametrize("c", GRID_WIDTHS)
