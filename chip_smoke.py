@@ -529,20 +529,20 @@ def compare_gather_bwd(call) -> float:
     exactly in any order). The kernel sums each row in slot order without
     atomics: the call run again gives the same bits, and so does the plain
     version on CPU copies (CPU index_add_ adds in index order)."""
-    (g, li, starts, tile, width, ns), kw, out = call
+    (g, li, starts, tile, width, ns), _, out = call
     what = f"window_gather_bwd {tuple(g.shape)} {g.dtype}"
     if g.dtype == BF16:  # one rounding of the plain version's float32 sum
-        f32 = tg.window_gather_bwd_plain(g, li, starts, tile, width, ns, dtype=torch.float32)
+        f32 = tg.window_gather_bwd_plain(g.float(), li, starts, tile, width, ns)
         err = compare_bf16("window_gather_bwd", out, f32, 0.0)
     else:
         err = compare_scaled("window_gather_bwd", out, tg.window_gather_bwd_plain(*call[0]), 1e-5)
     g_int = torch.randint_like(g, -3, 4)
-    require(torch.equal(tg.window_gather_bwd(g_int, li, starts, tile, width, ns, **kw),
-                        tg.window_gather_bwd_plain(g_int, li, starts, tile, width, ns, **kw)),
+    require(torch.equal(tg.window_gather_bwd(g_int, li, starts, tile, width, ns),
+                        tg.window_gather_bwd_plain(g_int, li, starts, tile, width, ns)),
             f"{what} not exact on integer cotangents")
-    require(torch.equal(bits(tg.window_gather_bwd(*call[0], **kw)), bits(out)),
+    require(torch.equal(bits(tg.window_gather_bwd(*call[0])), bits(out)),
             f"{what} differs between runs")
-    cpu = tg.window_gather_bwd_plain(g.cpu(), li.cpu(), starts.cpu(), tile, width, ns, **kw)
+    cpu = tg.window_gather_bwd_plain(g.cpu(), li.cpu(), starts.cpu(), tile, width, ns)
     require(torch.equal(bits(cpu), bits(out)), f"{what} is not the plain version's CPU sum bit for bit")
     return err
 
@@ -881,7 +881,7 @@ def gather_library_call(x, local_idx, starts, tile, width):
     return lambda: x[bidx, rows]
 
 
-def gather_bwd_library_call(g, local_idx, starts, tile, width, n_support, dtype=None):
+def gather_bwd_library_call(g, local_idx, starts, tile, width, n_support):
     """index_add_ of g's rows onto zeros with the global rows built outside
     the timed call (shadow slots add onto row 0 instead of nothing); for a
     bfloat16 g, the float32 index_add_ of g.float(), then .to(bfloat16)."""
@@ -984,8 +984,7 @@ def call_costs(name, call):
         g, li, starts, tile, width, ns = args
         n_bytes = size(g) + size(li) + size(starts) + size(out)
         shape = dict(g=list(g.shape), Ns=ns, W=tile * width, dtype=str(g.dtype))
-        return (kern, plain, gather_bwd_library_call(*args, **kw), n_bytes, float(g.numel()),
-                shape)
+        return kern, plain, gather_bwd_library_call(*args), n_bytes, float(g.numel()), shape
     if name in ("cbl_tile2_fwd", "cbl_tile2_bwd", "cbl_tile_fwd", "cbl_tile_bwd"):
         n_bytes, n_ops, shape = tile_costs(name, args, out)
         return kern, plain, None, n_bytes, n_ops, shape

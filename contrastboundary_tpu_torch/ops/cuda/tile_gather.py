@@ -17,8 +17,8 @@ onto its support row; shadow slots add nothing. Each dx row is the float32
 sum of its slots' rows (bfloat16 ones widened exactly) taken in ascending
 slot order (q, then k), starting from 0: the order of CPU ``index_add_``,
 and of the kernel on every run (no atomics); dx is that sum rounded once to
-``dtype`` (g's by default), as the reference's backward casts its float32
-sum (tile_gather_pl.py::_bwd_call).
+g's dtype, as the reference's backward casts its float32 sum to x's
+(tile_gather_pl.py::_bwd_call), which autograd makes g's.
 """
 from __future__ import annotations
 
@@ -152,10 +152,9 @@ def _rows(local_idx, starts, tile, width, n_support):
 
 
 def window_gather_bwd_plain(g, local_idx, starts, tile: int, width: int,
-                            n_support: int, dtype=None):
+                            n_support: int):
     """Plain PyTorch version: one float32 index_add_ of the valid slots'
-    rows (a shadow slot adds +0 onto row 0), cast to ``dtype`` (g's by
-    default). On the CPU index_add_ adds in index order, so each row is the
+    rows (a shadow slot adds +0 onto row 0), cast to g's dtype. On the CPU index_add_ adds in index order, so each row is the
     sequential sum in ascending slot order that the kernel computes; on the
     card it adds with atomics, in no fixed order."""
     b, m, k, c = g.shape
@@ -164,11 +163,11 @@ def window_gather_bwd_plain(g, local_idx, starts, tile: int, width: int,
     src = g.float().masked_fill(~valid[..., None], 0.0).reshape(-1, c)
     dx = torch.zeros((b * n_support, c), dtype=torch.float32, device=g.device)
     dx = dx.index_add_(0, rows.reshape(-1), src).reshape(b, n_support, c)
-    return dx.to(dtype or g.dtype)
+    return dx.to(g.dtype)
 
 
 def window_gather_bwd(g, local_idx, starts, tile: int, width: int,
-                      n_support: int, dtype=None):
+                      n_support: int):
     """Window-gather backward: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. The kernel (``csrc/window_gather_bwd.cu``) gives
     each support tile's rows to blocks that find the query tiles whose
@@ -176,19 +175,17 @@ def window_gather_bwd(g, local_idx, starts, tile: int, width: int,
     every window geometry), sort those slots by row in slot order and sum
     each row's gradient rows in that order in shared memory: no atomics,
     the same bits on every run, every dx element written once, rounded
-    once to ``dtype`` (g's by default; the kernel takes float32 g to float32
-    dx and bfloat16 g to bfloat16 dx). Bound: bytes (g and li read once, dx
+    once to g's dtype (float32 or bfloat16). Bound: bytes (g and li read once, dx
     written once). It takes M·K < 2^23."""
     global bwd_launches
     if g.device.type == "cpu":
-        return window_gather_bwd_plain(g, local_idx, starts, tile, width, n_support, dtype)
+        return window_gather_bwd_plain(g, local_idx, starts, tile, width, n_support)
     if not (g.is_cuda and local_idx.device == g.device and starts.device == g.device):
         raise ValueError(
             f"window_gather_bwd: tensors on {g.device}, {local_idx.device}, {starts.device}"
         )
-    if g.dtype not in DTYPES or (dtype or g.dtype) != g.dtype:
-        raise TypeError(f"window_gather_bwd takes float32 or bfloat16 g to dx of its dtype, "
-                        f"got {g.dtype} to {dtype}")
+    if g.dtype not in DTYPES:
+        raise TypeError(f"window_gather_bwd takes float32 or bfloat16, got {g.dtype}")
     b, m, k, c = g.shape
     if local_idx.shape != (b, m, k):
         raise ValueError(f"g {tuple(g.shape)} vs idx {tuple(local_idx.shape)}")

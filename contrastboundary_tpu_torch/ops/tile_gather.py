@@ -4,8 +4,8 @@ tile]·tile + idx] for a window-relative idx < W, zeros for the shadow index
 W. Both geometries are one autograd Function: its forward is
 ops/cuda/tile_gather.py::window_gather, its backward ::window_gather_bwd
 (each slot's gradient row added onto its support row, summed in float32 and
-returned in x's dtype, float32 or bfloat16, as the reference's backward
-casts its float32 sum to x's dtype)."""
+returned in g's dtype, which autograd makes x's, float32 or bfloat16, as
+the reference's backward casts its float32 sum to x's dtype)."""
 from __future__ import annotations
 
 import numpy as np
@@ -32,15 +32,13 @@ class _WindowGather(torch.autograd.Function):
     def forward(ctx, x, local_idx, starts, tile, width):
         ctx.save_for_backward(local_idx, starts)
         ctx.geometry = (tile, width, x.shape[1])
-        ctx.x_dtype = x.dtype
         return _tg.window_gather(x, local_idx, starts, tile, width)
 
     @staticmethod
     def backward(ctx, g):
         local_idx, starts = ctx.saved_tensors
         tile, width, n_support = ctx.geometry
-        dx = _tg.window_gather_bwd(g, local_idx, starts, tile, width, n_support,
-                                   dtype=ctx.x_dtype)
+        dx = _tg.window_gather_bwd(g, local_idx, starts, tile, width, n_support)
         return dx, None, None, None, None
 
 

@@ -145,8 +145,9 @@ def test_bf16_gather_backward_matches_jax_vjp(case, pallas):
     x, li, g = _gather_case(c, k, width, seed=2)
     tg_, eg = _bf16(g)
     starts = torch.as_tensor(window_starts(G, width), dtype=torch.int32)
-    dx = tg.window_gather_bwd_plain(tg_, torch.as_tensor(li), starts, TILE, width, M,
-                                    dtype=BF16).float().numpy()
+    dx = tg.window_gather_bwd_plain(tg_, torch.as_tensor(li), starts, TILE, width, M)
+    assert dx.dtype == BF16
+    dx = dx.float().numpy()
 
     def f(xx):
         if pallas:

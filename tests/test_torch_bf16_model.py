@@ -6,23 +6,35 @@ and take a flax tree as the float32 model does; its eval logits and one
 train step (make_train_step) against JAX's bfloat16 ones from the same
 weights and batch.
 
-Each tolerance is set against JAX's own bfloat16-vs-float32 gap on the same
+Each tolerance is half of JAX's own bfloat16-vs-float32 gap on the same
 inputs, computed here (JAX's float32 eval and step beside its bfloat16 ones):
-- Eval logits: the RMS of port − JAX bf16 at most half the RMS of JAX bf16 −
-  JAX f32 (the eval path has no data-dependent statistics: the port rounds
-  where the reference does, and the two differ by float32 sum order).
-- Train step, ce and loss: at most half of |JAX bf16 − JAX f32|.
-- Train step, the CBL terms and the weights after the step: at most 1.5 times
-  JAX's gap. Batch BN normalizes with statistics summed over the batch in
-  float32 in another order than XLA's; where a normalized value lies within
-  that difference of a bfloat16 rounding boundary, the next Dense's input
-  rounds the other way (one bf16 ulp). These flips are few per tensor but
-  compound through the levels, and at the coarse levels (64 and 16 points a
-  cloud here) they move the CBL terms and the update about as much as bf16
-  rounding itself does (measured: cbl 0.87, cbl_stage2 1.05, parameters
-  0.85 and batch_stats 0.54 of JAX's gap; ce 0.06 and loss 0.17). Under
-  stale BN, which normalizes with statistics fixed before the step, the same
-  comparison holds at half the gap (tests/test_torch_bf16_stale.py).
+- Eval logits: max |port − JAX bf16| at most half of max |JAX bf16 − JAX
+  f32|, per element (the eval path has no data-dependent statistics; the
+  port rounds where the reference does, and the two differ by float32 sum
+  order).
+- Train step: each metric at most half of |JAX bf16 − JAX f32|; the
+  parameters and batch statistics after the step within half of the
+  distance between JAX's f32 and bf16 steps, as fractions of JAX's update
+  (as tests/test_torch_train.py states its tolerances).
+
+Both JAX steps are lowered under bp.reference_sums: bfloat16 reduce_sums
+(the bias cotangents of the bfloat16 Denses) as float32 sums rounded once,
+and flax's batch statistics summed in float64. As they are, XLA's CPU backend
+sums a bfloat16 reduce in bfloat16 (enc0's p_fc1 bias, such a sum over
+16,384 rows, carries half the port's squared distance from JAX's step in
+the parameters), and sums the statistics in an
+order a few float32 ulps from the exact sum; values that lie within that of
+a bfloat16 rounding boundary round the other way at the next Dense, and the
+batch statistics of the coarse levels spread the flips over every row: the
+port was 0.85 of the gap from JAX's step in the parameters and 1.05 in
+cbl_stage2, and JAX against itself on the batch with its two clouds swapped
+0.43 and 0.13 (tests/torch_bf16_sum_order.py). Under reference_sums the
+port is 0.028 of the gap in the parameters and at most 4e-4 in every
+metric and in the statistics: its batch statistics here are the float64
+sums' bits. At seeds where one statistic differs in its last bit the flips
+return (weights 1 and 2: the port against itself with float64 statistics
+0.34 and 0.38 of the gap in the parameters), and no tolerance at half the
+gap separates sum order from a fault; this batch is not one of them.
 """
 import numpy as np
 import pytest
@@ -35,18 +47,19 @@ from contrastboundary_tpu_torch.eval.step import make_eval_step
 from contrastboundary_tpu_torch.models import load_jax_variables, to_jax_variables
 from test_torch_train import _leaves
 
-HALF, FLIPS = 0.5, 1.5
-METRIC_FACTOR = {"ce": HALF, "loss": HALF, "cbl": FLIPS, "cbl_stage0": FLIPS,
-                 "cbl_stage1": FLIPS, "cbl_stage2": FLIPS}
+HALF = 0.5
 
 
 @pytest.fixture(scope="module")
 def runs():
     tree, data = bp.seeded_tree(0), bp.batch()
     out = {"tree": tree, "data": data}
-    for name, dt in (("bf16", jnp.bfloat16), ("f32", jnp.float32)):
+    dtypes = {"bf16": jnp.bfloat16, "f32": jnp.float32}
+    for name, dt in dtypes.items():
         out[f"jax_eval_{name}"] = bp.jax_eval_logits("batch", dt, tree, data)
-        out[f"jax_step_{name}"] = bp.jax_train_step("batch", dt, tree, data)
+    with bp.reference_sums():
+        for name, dt in dtypes.items():
+            out[f"jax_step_{name}"] = bp.jax_train_step("batch", dt, tree, data)
     model = load_jax_variables(bp.port_model("batch", torch.bfloat16), tree)
     out["port_eval"] = bp.port_eval_logits(model, data)
     out["port_probs"] = make_eval_step(model, bp.SPEC, device="cpu")(data)[0].numpy()
@@ -67,7 +80,8 @@ def test_bf16_model_keeps_float32_parameters_and_takes_a_flax_tree():
 def test_bf16_eval_logits_match_jax(runs):
     port, ref, f32 = runs["port_eval"], runs["jax_eval_bf16"], runs["jax_eval_f32"]
     assert np.isfinite(port).all() and port.shape == ref.shape
-    assert bp.rms(port, ref) <= HALF * bp.rms(ref, f32), (bp.rms(port, ref), bp.rms(ref, f32))
+    got, gap = np.abs(port - ref).max(), np.abs(ref - f32).max()
+    assert got <= HALF * gap, (got, gap)
     # the eval step serves the same logits as float32 probabilities
     probs = runs["port_probs"]
     assert probs.dtype == np.float32
@@ -79,7 +93,7 @@ def test_bf16_eval_logits_match_jax(runs):
 def test_bf16_train_step_metrics_match_jax(runs, metric):
     port, ref, f32 = (runs[k][0][metric] for k in ("port_step", "jax_step_bf16", "jax_step_f32"))
     assert np.isfinite(port)
-    assert abs(port - ref) <= METRIC_FACTOR[metric] * abs(ref - f32), (port, ref, f32)
+    assert abs(port - ref) <= HALF * abs(ref - f32), (port, ref, f32)
 
 
 @pytest.mark.parametrize("collection", ["params", "batch_stats"])
@@ -93,6 +107,6 @@ def test_bf16_train_step_weights_match_jax(runs, collection):
     update = bp.tree_dist(ref, before, collection)
     got = bp.tree_dist(after, ref, collection) / update
     gap = bp.tree_dist(f32, ref, collection) / update
-    assert got <= FLIPS * gap, (got, gap)
+    assert got <= HALF * gap, (got, gap)
     for key, v in _leaves(after[collection]):
         assert v.dtype == np.float32 and np.isfinite(v).all(), key

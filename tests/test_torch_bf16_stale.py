@@ -18,7 +18,9 @@ PT_ATTN=off, which computes the same function in float32):
   steps, as fractions of JAX's update (as tests/test_torch_train.py states
   its tolerances). Stale BN normalizes with statistics fixed before the
   step, so no float32 sum order reaches a bfloat16 rounding in the forward
-  but the attention's own.
+  but the attention's own. Both JAX steps are lowered under
+  bp.reference_sums, as in tests/test_torch_bf16_model.py (here only its
+  float32 sums of bfloat16 cotangents act: no flax nn.BatchNorm runs).
 """
 import numpy as np
 import pytest
@@ -40,7 +42,7 @@ HALF = 0.5
 def runs():
     tree, data = bp.seeded_tree(1), bp.batch()
     out = {"tree": tree, "data": data}
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, bp.reference_sums():
         for name, dt, env in (("bf16", jnp.bfloat16, "interpret"), ("f32", jnp.float32, "off")):
             mp.setenv("PT_ATTN", env)
             out[f"jax_eval_{name}"] = bp.jax_eval_logits("stale", dt, tree, data)

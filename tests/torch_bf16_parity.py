@@ -10,7 +10,28 @@ its fusion choices, so the reference would round where flax's ops say at
 some shapes and not at others. Off, every bfloat16 op of the reference
 rounds where its flax op does, which is what the port computes
 (models/blocks.py).
+
+``reference_sums`` lowers the JAX train steps with two sums taken as the
+port takes them; neither moves a rounding to bfloat16:
+- ``float32_bf16_sums``: a bfloat16 ``reduce_sum`` as a float32 sum rounded
+  once. JAX's autodiff emits one for the cotangent of every broadcast of a
+  bfloat16 value (each bfloat16 Dense's bias, ``q[:, :, None]`` in the
+  attention), and XLA's CPU backend sums it in bfloat16 (enc0's p_fc1 bias
+  gradient, such a sum over 16,384 rows, carries half the port's squared
+  parameter distance from the step as JAX lowers it).
+  jnp.sum upcasts bfloat16 to float32 and rounds once, and so do torch's
+  sums, which compute these gradients in the port.
+- ``exact_batch_stats``: flax nn.BatchNorm's batch mean and E[x²] (float32
+  by flax) summed in float64 and rounded to float32, instead of summed in
+  float32 in XLA's CPU order, which lands a few float32 ulps from the exact
+  mean over the 16k-32k terms of a channel (the port's torch sums give the
+  float64 sums' bits on this batch). Where a normalized value lies within
+  that difference of a bfloat16 rounding boundary, the next Dense's input
+  rounds the other way, and at these sizes the batch statistics of the
+  later levels spread such flips over every row (tests/torch_bf16_sum_order.py
+  prints how far the sum order alone moves the step).
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -19,6 +40,9 @@ import torch
 import jax
 import jax.numpy as jnp
 from flax import struct
+from flax.linen import normalization as flax_norm
+from jax._src.interpreters import mlir
+from jax._src.lax import lax as jax_lax
 
 from contrastboundary_tpu.losses.contrast import ContrastConfig as JaxContrast
 from contrastboundary_tpu.models import PointTransformerSeg as JaxSeg
@@ -44,8 +68,8 @@ NO_EXCESS = {"xla_allow_excess_precision": False}
 METRICS = ("ce", "cbl", "loss", "cbl_stage0", "cbl_stage1", "cbl_stage2")
 
 
-def batch():
-    pts, feats, labels = synthetic_crops(2, 1024, seed=5)
+def batch(seed=5):
+    pts, feats, labels = synthetic_crops(2, 1024, seed=seed)
     labels[:, ::97] = -1  # some ignored points
     return {"points": pts, "features": feats, "labels": labels}
 
@@ -97,6 +121,59 @@ def _compiled(fn, *args):
     return fn.lower(*args).compile(compiler_options=NO_EXCESS)(*args)
 
 
+@contextlib.contextmanager
+def float32_bf16_sums():
+    """While active, JAX lowers a bfloat16 reduce_sum as the float32 sum of
+    its widened operand rounded once to bfloat16."""
+    entry = mlir._lowerings[jax_lax.reduce_sum_p]
+
+    def lower(ctx, x, *, axes, **kw):
+        if ctx.avals_in[0].dtype != jnp.bfloat16:
+            return entry.rule(ctx, x, axes=axes, **kw)
+        return mlir.lower_fun(lambda y: jax_lax.convert_element_type(jax_lax.reduce_sum_p.bind(
+            jax_lax.convert_element_type(y, jnp.float32), axes=axes, **kw), jnp.bfloat16),
+            multiple_results=False)(ctx, x)
+
+    mlir.register_lowering(jax_lax.reduce_sum_p, lower)
+    try:
+        yield
+    finally:
+        mlir._lowerings[jax_lax.reduce_sum_p] = entry
+        jax.clear_caches()  # no later lowering reuses this one
+
+
+def _exact_stats(x, axes, dtype, axis_name=None, axis_index_groups=None, use_mean=True,
+                 use_fast_variance=True, mask=None, force_float32_reductions=True):
+    """flax.linen.normalization._compute_stats as nn.BatchNorm calls it in
+    the reference (fast variance, no mask, no named axis), with x and x·x
+    (float32, as flax's) summed in float64 and each mean rounded to
+    float32."""
+    assert use_mean and use_fast_variance and mask is None and axis_name is None
+    x = x.astype(jnp.promote_types(dtype or x.dtype, jnp.float32))
+    with jax.enable_x64(True):
+        mu, mu2 = (jnp.mean(v.astype(jnp.float64), axes).astype(x.dtype) for v in (x, x * x))
+    return mu, jnp.maximum(0.0, mu2 - mu * mu)
+
+
+@contextlib.contextmanager
+def exact_batch_stats():
+    """While active, flax nn.BatchNorm traces its batch statistics as
+    float64 sums rounded to float32."""
+    compute = flax_norm._compute_stats
+    flax_norm._compute_stats = _exact_stats
+    try:
+        yield
+    finally:
+        flax_norm._compute_stats = compute
+
+
+@contextlib.contextmanager
+def reference_sums():
+    """The JAX train steps' sums as the port takes them (module docstring)."""
+    with float32_bf16_sums(), exact_batch_stats():
+        yield
+
+
 def jax_eval_logits(bn_mode, dtype, tree, data):
     """JAX make_eval_step(output='logits') → float32 logits [B, N, classes]
     in the batch's row order."""
@@ -121,7 +198,8 @@ def port_eval_logits(model, data):
 
 def jax_train_step(bn_mode, dtype, tree, data):
     """JAX make_train_step from ``tree`` (SGD momentum 0.9, weight decay
-    1e-4, lr 0.05, the momentum zero) → (metrics, variables after)."""
+    1e-4, lr 0.05, the momentum zero) → (metrics, variables after); run it
+    inside ``reference_sums`` for the sums the port takes."""
     tx = jax_make_optimizer(0.05, momentum=0.9, weight_decay=1e-4)
     port = load_jax_variables(port_model("batch", torch.float32), tree)
     state = _jax_state(tree, _momentum_tree(port, make_optimizer(port.parameters(), 0.05)), tx)
