@@ -7,7 +7,8 @@ trained checkpoint results/ckpts/parity_s0_fast_e15.pkl. Phases, each
 printed with its elapsed seconds; any failed check raises, so the exit code
 is not 0:
 
-1. build   the CUDA kernels (one nvcc call, contrastboundary_tpu_torch/_build/).
+1. build   the CUDA kernels (one nvcc -c a source, all started together, then
+           one link, into contrastboundary_tpu_torch/_build/<hash>/).
 2. kernels window top-k and window gather against their plain PyTorch
            versions on the card, at every geometry of a B=2 x N=65536
            request: integer-grid clouds with duplicated rows (exact) and
@@ -169,6 +170,27 @@ is not 0:
            the bfloat16 bytes and the library calls x[b, rows] and a float32
            index_add_ of g.float() then .to(bfloat16); and each call beside
            its float32 twin (the operands widened) in turns, summed.
+20. eval-features the checkpoint through make_eval_step(output='logits',
+           with_features=True) on phase serve's crops: one request with the
+           counts reset (window_topk and window_gather launched as in phase
+           serve), softmax(logits) within 1e-6 of phase serve's probs with the
+           same argmax, each stage's latent [B, N, d] finite in the caller's
+           row order, the logits and every latent within 1e-3 of their scale
+           of the plain versions'; the same for one stale-BN request against
+           phase stale-serve (pt_attn_fwd exactly 18).
+21. voting-features run_voting_eval over synthetic val room 0 (71,303 points
+           after voxelization) with the feature step, num_votes 1.0, at most
+           40 requests (requests, final minimum potential, sub and full mIoU
+           and OA), then run_boundary_suite with 'boundary-stat-feature' on
+           the voted cloud: B-IoU finite in [0, 1], every latent's l2, cos and
+           norml2 distances finite, pct_err_on_bound_label printed.
+22. enumerate run_enumerate_eval over room 0 (n_points 65536, voxel_max
+           80000, B=2 crops a request, 'boundary-stat'): every point covered,
+           full OA >= 0.5 with the trained checkpoint; passes, parts,
+           requests, the eval step's median ms a request on the host clock,
+           the room's seconds split into the eval step (to a synchronize) and
+           the host's numpy and copies, B-IoU. Phases 20-22 print the card's
+           name and power limit.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -201,6 +223,9 @@ import numpy as np
 import torch
 
 from contrastboundary_tpu_torch.data.synthetic import SyntheticSceneDataset, train_batch
+from contrastboundary_tpu_torch.eval.run import (
+    run_boundary_suite, run_enumerate_eval, run_voting_eval,
+)
 from contrastboundary_tpu_torch.eval.step import make_eval_step
 from contrastboundary_tpu_torch.eval.voting import VotingEvaluator
 from contrastboundary_tpu_torch.kernels import build
@@ -1856,6 +1881,128 @@ def voting(predict, what="request", steps=3) -> None:
           f"(sub mIoU so far {m['sub']['mIoU']:.4f})", flush=True)
 
 
+def eval_features(dev, batch, served: dict, bn_mode="batch") -> dict:
+    """Phase 20: make_eval_step(output='logits', with_features=True) on the
+    checkpoint and phase serve's batch (``served``: the probs and launches
+    of phase serve, or of phase stale-serve under stale BN): one request with
+    the counts reset just before and read just after (as the served
+    request's), softmax(logits) within 1e-6 of the served probs with the
+    same argmax, each latent [B, N, d] finite in the caller's row order, and
+    the logits and every latent within 1e-3 of their scale of the plain
+    versions'."""
+    model, _ = load_model(bn_mode)
+    step = make_eval_step(model, PyramidSpec(), device=dev, num_classes=NUM_CLASSES,
+                          output="logits", with_features=True)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, _, feats = step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in read_counts().items() if k in served["launches"]}
+    print(f"feature request ({bn_mode} BN): launches {launches}, {ms:.3f} ms on the host clock",
+          flush=True)
+    require(launches == served["launches"],
+            f"launches {launches} differ from the served request's {served['launches']}")
+    probs = torch.softmax(logits, -1)
+    d = float((probs - served["probs"]).abs().max())
+    print(f"softmax(logits) vs the served probs: max|d| {d:.3g}", flush=True)
+    require(d <= 1e-6, "softmax(logits) differs from the served probs")
+    require(torch.equal(probs.argmax(-1), served["probs"].argmax(-1)),
+            "softmax(logits) and the served probs disagree on an argmax")
+    require(logits.shape == (B, N, NUM_CLASSES), f"logits {tuple(logits.shape)}")
+    for k, v in feats.items():
+        require(v.shape[:2] == (B, N) and bool(torch.isfinite(v).all()),
+                f"{k} {tuple(v.shape)} not finite")
+    with plain_kernels():
+        p_logits, _, p_feats = step(batch)
+    require(sorted(feats) == sorted(p_feats), "the plain step gave other latents")
+    errs = {"logits": compare_scaled("logits", logits, p_logits, 1e-3)}
+    for k in sorted(feats):
+        errs[k] = compare_scaled(k, feats[k], p_feats[k], 1e-3)
+    print(f"latents {', '.join(f'{k} {tuple(v.shape)}' for k, v in sorted(feats.items()))}; "
+          f"kernels vs plain versions max|d|: "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())}", flush=True)
+    return dict(model=model, launches=launches)
+
+
+def voting_features(dev, model, max_steps=40) -> None:
+    """Phase 21: run_voting_eval over room 0 with the feature step
+    (num_votes 1.0, at most ``max_steps`` requests), then run_boundary_suite
+    with 'boundary-stat-feature' on the voted cloud: B-IoU finite in [0, 1],
+    every latent's l2, cos and norml2 distances finite."""
+    ctx = {}
+    t0 = time.perf_counter()
+    m = run_voting_eval(model, PyramidSpec(), room0(), num_classes=NUM_CLASSES, n_points=N,
+                        batch_size=B, voxel_size=0.04, num_votes=1.0, extra_ops="feature",
+                        max_steps=max_steps, device=dev, ctx=ctx, log=lambda *_: None)
+    t_vote = time.perf_counter() - t0
+    ev = ctx["evaluator"]
+    cs = ev.clouds[0]
+    print(f"voting with features: {ev.requests} requests in {t_vote:.3f} s "
+          f"({t_vote / ev.requests * 1e3:.3f} ms a request), {len(cs.coord)} points, final "
+          f"min potential {cs.min_potential():.4f}, sub mIoU {m['sub']['mIoU']:.4f} OA "
+          f"{m['sub']['OA']:.4f}, full mIoU {m['full']['mIoU']:.4f} OA {m['full']['OA']:.4f}",
+          flush=True)
+    require(len(cs.features) == len(model.planes), f"latents {sorted(cs.features)}")
+    t0 = time.perf_counter()
+    clouds = [{"coord": c.coord, "label": c.label, "prob": c.probs, "features": c.features}
+              for c in ev.clouds]
+    bm = run_boundary_suite(clouds, NUM_CLASSES, 0.1, "boundary-stat-feature",
+                            log=lambda *_: None)
+    br, st = bm["boundary"], bm["stat"]
+    b_iou = br["B-IoU"]
+    print(f"boundary suite in {time.perf_counter() - t0:.3f} s: B-IoU {b_iou:.4f}, "
+          f"pct_err_on_bound_label {st['pct_err_on_bound_label']:.4f}", flush=True)
+    require(np.isfinite(b_iou) and 0 <= b_iou <= 1, f"B-IoU {b_iou}")
+    for k in sorted(cs.features):
+        for kind in ("l2", "cos", "norml2"):
+            d = br[f"dist_{k}:{kind}"]
+            require(bool(np.isfinite(list(d.values())).all()), f"dist_{k}:{kind} {d}")
+        d = br[f"dist_{k}:l2"]
+        print(f"  dist_{k}:l2 pos {d['pos']:.4f} neg {d['neg']:.4f} bound "
+              f"{d['bound_mean']:.4f} plain {d['plain_mean']:.4f}", flush=True)
+
+
+def enumerate_room(dev, model, trained: bool) -> None:
+    """Phase 22: run_enumerate_eval over room 0 (n_points N, voxel_max
+    80000, B crops a request, 'boundary-stat'): every point covered, full OA
+    >= 0.5 with the trained checkpoint; the eval step's time per request on
+    the host clock and the room's seconds split into the eval step (launches
+    and device, to a synchronize) and the rest (host numpy and copies)."""
+    step = make_eval_step(model, PyramidSpec(), device=dev, num_classes=NUM_CLASSES,
+                          output="logits")
+    step_s = []
+
+    def timed(bt):
+        t0 = time.perf_counter()
+        out = step(bt)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    ctx = {"eval_step": timed}
+    t0 = time.perf_counter()
+    m = run_enumerate_eval(model, PyramidSpec(), room0(), num_classes=NUM_CLASSES, n_points=N,
+                           voxel_size=0.04, voxel_max=80000, batch_size=B,
+                           extra_ops="boundary-stat", device=dev, ctx=ctx, log=lambda *_: None)
+    total = time.perf_counter() - t0
+    ev = ctx["evaluator"]
+    counts = ev.pred_counts[0]
+    oa = m["full"]["OA"]
+    print(f"enumerate: {ev.passes[0]} passes, {ev.parts[0]} parts, {ev.requests} requests, "
+          f"{len(counts)} points (each predicted {int(counts.min())}-{int(counts.max())} times); "
+          f"eval step {statistics.median(step_s) * 1e3:.3f} ms a request (median on the host "
+          f"clock); room {total:.3f} s = eval step {sum(step_s):.3f} s + host "
+          f"{total - sum(step_s):.3f} s; full mIoU {m['full']['mIoU']:.4f} OA {oa:.4f} mACC "
+          f"{m['full']['mACC']:.4f}; B-IoU {m['boundary']['B-IoU']:.4f}, pct_err_on_bound_label "
+          f"{m['stat']['pct_err_on_bound_label']:.4f}", flush=True)
+    require(bool((counts > 0).all()), "enumeration missed points")
+    if trained:
+        require(oa >= 0.5, f"enumerate full OA {oa:.4f} < 0.5")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1917,7 +2064,9 @@ def main() -> int:
         stale_summary = time_calls(stale_served.pop("calls"), dev, stale_served["launches"],
                                    {"pt_attn_fwd": 0.0}, ("pt_attn_fwd",), records=records)
         print_widths(records)
-    f32_serve = dict(probs=served["probs"], med=served["med"], peak=served["peak"])
+    f32_serve = dict(probs=served["probs"], med=served["med"], peak=served["peak"],
+                     launches=served["launches"])
+    stale_serve = dict(probs=stale_served["probs"], launches=stale_served["launches"])
     del served, stale_served, step, predict
     torch.cuda.empty_cache()
 
@@ -2040,6 +2189,22 @@ def main() -> int:
     with phase("bf16-kernels"), cbl_route_env("dense"):
         bf16_summary = check_bf16_kernels(dev, bf16_calls, bf16_launches)
     del bf16_calls
+    torch.cuda.empty_cache()
+
+    with phase("eval-features"):
+        print(f"card: {card_line()}", flush=True)
+        feat = eval_features(dev, batch, f32_serve)
+        stale_feat = eval_features(dev, batch, stale_serve, "stale")
+        n_fwd = stale_feat["launches"]["pt_attn_fwd"]
+        require(n_fwd == ATTENTION_LAYERS, f"pt_attn_fwd: {n_fwd} launches, not {ATTENTION_LAYERS}")
+        del stale_feat, stale_serve
+    with phase("voting-features"):
+        print(f"card: {card_line()}", flush=True)
+        voting_features(dev, feat["model"])
+    with phase("enumerate"):
+        print(f"card: {card_line()}", flush=True)
+        enumerate_room(dev, feat["model"], CKPT.exists())
+    del feat
 
     summary = []
     for entry in train_summary:

@@ -45,6 +45,37 @@ def metrics_from_confusion(conf, proportions: Optional[np.ndarray] = None) -> di
     }
 
 
+class Metrics(dict):
+    """Metric dict with ordered comparison: by the ``order`` keys in
+    sequence (mIoU, then OA, then mACC by default), as the best snapshot is
+    picked."""
+
+    ORDER = ("mIoU", "OA", "mACC")
+
+    def __init__(self, *args, order=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.order = tuple(order) if order else Metrics.ORDER
+
+    def _key(self):
+        return tuple(float(self.get(k, float("-inf"))) for k in self.order)
+
+    def __lt__(self, other):
+        return self._key() < other._key()
+
+    def __gt__(self, other):
+        return self._key() > other._key()
+
+    def __ge__(self, other):
+        return not self < other
+
+    def __le__(self, other):
+        return not self > other
+
+    def scalar_str(self) -> str:
+        return " ".join(f"{k}={float(v):.4f}" for k, v in self.items()
+                        if isinstance(v, (int, float)))
+
+
 class AverageMeter:
     """Running average."""
 

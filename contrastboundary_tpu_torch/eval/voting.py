@@ -1,11 +1,11 @@
 """Voting inference: the request loop of the served model (counterpart of
-contrastboundary_tpu/eval/voting.py, without the per-stage feature
-accumulators).
+contrastboundary_tpu/eval/voting.py).
 
-Potential-driven crop coverage, smoothed probability accumulation and
-nearest-point reprojection to the full cloud run on the host in numpy; each
-request (one batch of fixed-size crops, padded by repetition) goes to
-``predict_fn``, which runs the eval step on the device.
+Potential-driven crop coverage, smoothed probability (and per-stage
+feature) accumulation and nearest-point reprojection to the full cloud run
+on the host in numpy; each request (one batch of fixed-size crops, padded
+by repetition) goes to ``predict_fn``, which runs the eval step on the
+device.
 """
 from __future__ import annotations
 
@@ -29,11 +29,18 @@ class CloudVoteState:
         n = len(coord)
         self.probs = np.zeros((n, num_classes), np.float32)
         self.counts = np.zeros((n,), np.int64)
+        # per-stage feature accumulators {name: [n, d]}, smoothed as probs
+        self.features: Dict[str, np.ndarray] = {}
         self.potentials = np.random.RandomState(42).rand(n).astype(np.float64) * 1e-3
         self.tree = cKDTree(coord)
 
     def min_potential(self) -> float:
         return float(self.potentials.min())
+
+    def reset_potentials(self):
+        """A new vote round: fresh coverage potentials, the accumulated
+        probs and features kept (the running vote across rounds)."""
+        self.potentials = np.random.RandomState(42).rand(len(self.coord)).astype(np.float64) * 1e-3
 
     def next_crop(self, n_points: int, crop_mode: str = "count",
                   in_radius: float = 2.0, rng=None):
@@ -67,13 +74,18 @@ class CloudVoteState:
         self.potentials[idx] += np.square(1 - np.square(d) / r2)
         return idx
 
-    def accumulate(self, src_idx, probs, smooth: float):
+    def accumulate(self, src_idx, probs, smooth: float, feats=None):
         """probs [n_points, C] for crop rows mapping to src_idx; duplicate
-        (padded) rows vote once per crop (the first occurrence)."""
+        (padded) rows vote once per crop (the first occurrence). ``feats``:
+        optional {name: [n_points, d]} per-stage features, smoothed as
+        probs."""
         uniq, first = np.unique(src_idx, return_index=True)
         p = probs[first]
         self.probs[uniq] = smooth * self.probs[uniq] + (1 - smooth) * p
         self.counts[uniq] += 1
+        for k, v in (feats or {}).items():
+            acc = self.features.setdefault(k, np.zeros((len(self.coord), v.shape[-1]), np.float32))
+            acc[uniq] = smooth * acc[uniq] + (1 - smooth) * v[first]
 
     def predictions(self):
         return self.probs.argmax(-1)
@@ -98,7 +110,8 @@ class VotingEvaluator:
         in_radius: float = 2.0,
     ):
         """predict_fn: batch {points, features, labels} [B, N, ...] → probs
-        [B, N, C] (numpy, or anything np.asarray takes)."""
+        [B, N, C], or (probs, {name: [B, N, d]}) with per-stage features
+        (numpy, or anything np.asarray takes)."""
         self.dataset = dataset
         self.predict_fn = predict_fn
         self.num_classes = num_classes
@@ -110,6 +123,7 @@ class VotingEvaluator:
         self.crop_mode = crop_mode
         self.in_radius = in_radius
 
+        self.requests = 0  # predict_fn calls over every run
         self.clouds: List[CloudVoteState] = []
         self.full_labels: List[np.ndarray] = []
         self.proj: List[np.ndarray] = []
@@ -156,6 +170,10 @@ class VotingEvaluator:
         }
         return crops, batch
 
+    def reset_potentials(self):
+        for c in self.clouds:
+            c.reset_potentials()
+
     def run(self, max_steps: int = 10_000, progress: Optional[Callable] = None):
         """Vote until min potential > num_votes everywhere (or max_steps
         requests). Returns metrics of the sub-sampled and the reprojected
@@ -167,10 +185,16 @@ class VotingEvaluator:
             if not pending:
                 break
             crops, batch = self.next_batch(rng, pending)
-            probs = np.asarray(self.predict_fn(batch))
-            for (c, idx), p in zip(crops, probs):
-                c.accumulate(idx, p, self.smooth)
+            out = self.predict_fn(batch)
+            feats = {}
+            if isinstance(out, tuple):
+                out, feats = out
+                feats = {k: np.asarray(v) for k, v in feats.items()}
+            probs = np.asarray(out)
+            for j, ((c, idx), p) in enumerate(zip(crops, probs)):
+                c.accumulate(idx, p, self.smooth, feats={k: v[j] for k, v in feats.items()})
             step += 1
+            self.requests += 1
             if progress and step % 20 == 0:
                 progress(step, min(c.min_potential() for c in self.clouds))
         return self.metrics()

@@ -22,9 +22,9 @@ from .blocks import MLPTower, PointTransformerBlock, TransitionDown, TransitionU
 
 @dataclasses.dataclass
 class ModelOutput:
-    """The two JAX ModelOutput fields that the flagship's training reads:
-    logits [B, N0, classes] and the per-stage latents [B, N_i, base_fdim],
-    on which the CBL runs."""
+    """The two JAX ModelOutput fields that the flagship's training and the
+    feature eval step read: logits [B, N0, classes] and the per-stage
+    latents [B, N_i, base_fdim], on which the CBL runs."""
 
     logits: torch.Tensor
     latents: Tuple
@@ -97,10 +97,11 @@ class PointTransformerSeg(nn.Module):
                             PointTransformerBlock(planes[l], share_planes, bn_mode, dtype))
         self.multihead = MultiHead(planes, num_classes, base_fdim, bn_mode, dtype)
 
-    def forward(self, features: torch.Tensor, pyramid: Pyramid):
+    def forward(self, features: torch.Tensor, pyramid: Pyramid, with_latents: bool = False):
         """features [B, N0, in_features] in the pyramid's sorted row order →
         in eval mode logits [B, N0, num_classes]; in train mode (batch
-        statistics in BatchNorm) a ModelOutput with the latents too."""
+        statistics in BatchNorm), or with ``with_latents``, a ModelOutput
+        with the latents too."""
         nl = len(self.planes)
         pts = pyramid.points
 
@@ -138,6 +139,6 @@ class PointTransformerSeg(nn.Module):
             x = block(f"dec{l}_blk", l, x)
             up_feats[l] = x
         logits, latents = self.multihead(up_feats, pyramid)
-        if not self.training:
+        if not (self.training or with_latents):
             return logits
         return ModelOutput(logits=logits, latents=latents)

@@ -54,12 +54,13 @@ HALF = 0.5
 def runs():
     tree, data = bp.seeded_tree(0), bp.batch()
     out = {"tree": tree, "data": data}
-    dtypes = {"bf16": jnp.bfloat16, "f32": jnp.float32}
-    for name, dt in dtypes.items():
-        out[f"jax_eval_{name}"] = bp.jax_eval_logits("batch", dt, tree, data)
+    refs = bp.References()
+    refs.add("jax_eval_bf16", bp.eval_parts("batch", jnp.bfloat16, tree, data))
+    refs.add("jax_eval_f32", bp.eval_parts("batch", jnp.float32, tree, data), key=bp.F32_EVAL)
     with bp.reference_sums():
-        for name, dt in dtypes.items():
-            out[f"jax_step_{name}"] = bp.jax_train_step("batch", dt, tree, data)
+        for name, dt in {"bf16": jnp.bfloat16, "f32": jnp.float32}.items():
+            refs.add(f"jax_step_{name}", bp.step_parts("batch", dt, tree, data))
+    out.update(refs.run())
     model = load_jax_variables(bp.port_model("batch", torch.bfloat16), tree)
     out["port_eval"] = bp.port_eval_logits(model, data)
     out["port_probs"] = make_eval_step(model, bp.SPEC, device="cpu")(data)[0].numpy()

@@ -6,8 +6,10 @@ at the sizes of tests/test_bf16.py (tests/torch_bf16_parity.py): eval logits
 and one train step (make_train_step) from the same weights and batch.
 
 Each tolerance is at most half of JAX's own bfloat16-vs-float32 gap on the
-same inputs, computed here (JAX's float32 stale model, through its XLA path,
-PT_ATTN=off, which computes the same function in float32):
+same inputs, computed here (JAX's float32 step of the stale model through
+its XLA path, PT_ATTN=off, which computes the same function in float32; its
+float32 eval through the batch-BN model, the same function in eval mode,
+whose executable tests/test_torch_bf16_model.py compiles too):
 - Eval logits: the RMS of port − JAX bf16 at most half the RMS of JAX bf16 −
   JAX f32. (A maximum would count single elements whose float32 attention
   output, summed in another order in the kernel and in the plain version,
@@ -42,11 +44,16 @@ HALF = 0.5
 def runs():
     tree, data = bp.seeded_tree(1), bp.batch()
     out = {"tree": tree, "data": data}
+    refs = bp.References()
+    # eval-mode BN is the same function under stale and batch BN
+    refs.add("jax_eval_f32", bp.eval_parts("batch", jnp.float32, tree, data), key=bp.F32_EVAL)
     with pytest.MonkeyPatch.context() as mp, bp.reference_sums():
+        mp.setenv("PT_ATTN", "interpret")
+        refs.add("jax_eval_bf16", bp.eval_parts("stale", jnp.bfloat16, tree, data))
         for name, dt, env in (("bf16", jnp.bfloat16, "interpret"), ("f32", jnp.float32, "off")):
             mp.setenv("PT_ATTN", env)
-            out[f"jax_eval_{name}"] = bp.jax_eval_logits("stale", dt, tree, data)
-            out[f"jax_step_{name}"] = bp.jax_train_step("stale", dt, tree, data)
+            refs.add(f"jax_step_{name}", bp.step_parts("stale", dt, tree, data))
+    out.update(refs.run())
     model = load_jax_variables(bp.port_model("stale", torch.bfloat16), tree)
     out["port_eval"] = bp.port_eval_logits(model, data)
     before = {k: v.clone() for k, v in model.state_dict().items()}

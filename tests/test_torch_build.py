@@ -26,7 +26,7 @@ def build_root(tmp_path, monkeypatch):
     return root
 
 
-def test_one_nvcc_call_over_all_sources_then_cached(tmp_path, build_root, monkeypatch):
+def test_one_nvcc_compile_a_source_then_one_link_cached_by_hash(tmp_path, build_root, monkeypatch):
     """One compile call a source (-c, the sm_90a target), then one link
     call over their objects (-shared); a second build reuses the library."""
     log = tmp_path / "calls.txt"

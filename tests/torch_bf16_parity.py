@@ -11,6 +11,12 @@ some shapes and not at others. Off, every bfloat16 op of the reference
 rounds where its flax op does, which is what the port computes
 (models/blocks.py).
 
+The JAX references are gathered in a ``References`` and compiled together:
+each is lowered where it is added (inside the caller's contexts), then the
+ones not compiled before in this process are compiled in parallel threads
+(XLA compiles outside the GIL). The float32 eval is the same function
+under batch and stale BN, so its executable serves both model files.
+
 ``reference_sums`` lowers the JAX train steps with two sums taken as the
 port takes them; neither moves a rounding to bfloat16:
 - ``float32_bf16_sums``: a bfloat16 ``reduce_sum`` as a float32 sum rounded
@@ -33,6 +39,7 @@ port takes them; neither moves a rounding to bfloat16:
 """
 import contextlib
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -117,8 +124,38 @@ class _State:
     batch_stats: object
 
 
-def _compiled(fn, *args):
-    return fn.lower(*args).compile(compiler_options=NO_EXCESS)(*args)
+# executables by what they compute, shared by the test modules of a process
+_EXECUTABLES = {}
+F32_EVAL = ("eval", "float32")  # key of the float32 eval (either BN mode)
+
+
+class References:
+    """JAX reference runs: ``add`` lowers one (unless its ``key`` names an
+    executable compiled before in this process), ``run`` compiles the
+    lowered ones in parallel threads, runs every one and returns {name:
+    result}."""
+
+    def __init__(self):
+        self._jobs = []
+
+    def add(self, name, parts, key=None):
+        fn, args, finish = parts
+        lowered = None if key is not None and key in _EXECUTABLES else fn.lower(*args)
+        self._jobs.append((name, key, lowered, args, finish))
+
+    def run(self) -> dict:
+        todo = [j for j in self._jobs if j[2] is not None]
+        with ThreadPoolExecutor(max(len(todo), 1)) as pool:
+            done = list(pool.map(lambda j: j[2].compile(compiler_options=NO_EXCESS), todo))
+        compiled = {id(j): c for j, c in zip(todo, done)}
+        out = {}
+        for job in self._jobs:
+            name, key, _, args, finish = job
+            exe = compiled.get(id(job)) or _EXECUTABLES[key]
+            if key is not None:
+                _EXECUTABLES.setdefault(key, exe)
+            out[name] = finish(exe(*args))
+        return out
 
 
 @contextlib.contextmanager
@@ -174,15 +211,24 @@ def reference_sums():
         yield
 
 
-def jax_eval_logits(bn_mode, dtype, tree, data):
-    """JAX make_eval_step(output='logits') → float32 logits [B, N, classes]
-    in the batch's row order."""
+def eval_parts(bn_mode, dtype, tree, data):
+    """JAX make_eval_step(output='logits') on ``tree`` and ``data`` as
+    (function, arguments, finish) for References.add; its result float32
+    logits [B, N, classes] in the batch's row order."""
     step = jax_make_eval_step(jax_model(bn_mode, dtype),
                               JaxStepConfig(num_classes=NUM_CLASSES, spec=JAX_SPEC),
                               output="logits")
     state = _State(params=tree["params"], batch_stats=tree["batch_stats"])
-    logits, _ = _compiled(step, state, {k: jnp.asarray(v) for k, v in data.items()})
-    return np.asarray(logits, np.float32)
+    return (step, (state, {k: jnp.asarray(v) for k, v in data.items()}),
+            lambda out: np.asarray(out[0], np.float32))
+
+
+def jax_eval_logits(bn_mode, dtype, tree, data):
+    """JAX make_eval_step(output='logits') → float32 logits [B, N, classes]
+    in the batch's row order."""
+    refs = References()
+    refs.add("logits", eval_parts(bn_mode, dtype, tree, data))
+    return refs.run()["logits"]
 
 
 def port_eval_logits(model, data):
@@ -196,18 +242,32 @@ def port_eval_logits(model, data):
         return batch_gather(logits, torch.argsort(pyr.order0, 1)).float().numpy()
 
 
-def jax_train_step(bn_mode, dtype, tree, data):
+def step_parts(bn_mode, dtype, tree, data):
     """JAX make_train_step from ``tree`` (SGD momentum 0.9, weight decay
-    1e-4, lr 0.05, the momentum zero) → (metrics, variables after); run it
-    inside ``reference_sums`` for the sums the port takes."""
+    1e-4, lr 0.05, the momentum zero) as (function, arguments, finish) for
+    References.add; its result (metrics, variables after). Add it inside
+    ``reference_sums`` for the sums the port takes."""
     tx = jax_make_optimizer(0.05, momentum=0.9, weight_decay=1e-4)
     port = load_jax_variables(port_model("batch", torch.float32), tree)
     state = _jax_state(tree, _momentum_tree(port, make_optimizer(port.parameters(), 0.05)), tx)
     step = jax_make_train_step(jax_model(bn_mode, dtype), JaxStepConfig(
         num_classes=NUM_CLASSES, spec=JAX_SPEC, contrast=JaxContrast()))
-    state, metrics = _compiled(step, state, {k: jnp.asarray(v) for k, v in data.items()})
-    after = {"params": jax.device_get(state.params), "batch_stats": jax.device_get(state.batch_stats)}
-    return {k: float(metrics[k]) for k in METRICS}, after
+
+    def finish(out):
+        state, metrics = out
+        after = {"params": jax.device_get(state.params),
+                 "batch_stats": jax.device_get(state.batch_stats)}
+        return {k: float(metrics[k]) for k in METRICS}, after
+
+    return step, (state, {k: jnp.asarray(v) for k, v in data.items()}), finish
+
+
+def jax_train_step(bn_mode, dtype, tree, data):
+    """The JAX train step of ``step_parts`` → (metrics, variables after);
+    run it inside ``reference_sums`` for the sums the port takes."""
+    refs = References()
+    refs.add("step", step_parts(bn_mode, dtype, tree, data))
+    return refs.run()["step"]
 
 
 def port_train_step(model, data):
