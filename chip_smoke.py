@@ -189,8 +189,41 @@ is not 0:
            full OA >= 0.5 with the trained checkpoint; passes, parts,
            requests, the eval step's median ms a request on the host clock,
            the room's seconds split into the eval step (to a synchronize) and
-           the host's numpy and copies, B-IoU. Phases 20-22 print the card's
+           the host's numpy and copies, B-IoU. Phases 20-25 print the card's
            name and power limit.
+23. bf16-eval-features phase 20 with the checkpoint in the bfloat16 model,
+           under batch and stale BN, on phase serve's crops: the launches and
+           the launches by dtype those of phase bf16-serve's and bf16-stale's
+           requests, softmax(logits) equal to their probs (max |d| 0) with the
+           same argmax, every latent finite, and the RMS of its difference
+           from the plain versions' at most half the RMS of its
+           bfloat16-vs-float32 gap (phase 20's latents, the same weights) or
+           twice the RMS by which the plain version's latents move when the
+           fused attention sums its slots in reverse order (sum order alone).
+24. train-entry the flagship trained through the port's entry point,
+           main.py's main(["-c", "s3dis_pt_cbl", "--mode", "train", ...]):
+           4 synthetic train rooms (Area_1) and 1 val room (Area_5) of
+           120,000 points written as S3DIS xyzrgbl .npy files in a temporary
+           directory; full width and depth from the flax-like init,
+           default_train_transform, prefetch depth 3; cut to batch 2 (from
+           16), 1 epoch (from 200) and loop 2 (from 30): 4 steps, then the
+           epoch-end voting eval (num_votes 1.0, 4 crops a request) and the
+           snapshot; log_freq 1 reads every step's loss. The phase wraps
+           main.py's prefetch (StepProbe: utils/profiling.py::StepTimer, the
+           wait for each batch, each step ended by a synchronize, the
+           launches each step made): every loss finite (read back with
+           read_scalars), each step's launches equal to phase 8's, every
+           kernel of the path launched in the run, snap-4 and best.json
+           written; the wait, step median, points/s and peak memory; the
+           same run with the iterator in the loop's thread (no eval
+           request); then main(["--mode", "val", "--model_path", "auto"])
+           on the run: the restored parameters, buffers and momentum equal
+           the live model's bit for bit, and its probs on phase serve's
+           batch within 1e-6 of the live model's.
+25. train-entry-bf16 two steps of s3dis_pt_cbl_bf16 through main.py (no
+           eval request: num_votes 0): losses finite, each step's gathers
+           by dtype 18 bfloat16 + 21 float32 and backward 18 + 12 (phase
+           17's).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -214,6 +247,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import ExitStack, contextmanager
 from pathlib import Path
@@ -222,6 +256,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from contrastboundary_tpu_torch import main as entry
 from contrastboundary_tpu_torch.data.synthetic import SyntheticSceneDataset, train_batch
 from contrastboundary_tpu_torch.eval.run import (
     run_boundary_suite, run_enumerate_eval, run_voting_eval,
@@ -244,7 +279,10 @@ from contrastboundary_tpu_torch.ops.cuda import tile_gather as tg
 from contrastboundary_tpu_torch.ops.cuda import win_topk as wt
 from contrastboundary_tpu_torch.ops.tile_gather import window_starts
 from contrastboundary_tpu_torch.train import TrainStepConfig, make_optimizer, make_train_step
+from contrastboundary_tpu_torch.utils import StepTimer, read_scalars
 
+# main.py's own prefetch and setup, which phases 24-25 wrap
+entry_prefetch, entry_setup = entry.prefetch, entry.setup
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "results" / "ckpts" / "parity_s0_fast_e15.pkl"
 B, N, NUM_CLASSES = 2, 65536, 13
@@ -364,6 +402,11 @@ ROUTE_RTOL = {"dense": 3e-5, "pallas": 1e-5}
 ATTENTION_LAYERS = 18
 TRAIN_SPEC = PyramidSpec(k_contrast=(36, 24, 24, 24, 24), with_subscene=True)
 TRAIN_LR = 0.05
+# phase 24's dataset and --set cuts (batch 16 -> 2, epochs 200 -> 1, loop
+# 30 -> 2) and its instrumentation (every step's loss read and recorded)
+ENTRY_ROOMS, ENTRY_POINTS = 4, 120_000
+ENTRY_SETS = "optim.batch_size:2;optim.epochs:1;data.loop:2;eval.num_votes:1.0"
+ENTRY_LOG = "log_freq:1"
 # gathers of a batch-BN bf16 step by dtype: the attention layers' kv rows are
 # bfloat16; TransitionDown's [p | x], TransitionUp's and the head's rows and
 # the training pyramid's and CBL's gathers come out of a BN or are float32
@@ -1881,16 +1924,33 @@ def voting(predict, what="request", steps=3) -> None:
           f"(sub mIoU so far {m['sub']['mIoU']:.4f})", flush=True)
 
 
-def eval_features(dev, batch, served: dict, bn_mode="batch") -> dict:
-    """Phase 20: make_eval_step(output='logits', with_features=True) on the
-    checkpoint and phase serve's batch (``served``: the probs and launches
-    of phase serve, or of phase stale-serve under stale BN): one request with
-    the counts reset just before and read just after (as the served
-    request's), softmax(logits) within 1e-6 of the served probs with the
-    same argmax, each latent [B, N, d] finite in the caller's row order, and
-    the logits and every latent within 1e-3 of their scale of the plain
-    versions'."""
-    model, _ = load_model(bn_mode)
+def eval_features(dev, batch, served: dict, bn_mode="batch", dtype=torch.float32,
+                  f32_feats=None) -> dict:
+    """Phases 20 and 23: make_eval_step(output='logits', with_features=True)
+    on the checkpoint and phase serve's batch (``served``: the probs and
+    launches of phase serve, or of phase stale-serve under stale BN, or of
+    the bfloat16 requests of phases bf16-serve and bf16-stale): one request
+    with the counts reset just before and read just after (as the served
+    request's), softmax(logits) within 1e-6 of the served probs (bfloat16:
+    max |d| 0) with the same argmax, each latent [B, N, d] finite in the
+    caller's row order; float32: the logits and every latent within 1e-3 of
+    their scale of the plain versions'; bfloat16: the RMS of every latent's
+    difference from the plain versions' within half of the RMS of the
+    bfloat16-vs-float32 gap (``f32_feats``: the float32 model's latents on
+    the same weights and batch, the gap's other side), or within twice the
+    floor that sum order alone sets: the RMS of the plain versions' latents
+    against the same with the fused attention's slots reversed
+    (``reversed_slots``: the same function, its sums over the slots in
+    another order). The RMS, as the CPU tests of the stale bfloat16 model
+    take it: under stale BN the fused attention sums in another order than
+    its plain version, an output at a bfloat16 rounding boundary rounds one
+    ulp apart, and 18 layers spread the flips, so single latent elements can
+    differ by as much as the gap's largest element (latent2 of the stale
+    model on the H100: 0.0315 against 0.0315) and latent1's RMS reached
+    0.53 of the gap's. Returns the model, the launches and the latents on
+    the host."""
+    bf16 = dtype == BF16
+    model, _ = load_model(bn_mode, dtype)
     step = make_eval_step(model, PyramidSpec(), device=dev, num_classes=NUM_CLASSES,
                           output="logits", with_features=True)
     step(batch)  # warm-up
@@ -1901,14 +1961,19 @@ def eval_features(dev, batch, served: dict, bn_mode="batch") -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = {k: v for k, v in read_counts().items() if k in served["launches"]}
-    print(f"feature request ({bn_mode} BN): launches {launches}, {ms:.3f} ms on the host clock",
-          flush=True)
+    what = f"{bn_mode} BN" + (", bfloat16" if bf16 else "")
+    by_dtype = read_dtype_counts()
+    print(f"feature request ({what}): launches {launches}, by dtype {by_dtype}, {ms:.3f} ms on "
+          f"the host clock", flush=True)
     require(launches == served["launches"],
             f"launches {launches} differ from the served request's {served['launches']}")
+    if bf16:
+        require(by_dtype == served["by_dtype"],
+                f"launches by dtype {by_dtype} differ from the served request's")
     probs = torch.softmax(logits, -1)
     d = float((probs - served["probs"]).abs().max())
     print(f"softmax(logits) vs the served probs: max|d| {d:.3g}", flush=True)
-    require(d <= 1e-6, "softmax(logits) differs from the served probs")
+    require(d == 0 if bf16 else d <= 1e-6, "softmax(logits) differs from the served probs")
     require(torch.equal(probs.argmax(-1), served["probs"].argmax(-1)),
             "softmax(logits) and the served probs disagree on an argmax")
     require(logits.shape == (B, N, NUM_CLASSES), f"logits {tuple(logits.shape)}")
@@ -1918,13 +1983,44 @@ def eval_features(dev, batch, served: dict, bn_mode="batch") -> dict:
     with plain_kernels():
         p_logits, _, p_feats = step(batch)
     require(sorted(feats) == sorted(p_feats), "the plain step gave other latents")
-    errs = {"logits": compare_scaled("logits", logits, p_logits, 1e-3)}
-    for k in sorted(feats):
-        errs[k] = compare_scaled(k, feats[k], p_feats[k], 1e-3)
+    host = {k: v.cpu() for k, v in feats.items()}
+    if bf16:
+        require(sorted(host) == sorted(f32_feats), "the float32 model gave other latents")
+        floor_feats = {}
+        if "pt_attn_fwd" in launches:
+            with plain_kernels(), mock.patch.object(pa, "pt_attn_fwd", reversed_slots):
+                _, _, floor_feats = step(batch)
+        errs = {}
+        rms = lambda d: float(d.double().square().mean().sqrt())
+        for k in sorted(host):
+            d, g = host[k] - p_feats[k].cpu(), host[k] - f32_feats[k]
+            err, gap = rms(d), rms(g)
+            floor = rms(p_feats[k].cpu() - floor_feats[k].cpu()) if floor_feats else 0.0
+            print(f"  {k} {tuple(host[k].shape)}: kernels vs plain RMS {err:.3g} (max|d| "
+                  f"{float(d.abs().max()):.3g}), {err / gap:.3f} of the bfloat16 vs float32 "
+                  f"model's RMS {gap:.3g} (max|d| {float(g.abs().max()):.3g}); the plain "
+                  f"version against itself with the attention's slots reversed RMS {floor:.3g}",
+                  flush=True)
+            require(err <= max(0.5 * gap, 2.0 * floor),
+                    f"{k}: kernels vs plain RMS {err:.3g} > half the gap's {gap:.3g} and > twice "
+                    f"the slot-order floor {floor:.3g}")
+            errs[k] = err
+    else:
+        errs = {"logits": compare_scaled("logits", logits, p_logits, 1e-3)}
+        for k in sorted(feats):
+            errs[k] = compare_scaled(k, feats[k], p_feats[k], 1e-3)
     print(f"latents {', '.join(f'{k} {tuple(v.shape)}' for k, v in sorted(feats.items()))}; "
           f"kernels vs plain versions max|d|: "
           f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())}", flush=True)
-    return dict(model=model, launches=launches)
+    return dict(model=model, launches=launches, feats=host)
+
+
+def reversed_slots(q, kv, rel, li, starts, tile, width, params):
+    """pt_attn_plain with every row's K slots in reverse order: the same
+    function (a softmax and a sum over the slots), its float32 sums over the
+    slots taken in another order."""
+    rev = torch.arange(li.shape[2] - 1, -1, -1, device=li.device)
+    return pa.pt_attn_plain(q, kv, rel[:, :, rev], li[:, :, rev], starts, tile, width, params)
 
 
 def voting_features(dev, model, max_steps=40) -> None:
@@ -2001,6 +2097,183 @@ def enumerate_room(dev, model, trained: bool) -> None:
     require(bool((counts > 0).all()), "enumeration missed points")
     if trained:
         require(oa >= 0.5, f"enumerate full OA {oa:.4f} < 0.5")
+
+
+def write_s3dis_rooms(root: Path) -> None:
+    """Phase 24's dataset: ENTRY_ROOMS synthetic train rooms (Area_1_*) and
+    one val room (Area_5_*) of ENTRY_POINTS points each, as S3DIS xyzrgbl
+    .npy files."""
+    for split, area, n in (("train", 1, ENTRY_ROOMS), ("val", 5, 1)):
+        rooms = SyntheticSceneDataset(num_rooms=n, points_per_room=ENTRY_POINTS, seed=0,
+                                      split=split)
+        for i in range(n):
+            c, f, lab = rooms.room(i)
+            np.save(root / f"Area_{area}_room{i}.npy",
+                    np.concatenate([c, f, lab[:, None]], 1).astype(np.float32))
+
+
+def count_delta(after, before):
+    """Launch counts (or nested counts by dtype) of ``after`` less ``before``."""
+    if isinstance(after, dict):
+        return {k: count_delta(v, before[k]) for k, v in after.items()}
+    return after - before
+
+
+class StepProbe:
+    """Phases 24-25's instrumentation of the entry's train loop: ``prefetch``
+    replaces main.py's prefetch (the real one, or with ``use_prefetch`` off
+    the bare iterator in the loop's thread) and wraps its iterator in a
+    utils/profiling.py::StepTimer: the wait for each batch, then the step
+    ended by a synchronize, and the kernels each step launched (counts and
+    counts by dtype, read before and after; the loop's own counts are
+    never reset). ``peak``: max_memory_allocated at the end of the loop,
+    before the epoch-end eval."""
+
+    def __init__(self, use_prefetch: bool = True):
+        self.use_prefetch = use_prefetch
+        self.waits, self.steps, self.launches, self.by_dtype = [], [], [], []
+        self.timer, self.peak = None, None
+
+    def prefetch(self, factory, depth=2):
+        it = entry_prefetch(factory, depth) if self.use_prefetch else factory()
+        self.timer = StepTimer()
+        t_end = time.perf_counter()
+        for item in it:
+            self.timer.data_ready()
+            t_ready = time.perf_counter()
+            self.waits.append(t_ready - t_end)
+            counts, by_dtype = read_counts(), read_dtype_counts()
+            yield item
+            torch.cuda.synchronize()
+            self.timer.step_done()
+            t_end = time.perf_counter()
+            self.steps.append(t_end - t_ready)
+            self.launches.append(count_delta(read_counts(), counts))
+            self.by_dtype.append(count_delta(read_dtype_counts(), by_dtype))
+        self.peak = torch.cuda.max_memory_allocated()
+
+
+def run_entry(argv, probe=None):
+    """main.py's main(argv) with main.py's prefetch replaced by ``probe``'s
+    (where given) and its setup recorded → (main's result, the setups'
+    results, seconds, the launch counts of the whole run from 0)."""
+    built = []
+
+    def setup(*args, **kw):
+        out = entry_setup(*args, **kw)
+        built.append(out)
+        return out
+
+    with ExitStack() as stack:
+        stack.enter_context(mock.patch.object(entry, "setup", setup))
+        if probe is not None:
+            stack.enter_context(mock.patch.object(entry, "prefetch", probe.prefetch))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = entry.main(argv)
+        torch.cuda.synchronize()
+        return out, built, time.perf_counter() - t0, read_counts()
+
+
+def entry_losses(exp: Path) -> list:
+    """The train losses main.py recorded, read with the port's read_scalars."""
+    series = read_scalars(str(exp / "scalars.jsonl"))
+    return series["train/loss"]
+
+
+def print_probe(what: str, probe: StepProbe) -> float:
+    med = statistics.median(probe.steps)
+    print(f"{what}: {len(probe.steps)} steps, the wait for each batch "
+          f"{[round(x * 1e3, 3) for x in probe.waits]} ms (median "
+          f"{statistics.median(probe.waits) * 1e3:.3f}), step {[round(x * 1e3, 3) for x in probe.steps]}"
+          f" ms (median {med * 1e3:.3f}), StepTimer {probe.timer.summary()}, "
+          f"{B * N / med:.1f} points/s at the median, max_memory_allocated {probe.peak} B",
+          flush=True)
+    return med
+
+
+def train_entry(dev, root: Path, batch, train_launches: dict) -> None:
+    """Phase 24: the flagship trained through main.py from S3DIS .npy rooms,
+    its snapshot read back by --mode val."""
+    exp, exp_plain = root / "exp", root / "exp_no_prefetch"
+    data = f"data.data_root:{root / 'data'}"
+    print(f"main.py -c s3dis_pt_cbl --mode train --set {data};{ENTRY_SETS};{ENTRY_LOG}: full "
+          f"width and depth from the flax-like init, default_train_transform, prefetch depth 3; "
+          f"cuts: batch 16 -> 2, epochs 200 -> 1 (loop 30 -> 2: {ENTRY_ROOMS} rooms x 2 = "
+          f"{ENTRY_ROOMS} steps of 2); log_freq 10 -> 1 reads every step's loss", flush=True)
+    probe = StepProbe()
+    best, built, secs, total = run_entry(
+        ["-c", "s3dis_pt_cbl", "--mode", "train", "--set", f"{data};{ENTRY_SETS};{ENTRY_LOG}",
+         "--exp_dir", str(exp)], probe)
+    (model, _, _, opt, *_), = built
+    med = print_probe("train-entry (prefetch)", probe)
+    print(f"the whole run {secs:.3f} s (setup, {len(probe.steps)} steps, the epoch-end voting "
+          f"eval, the snapshot); best full-cloud mIoU {best:.4f}; launches of the run {total}",
+          flush=True)
+    steps, losses = entry_losses(exp)
+    print(f"losses {losses} at steps {steps}", flush=True)
+    require(steps == list(range(1, ENTRY_ROOMS + 1)) and all(np.isfinite(losses)),
+            f"losses {losses} at steps {steps}")
+    require(all(total[k] > 0 for k in TRAIN_KERNELS), f"a kernel was not launched: {total}")
+    for i, launches in enumerate(probe.launches):
+        got = {k: launches[k] for k in TRAIN_KERNELS}
+        require(got == train_launches, f"step {i}: launches {got}, phase train's {train_launches}")
+    print(f"launches a step (each of the {len(probe.launches)}): "
+          f"{ {k: probe.launches[0][k] for k in TRAIN_KERNELS} }, equal to phase train's",
+          flush=True)
+    snap, marker = exp / "checkpoints" / f"snap-{ENTRY_ROOMS}", exp / "checkpoints" / "best.json"
+    require(snap.exists() and marker.exists(), "no snapshot or best.json")
+    print(f"{snap.name}: {snap.stat().st_size} B; best.json {marker.read_text()}", flush=True)
+
+    plain = StepProbe(use_prefetch=False)
+    run_entry(["-c", "s3dis_pt_cbl", "--mode", "train", "--set",
+               f"{data};{ENTRY_SETS};{ENTRY_LOG};eval.num_votes:0", "--exp_dir", str(exp_plain)],
+              plain)
+    med_plain = print_probe("train-entry (the iterator in the loop's thread, no eval request)",
+                            plain)
+    print(f"step median with prefetch {med * 1e3:.3f} ms, without {med_plain * 1e3:.3f} ms; "
+          f"the wait a step (median) {statistics.median(probe.waits) * 1e3:.3f} against "
+          f"{statistics.median(plain.waits) * 1e3:.3f} ms", flush=True)
+
+    m, built, secs, _ = run_entry(
+        ["-c", "s3dis_pt_cbl", "--mode", "val", "--model_path", "auto", "--extra_ops", "",
+         "--set", f"{data};{ENTRY_SETS}", "--exp_dir", str(exp)])
+    (restored, _, _, r_opt, *_), = built
+    live, back = model.state_dict(), restored.state_dict()
+    require(live.keys() == back.keys() and all(torch.equal(live[k], back[k]) for k in live),
+            "the restored parameters or buffers differ from the saved ones")
+    o_live, o_back = opt.state_dict()["state"], r_opt.state_dict()["state"]
+    require(o_live.keys() == o_back.keys() and all(
+        torch.equal(o_live[i]["momentum_buffer"], o_back[i]["momentum_buffer"]) for i in o_live),
+        "the restored optimizer state differs from the saved one")
+    p_live = make_eval_step(model, PyramidSpec(), device=dev)(batch)[0]
+    p_back = make_eval_step(restored, PyramidSpec(), device=dev)(batch)[0]
+    d = float((p_live - p_back).abs().max())
+    print(f"--mode val: {secs:.3f} s, restored {len(back)} tensors and {len(o_back)} momentum "
+          f"buffers bit for bit; full mIoU {m['full']['mIoU']:.4f} OA {m['full']['OA']:.4f}; "
+          f"probs of the restored vs the live model on one batch max|d| {d:.3g}", flush=True)
+    require(d <= 1e-6, "the restored model's probs differ from the live model's")
+
+
+def train_entry_bf16(root: Path) -> None:
+    """Phase 25: two steps of s3dis_pt_cbl_bf16 through main.py, no eval
+    request: losses finite, the gathers' launches by dtype phase
+    bf16-train's."""
+    data = f"data.data_root:{root / 'data'}"
+    probe = StepProbe()
+    _, _, secs, total = run_entry(
+        ["-c", "s3dis_pt_cbl_bf16", "--mode", "train", "--set",
+         f"{data};{ENTRY_SETS};{ENTRY_LOG};data.loop:1;eval.num_votes:0", "--exp_dir",
+         str(root / "exp_bf16")], probe)
+    print_probe("train-entry-bf16", probe)
+    steps, losses = entry_losses(root / "exp_bf16")
+    print(f"{secs:.3f} s; losses {losses} at steps {steps}; launches by dtype a step "
+          f"{probe.by_dtype}", flush=True)
+    require(len(steps) == 2 and all(np.isfinite(losses)), f"losses {losses}")
+    require(all(total[k] > 0 for k in TRAIN_KERNELS), f"a kernel was not launched: {total}")
+    for by_dtype in probe.by_dtype:
+        require_bf16_counts(by_dtype, BF16_STEP_GATHERS, "a bfloat16 step of main.py")
 
 
 def main() -> int:
@@ -2156,11 +2429,16 @@ def main() -> int:
               f"{F32_STEP_PERF}", flush=True)
         return out
 
-    bf16_launches = {}
+    bf16_launches, bf16_served = {}, {}
+
+    def keep_served(out):
+        return {k: out[k] for k in ("probs", "launches", "by_dtype")}
+
     with phase("bf16-serve"):
         out = bf16_serve("batch")
         require_bf16_counts(out["by_dtype"], {"window_gather": {"bfloat16": ATTENTION_LAYERS}},
                             "a bfloat16 batch-BN request")
+        bf16_served["batch"] = keep_served(out)
         del out
     with phase("bf16-train"), cbl_route_env("dense"):
         bf16_step = bf16_train("batch")
@@ -2175,6 +2453,7 @@ def main() -> int:
         out = bf16_serve("stale")
         require_bf16_counts(out["by_dtype"], {"pt_attn_fwd": {"bfloat16": ATTENTION_LAYERS}},
                             "a bfloat16 stale request")
+        bf16_served["stale"] = keep_served(out)
         del out
         stale_bf16 = bf16_train("stale")
         attn = {"bfloat16": ATTENTION_LAYERS, "float32": 0}
@@ -2197,6 +2476,7 @@ def main() -> int:
         stale_feat = eval_features(dev, batch, stale_serve, "stale")
         n_fwd = stale_feat["launches"]["pt_attn_fwd"]
         require(n_fwd == ATTENTION_LAYERS, f"pt_attn_fwd: {n_fwd} launches, not {ATTENTION_LAYERS}")
+        f32_feats = {"batch": feat["feats"], "stale": stale_feat["feats"]}
         del stale_feat, stale_serve
     with phase("voting-features"):
         print(f"card: {card_line()}", flush=True)
@@ -2205,6 +2485,29 @@ def main() -> int:
         print(f"card: {card_line()}", flush=True)
         enumerate_room(dev, feat["model"], CKPT.exists())
     del feat
+    torch.cuda.empty_cache()
+    with phase("bf16-eval-features"):
+        print(f"card: {card_line()}", flush=True)
+        for mode in ("batch", "stale"):
+            out = eval_features(dev, batch, bf16_served[mode], mode, BF16, f32_feats[mode])
+            del out
+        del bf16_served, f32_feats
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="cbl_entry_") as tmp:
+        root = Path(tmp)
+        with phase("train-entry"), cbl_route_env("dense"):
+            print(f"card: {card_line()}", flush=True)
+            (root / "data").mkdir()
+            t0 = time.perf_counter()
+            write_s3dis_rooms(root / "data")
+            print(f"wrote {ENTRY_ROOMS} + 1 rooms of {ENTRY_POINTS} points in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            train_entry(dev, root, batch, batch_launches)
+        torch.cuda.empty_cache()
+        with phase("train-entry-bf16"), cbl_route_env("dense"):
+            print(f"card: {card_line()}", flush=True)
+            train_entry_bf16(root)
+    torch.cuda.empty_cache()
 
     summary = []
     for entry in train_summary:

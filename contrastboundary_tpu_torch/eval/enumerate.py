@@ -21,7 +21,7 @@ from typing import Callable, List
 
 import numpy as np
 
-from ..data.synthetic import voxelize
+from ..data.pipeline import voxelize
 from .metrics import metrics_from_confusion
 
 

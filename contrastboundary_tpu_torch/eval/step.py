@@ -17,9 +17,9 @@ from .metrics import confusion_matrix
 def make_eval_step(model: torch.nn.Module, spec: PyramidSpec, device="cuda", *,
                    num_classes: int = 13, ignore_label: int = -1,
                    with_features: bool = False, output: str = "probs") -> Callable:
-    """Move ``model`` to ``device`` in eval mode and return
-    step(batch) → (probs [B, N, C] f32, confusion [C, C] f32), both on the
-    device. ``batch`` maps points [B, N, 3], features [B, N, F] and labels
+    """Move ``model`` to ``device`` and return step(batch) → (probs [B, N,
+    C] f32, confusion [C, C] f32), both on the device, the model in eval
+    mode. ``batch`` maps points [B, N, 3], features [B, N, F] and labels
     [B, N] to arrays or tensors in the caller's row order. The eval pyramid
     has no contrast or sub-scene searches.
 
@@ -36,6 +36,7 @@ def make_eval_step(model: torch.nn.Module, spec: PyramidSpec, device="cuda", *,
 
     @torch.no_grad()
     def step(batch: Mapping):
+        model.eval()  # a train step on the same model may have run since
         points = torch.as_tensor(batch["points"], dtype=torch.float32, device=dev)
         features = torch.as_tensor(batch["features"], dtype=torch.float32, device=dev)
         labels = torch.as_tensor(batch["labels"], device=dev)

@@ -14,7 +14,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 from scipy.spatial import cKDTree
 
-from ..data.synthetic import voxelize
+from ..data.pipeline import voxelize
 from .metrics import metrics_from_confusion
 
 

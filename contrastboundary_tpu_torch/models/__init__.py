@@ -1,9 +1,11 @@
 from .convert import (
-    from_jax_variables, load_checkpoint, load_jax_variables, to_jax_variables,
+    flax_path, from_jax_variables, load_checkpoint, load_jax_variables, to_jax_variables,
 )
+from .init import init_like_flax, lecun_normal_
 from .pointtransformer import ModelOutput, MultiHead, PointTransformerSeg
 
 __all__ = [
     "ModelOutput", "MultiHead", "PointTransformerSeg",
-    "from_jax_variables", "load_checkpoint", "load_jax_variables", "to_jax_variables",
+    "flax_path", "from_jax_variables", "init_like_flax", "lecun_normal_", "load_checkpoint",
+    "load_jax_variables", "to_jax_variables",
 ]

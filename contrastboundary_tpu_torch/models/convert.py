@@ -16,6 +16,7 @@ import torch
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_INV_STATS = {v: k for k, v in _STAT_LEAVES.items()}
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -68,25 +69,32 @@ def load_jax_variables(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module
     return model
 
 
+def flax_path(model: torch.nn.Module, key: str) -> tuple:
+    """The flax path (collection, *modules, leaf) of a state_dict key, e.g.
+    ('params', 'enc0_down', 'Dense_0', 'kernel') for
+    'enc0_down.Dense_0.weight'."""
+    *path, leaf = key.split(".")
+    if leaf in _INV_STATS:
+        return ("batch_stats", *path, _INV_STATS[leaf])
+    if leaf == "bias":
+        return ("params", *path, "bias")
+    if leaf == "weight" and isinstance(model.get_submodule(".".join(path)), torch.nn.Linear):
+        return ("params", *path, "kernel")
+    if leaf == "weight":
+        return ("params", *path, "scale")
+    raise ValueError(f"no flax leaf for {key}")
+
+
 def to_jax_variables(model: torch.nn.Module) -> dict:
     """The model's parameters and running statistics as a {"params",
     "batch_stats"} flax tree of float32 numpy arrays (the inverse of
     from_jax_variables: Linear weights transposed to kernels)."""
-    inv_stats = {v: k for k, v in _STAT_LEAVES.items()}
     tree = {"params": {}, "batch_stats": {}}
     for key, v in model.state_dict().items():
-        *path, leaf = key.split(".")
+        coll, *path, name = flax_path(model, key)
         a = v.detach().float().cpu().numpy().copy()  # not a view of the live tensor
-        if leaf in inv_stats:
-            coll, name = "batch_stats", inv_stats[leaf]
-        elif leaf == "bias":
-            coll, name = "params", "bias"
-        elif leaf == "weight" and isinstance(model.get_submodule(".".join(path)), torch.nn.Linear):
-            coll, name, a = "params", "kernel", a.T
-        elif leaf == "weight":
-            coll, name = "params", "scale"
-        else:
-            raise ValueError(f"no flax leaf for {key}")
+        if name == "kernel":
+            a = a.T
         node = tree[coll]
         for p in path:
             node = node.setdefault(p, {})

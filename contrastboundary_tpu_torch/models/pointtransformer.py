@@ -10,7 +10,7 @@ block's compute dtype (models/blocks.py); the classifier stays float32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -18,6 +18,7 @@ from torch import nn
 from ..ops.pyramid import Pyramid
 from ..ops.tile_gather import cross_window_gather
 from .blocks import MLPTower, PointTransformerBlock, TransitionDown, TransitionUp
+from .init import init_like_flax
 
 
 @dataclasses.dataclass
@@ -62,13 +63,16 @@ class PointTransformerSeg(nn.Module):
     """U-shaped point transformer: encoder stage l is TransitionDown plus
     blocks[l] − 1 PointTransformerBlocks, the decoder a TransitionUp and one
     block per level, then the MultiHead. Input features are rgb; xyz is
-    concatenated in front (in_channels 6)."""
+    concatenated in front (in_channels 6). Fresh weights are flax's
+    (models/init.py), drawn from ``generator`` (a generator seeded 0 where
+    none is given)."""
 
     def __init__(self, num_classes: int = 13,
                  planes: Sequence[int] = (32, 64, 128, 256, 512),
                  blocks: Sequence[int] = (2, 3, 4, 6, 3),
                  share_planes: int = 8, base_fdim: int = 32, in_features: int = 3,
-                 bn_mode: str = "batch", dtype: torch.dtype = torch.float32):
+                 bn_mode: str = "batch", dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.planes, self.blocks = tuple(planes), tuple(blocks)
         self.dtype = dtype
@@ -96,6 +100,8 @@ class PointTransformerSeg(nn.Module):
             self.add_module(f"dec{l}_blk",
                             PointTransformerBlock(planes[l], share_planes, bn_mode, dtype))
         self.multihead = MultiHead(planes, num_classes, base_fdim, bn_mode, dtype)
+        init_like_flax(self, generator if generator is not None
+                       else torch.Generator().manual_seed(0))
 
     def forward(self, features: torch.Tensor, pyramid: Pyramid, with_latents: bool = False):
         """features [B, N0, in_features] in the pyramid's sorted row order →

@@ -1,5 +1,11 @@
-from .schedule import multistep_epoch_decay
-from .state import make_optimizer
-from .trainer import TrainStepConfig, make_train_step
+from .checkpoint import CheckpointManager, find_best_snapshot
+from .debug import dump_nan_state, nan_report, tree_finite
+from .schedule import exponential_epoch_decay, multistep_epoch_decay
+from .state import make_optimizer, set_learning_rate
+from .trainer import Trainer, TrainStepConfig, make_train_step
 
-__all__ = ["TrainStepConfig", "make_optimizer", "make_train_step", "multistep_epoch_decay"]
+__all__ = [
+    "CheckpointManager", "TrainStepConfig", "Trainer", "dump_nan_state",
+    "exponential_epoch_decay", "find_best_snapshot", "make_optimizer", "make_train_step",
+    "multistep_epoch_decay", "nan_report", "set_learning_rate", "tree_finite",
+]

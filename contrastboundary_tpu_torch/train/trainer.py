@@ -1,20 +1,23 @@
 """The train step (counterpart of contrastboundary_tpu/train/trainer.py::
 make_train_step): pyramid, features and labels into Morton order, the model
-in train mode, cross-entropy plus the 5-stage CBL, backward, the SGD update,
-and the confusion of the step's predictions."""
+in train mode, cross-entropy plus the 5-stage CBL, backward, the optimizer's
+update, and the confusion of the step's predictions; and ``Trainer``, the
+minimal epoch loop over it (::Trainer)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping, Optional
+import time
+from typing import Callable, Dict, Iterable, Mapping, Optional
 
 import torch
 
 from ..core.gather import batch_gather
 from ..device import resolve_device
-from ..eval.metrics import confusion_matrix
+from ..eval.metrics import AverageMeter, confusion_matrix, metrics_from_confusion
 from ..losses.contrast import ContrastConfig, cbl_loss
 from ..losses.segmentation import cross_entropy
 from ..ops.pyramid import PyramidSpec, build_pyramid
+from .state import set_learning_rate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,16 +33,17 @@ class TrainStepConfig:
 
 def make_train_step(model: torch.nn.Module, cfg: TrainStepConfig,
                     optimizer: torch.optim.Optimizer, device="cuda") -> Callable:
-    """Move ``model`` to ``device`` in train mode and return step(batch) →
-    metrics, which updates the model's parameters (through ``optimizer``,
-    built over them) and its BatchNorm statistics in place. ``batch`` maps
-    points [B, N, 3], features [B, N, F] and labels [B, N] (arrays or
-    tensors, any row order). metrics: ce, cbl, cbl_stage<i>, loss (0-d
+    """Move ``model`` to ``device`` and return step(batch) → metrics, which
+    puts the model in train mode and updates its parameters (through
+    ``optimizer``, built over them) and its BatchNorm statistics in place.
+    ``batch`` maps points [B, N, 3], features [B, N, F] and labels [B, N]
+    (arrays or tensors, any row order). metrics: ce, cbl, cbl_stage<i>, loss (0-d
     tensors) and confusion [C, C], on the device, without gradient."""
     dev = resolve_device(device)
-    model.to(dev).train()
+    model.to(dev)
 
     def step(batch: Mapping):
+        model.train()  # an eval step on the same model may have run since
         points = torch.as_tensor(batch["points"], dtype=torch.float32, device=dev)
         features = torch.as_tensor(batch["features"], dtype=torch.float32, device=dev)
         labels = torch.as_tensor(batch["labels"], device=dev).long()
@@ -73,3 +77,45 @@ def make_train_step(model: torch.nn.Module, cfg: TrainStepConfig,
         return metrics
 
     return step
+
+
+class Trainer:
+    """Minimal epoch loop: meters, periodic logging, the summed confusion
+    and steps/s. ``schedule`` (train/schedule.py) sets every parameter
+    group's rate before each update at the update count, from ``step`` (0
+    for a fresh run), as optax's scale_by_learning_rate(schedule) counts;
+    without one the optimizer's rates stay as they are."""
+
+    def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 cfg: TrainStepConfig, schedule: Optional[Callable[[int], float]] = None,
+                 device="cuda", log_fn: Callable = print, step: int = 0):
+        self.model, self.optimizer, self.cfg = model, optimizer, cfg
+        self.schedule = schedule
+        self.step = step
+        self.train_step = make_train_step(model, cfg, optimizer, device)
+        self.log = log_fn
+
+    def train_epoch(self, batches: Iterable, log_freq: int = 10) -> Dict[str, float]:
+        meters: Dict[str, AverageMeter] = {}
+        conf_sum = None
+        t0 = time.time()
+        n = 0
+        for i, batch in enumerate(batches):
+            if self.schedule is not None:
+                set_learning_rate(self.optimizer, self.schedule, self.step)
+            metrics = self.train_step(batch)
+            self.step += 1
+            conf = metrics.pop("confusion")
+            conf_sum = conf if conf_sum is None else conf_sum + conf
+            for k, v in metrics.items():
+                meters.setdefault(k, AverageMeter()).update(float(v))
+            n += 1
+            if log_freq and (i + 1) % log_freq == 0:
+                self.log(f"step {i + 1}: "
+                         + " ".join(f"{k}={m.avg:.4f}" for k, m in meters.items()))
+        out = {k: m.avg for k, m in meters.items()}
+        if conf_sum is not None:
+            m = metrics_from_confusion(conf_sum.cpu().numpy())
+            out.update({k: m[k] for k in ("mIoU", "OA", "mACC")})
+        out["steps_per_sec"] = n / max(time.time() - t0, 1e-9)
+        return out

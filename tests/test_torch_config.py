@@ -1,0 +1,206 @@
+"""The port's config (contrastboundary_tpu_torch/config/) against the JAX
+package's: the same preset names and, for every preset, the same fields;
+the same overrides (``--set`` strings and YAML files); the op-string DSL
+agreeing with JAX's on every preset's string and on the DSL cases of
+tests/test_heads_dsl.py wherever the port has the option, and raising
+NotImplementedError (naming its ROADMAP item) where it does not; the
+flagship's PyramidSpec and models. No tolerance: every field equal."""
+import dataclasses
+
+import pytest
+import torch
+
+from contrastboundary_tpu.config import CONFIGS as JAX_CONFIGS
+from contrastboundary_tpu.config import dsl as jax_dsl
+from contrastboundary_tpu.config import load_config as jax_load_config
+from contrastboundary_tpu_torch.config import CONFIGS, load_config
+from contrastboundary_tpu_torch.config import dsl
+from contrastboundary_tpu_torch.losses import ContrastConfig
+from contrastboundary_tpu_torch.models import PointTransformerSeg
+from contrastboundary_tpu_torch.ops.pyramid import PyramidSpec
+from test_heads_dsl import PUBLISHED_OP_STRINGS
+
+FLAGSHIP = "multi-Ua-concat-latent|contrast-Ua-softnn-latent-label-l2-w.1"
+# the DSL cases of tests/test_heads_dsl.py beyond the published strings
+DSL_CASES = PUBLISHED_OP_STRINGS + [
+    "contrast-Ua-softnn-logits-label-kl-w.1",
+    "multi-Ua-sum-logits",
+    "multi-Ua-concat-latent-lossSub.5",
+    "multi-Ua-concat-latent-loss.3",
+    "multi-Ua-concat-latent-concat1",
+    "multi-Ua-concatmlp-fout",
+    "multi-Ua-concat-latent-sep",
+    "contrast-Ua-softnn-latent-label-l2-mS-w.1",
+    "contrast-Ua-nce-latent-label-l2-mS-mask-w.1",
+    "contrast-Ua-nce-latent-label-l2-mask.1-w.1",
+    "contrast-Ua-softnn-latent-label-l2-p2-w.1",
+    "contrast-Ua-softnn-latent-label-l2-p.5-w.1",
+    "contrast-Ua-softnn-latent-label-l2-m.1-w.1",
+    "contrast-Ua-softnn-latent-label-l2-mI-w.1",
+    "contrast-Ua-softnn-latent-label-l2-mST2-w.1",
+    "contrast-Ua-softnn-latent-label-max-l2-w.1",
+    "contrast-Ua-softnn-latent-label-l2-mT.5-w.1",
+    "pospool|2-xen-dp.5",
+    "mlp-3-sigmoid-w.2",
+    "1-xen-pred",
+    "2-xen-class",
+    "2-xen-center",
+    "2-xen-banana",
+    "contrast-Ua-softnn-latent-glb-l2-w.1",
+    "contrast-Ua-softnn-latent-label-l2-w.1-banana",
+    "multi-Ua-concat-latent-banana",
+    "multi-U0-concat-latent|contrast-U012-softnn-latent-label-cos-T.5-w.2",
+    "multi-Ua-concat-latent|contrast-D01_U34-softnn-latent-label-norml2-w.3",
+    "|multi-Ua-concat-latent|contrast-Ua-softnn-fout-label-l2-w.1",
+    "multi-Ua-concat-latent|contrast-Ua-softnn-latent-label-l2-proj-w.1",
+    "multi-Ua-concat-latent|contrast-Ua-softnn-latent-label-l2square-w.1",
+    "multi-Ua-concat-latent|contrast-Ua-softnn-latent-label-nn4-rand8-w.1",
+    "multi-Ua-concat-latent-loss|contrast-Ua-softnn-latent-label-l2-w.1",
+]
+PORT_CONTRAST = {f.name for f in dataclasses.fields(ContrastConfig)}
+
+
+def test_presets_equal_jax():
+    assert sorted(CONFIGS) == sorted(JAX_CONFIGS)
+    for name in sorted(CONFIGS):
+        assert dataclasses.asdict(load_config(name)) == dataclasses.asdict(jax_load_config(name)), \
+            name
+
+
+def test_config_tree_fields_and_defaults_equal_jax():
+    from contrastboundary_tpu.config import base as jb
+    from contrastboundary_tpu_torch.config import base as tb
+
+    for cls in ("DataConfig", "ModelConfig", "OptimConfig", "EvalConfig", "Config"):
+        ours, ref = getattr(tb, cls), getattr(jb, cls)
+        names = [f.name for f in dataclasses.fields(ours)]
+        assert names == [f.name for f in dataclasses.fields(ref)]
+        assert dataclasses.asdict(ours()) == dataclasses.asdict(ref()), cls
+
+
+@pytest.mark.parametrize("sets", [
+    "data.data_root:/x;optim.batch_size:2;optim.epochs:1;data.loop:2;eval.num_votes:1.0",
+    'model.planes:[16,32,64,128,256];model.blocks:[1,1,1,1,1];log_freq:1;arch_out:"multi-Ua"',
+    "model.dtype:bfloat16;model.bn_mode:stale;optim.grad_clip_norm:10",
+])
+def test_set_overrides_equal_jax(sets):
+    assert dataclasses.asdict(load_config("s3dis_pt_cbl", sets)) == \
+        dataclasses.asdict(jax_load_config("s3dis_pt_cbl", sets))
+    with pytest.raises(KeyError):
+        load_config("s3dis_pt_cbl", "data.nope:1")
+    with pytest.raises(KeyError):
+        load_config("no_such_preset")
+
+
+def test_yaml_files_equal_jax(tmp_path):
+    upd = tmp_path / "upd.yaml"
+    upd.write_text("_base: synthetic_tiny\ndata:\n  voxel_size: 0.05\noptim.epochs: 3\n")
+    preset = tmp_path / "mine.yaml"
+    preset.write_text("_base: s3dis_pt_cbl\nmodel: {bn_mode: stale}\nseed: 5\n")
+    for name, kw in ((str(preset), {}), ("s3dis_pt_cbl", {"cfg_file": str(upd)})):
+        ours = load_config(name, "optim.epochs:4", **kw)
+        ref = jax_load_config(name, "optim.epochs:4", **kw)
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert load_config(str(preset)).name == "mine"
+
+
+def _port_has(heads: dict) -> bool:
+    """Whether the port has every option of JAX's parsed heads."""
+    if "mlp" in heads:
+        return False
+    multi = heads.get("multi")
+    if multi is not None:
+        flagship = dsl.flagship_multi()
+        for k, v in multi.items():
+            if not (k == "branch_weight" and not multi["branch_loss"]) and v != flagship[k]:
+                return False
+    c = heads.get("contrast")
+    if c is not None:
+        ref = jax_dsl.ContrastConfig()
+        for f in dataclasses.fields(c):
+            if f.name not in PORT_CONTRAST and getattr(c, f.name) != getattr(ref, f.name):
+                return False
+        if c.dist not in ("l2", "norml2"):
+            return False
+    return True
+
+
+def _port_view(heads: dict) -> dict:
+    out = dict(heads)
+    if "contrast" in out:
+        c = out["contrast"]
+        out["contrast"] = ContrastConfig(**{k: getattr(c, k) for k in PORT_CONTRAST})
+    return out
+
+
+@pytest.mark.parametrize("arch_out", DSL_CASES + sorted({c.get("arch_out", FLAGSHIP)
+                                                          for c in JAX_CONFIGS.values()}))
+def test_parse_arch_out_agrees_with_jax(arch_out):
+    try:
+        ref = jax_dsl.parse_arch_out(arch_out)
+    except (ValueError, NotImplementedError) as e:
+        with pytest.raises(type(e)):
+            dsl.parse_arch_out(arch_out)
+        return
+    if _port_has(ref):
+        assert dsl.parse_arch_out(arch_out) == _port_view(ref)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
+            dsl.parse_arch_out(arch_out)
+
+
+def test_flagship_heads_and_stage_specs():
+    heads = dsl.parse_arch_out(FLAGSHIP)
+    assert heads["contrast"] == ContrastConfig()
+    assert heads["multi"] == dsl.flagship_multi()
+    assert heads["multi"] == jax_dsl.parse_multi_ops("multi-Ua-concat-latent")
+    for spec in ("Ua", "U0", "D012_U34", "a", "", "u12_d0"):
+        assert dsl.parse_stage(spec, 5) == jax_dsl.parse_stage(spec, 5)
+    with pytest.raises(ValueError):
+        dsl.parse_stage("X1", 5)
+
+
+def test_flagship_pyramid_spec():
+    spec = load_config("s3dis_pt_cbl").pyramid_spec()
+    assert spec == PyramidSpec(k_contrast=(36, 24, 24, 24, 24), with_subscene=True)
+    ref = jax_load_config("s3dis_pt_cbl").pyramid_spec()
+    for f in dataclasses.fields(spec):
+        assert getattr(spec, f.name) == getattr(ref, f.name), f.name
+    assert (ref.contrast_tile, ref.contrast_window) == (spec.self_tile, spec.self_window)
+    assert load_config("s3dis_pt_cbl", 'arch_out:"multi-Ua-concat-latent"').pyramid_spec() == \
+        PyramidSpec()
+
+
+@pytest.mark.parametrize("name,dtype", [("s3dis_pt_cbl", torch.float32),
+                                        ("s3dis_pt_cbl_bf16", torch.bfloat16)])
+def test_build_model(name, dtype):
+    cfg = load_config(name, "model.bn_mode:stale")
+    model = cfg.build_model(device="cpu", generator=torch.Generator().manual_seed(1))
+    ref = PointTransformerSeg(bn_mode="stale", dtype=dtype,
+                              generator=torch.Generator().manual_seed(1))
+    assert model.dtype == dtype and model.planes == (32, 64, 128, 256, 512)
+    assert model.blocks == (2, 3, 4, 6, 3)
+    sd, rd = model.state_dict(), ref.state_dict()
+    assert sd.keys() == rd.keys() and all(torch.equal(sd[k], rd[k]) for k in sd)
+    assert type(model.enc0_down.BatchNorm_0).__name__ == "StaleBatchNorm"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cfg.build_model()  # the card by default, and this CPU has none
+
+
+@pytest.mark.parametrize("name,sets,item", [
+    ("s3dis_conv_cbl", None, "item 8"),
+    ("synthetic_conv_tiny", None, "item 8"),
+    ("synthetic_tiny", None, "item 7"),
+    ("s3dis_pt_cbl_paper", None, "item 7"),
+    ("s3dis_pt_cbl", "model.sampler:fps", "item 7"),
+    ("s3dis_pt_cbl", "model.knn_recall:0.9", "item 7"),
+    ("s3dis_pt_cbl", "model.contrast_window:2", "item 7"),
+    ("s3dis_pt_cbl", "model.knn_window:4", "item 7"),
+    ("s3dis_pt_cbl", "model.save_memory:true", "item 7"),
+    ("s3dis_pt", None, "item 7"),
+    ("s3dis_pt_cbl_kl", None, "item 7"),
+])
+def test_unported_options_raise(name, sets, item):
+    cfg = load_config(name, sets)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
+        cfg.build_model(device="cpu")

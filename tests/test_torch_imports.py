@@ -125,3 +125,14 @@ def test_train_entry_point_needs_cuda_unless_cpu(monkeypatch):
         "labels": np.zeros((1, 512), np.int32),
     })
     assert np.isfinite(float(metrics["loss"])) and float(metrics["confusion"].sum()) == 512
+
+
+def test_runtime_modules_are_among_the_checked_files():
+    """The checks above walk every file of the port: the entry point, its
+    config, data, train and utils modules among them."""
+    names = {".".join(p.relative_to(ROOT).with_suffix("").parts) for p in _port_files()}
+    expected = {f"contrastboundary_tpu_torch.{m}" for m in (
+        "main", "config.base", "config.dsl", "config.s3dis", "data.pipeline", "data.prefetch",
+        "data.s3dis", "data.transforms", "models.init", "train.checkpoint", "train.debug",
+        "train.schedule", "train.state", "utils.logger", "utils.profiling", "utils.scalars")}
+    assert expected <= names, sorted(expected - names)
