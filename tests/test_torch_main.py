@@ -1,7 +1,8 @@
 """The port's training entry point, ``python -m contrastboundary_tpu_torch.main``,
 on the CPU (``--device cpu``) at a small size: the flagship preset at
 planes (16, 32, 64, 128, 256), one block a stage, N = 2048, over .npy rooms
-of 8,000 points written here (two train rooms, one val room).
+of 3,000 points written here (two train rooms, one val room), with one
+torch thread (the suite runs six workers at once on the machine's cores).
 
 - ``--mode train``, 2 steps and the epoch-end voting eval: the losses it
   records equal, bit for bit, those of make_train_step applied by hand to
@@ -33,15 +34,29 @@ from contrastboundary_tpu_torch.train import (
 )
 from contrastboundary_tpu_torch.utils import read_scalars
 
+ROOM_POINTS = 3000  # few crops a vote round and enumeration pass
 SETS = ("optim.batch_size:1;optim.epochs:1;data.loop:1;eval.num_votes:0.5;eval.batch_size:2;"
         "data.n_points:2048;data.voxel_max:3000;model.planes:[16,32,64,128,256];"
         "model.blocks:[1,1,1,1,1];log_freq:1")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_per_worker():
+    """Every worker of the suite computes with torch's default of one thread
+    a core: six of them oversubscribe the cores many times over, and this
+    file's steps, votes and passes wait on each other's threads. One thread
+    here; the default is restored afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def write_rooms(root, nan_room=False):
     os.makedirs(root, exist_ok=True)
     for split, area, n in (("train", 1, 2), ("val", 5, 1)):
-        rooms = SyntheticSceneDataset(num_rooms=n, points_per_room=8000, seed=1, split=split)
+        rooms = SyntheticSceneDataset(num_rooms=n, points_per_room=ROOM_POINTS, seed=1,
+                                      split=split)
         for i in range(n):
             c, f, l = rooms.room(i)
             if nan_room and split == "train":
