@@ -189,7 +189,7 @@ is not 0:
            full OA >= 0.5 with the trained checkpoint; passes, parts,
            requests, the eval step's median ms a request on the host clock,
            the room's seconds split into the eval step (to a synchronize) and
-           the host's numpy and copies, B-IoU. Phases 20-25 print the card's
+           the host's numpy and copies, B-IoU. Phases 20-26 print the card's
            name and power limit.
 23. bf16-eval-features phase 20 with the checkpoint in the bfloat16 model,
            under batch and stale BN, on phase serve's crops: the launches and
@@ -224,6 +224,21 @@ is not 0:
            eval request: num_votes 0): losses finite, each step's gathers
            by dtype 18 bfloat16 + 21 float32 and backward 18 + 12 (phase
            17's).
+26. prepare-test ScanNet's offline path through main.py: three raw scenes
+           (data/synthetic.py::write_scannet_scene: 6 x 6 x 3 m rooms, a
+           floor, four walls and six boxes as binary ply meshes with faces,
+           raw label ids of the benchmark, one box and 2% of the vertices
+           with ignored ids) converted by prepare_scannet (rasterized at
+           2000 points/m^2: ~250,000 points a scene); --mode calibrate
+           (data.n_points logged); --mode train on scannet_pt_cbl at full
+           width (20 classes, N = 65536, voxel_max 80000; the sorted layout
+           and strided sampler; batch 2, loop 2: 3 steps, no eval request),
+           each step's launches equal to phase 8's, losses finite; --mode
+           test --model_path auto on the same scenes with the preset's 2.0
+           votes: each request's launches equal to phase serve's, the first
+           request's probs against the plain versions' on the same weights
+           (1e-3, argmax >= 99.9%), and each scene's <scene>_pred.npy one
+           class in 0-19 for each prepared point.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -257,7 +272,10 @@ import numpy as np
 import torch
 
 from contrastboundary_tpu_torch import main as entry
-from contrastboundary_tpu_torch.data.synthetic import SyntheticSceneDataset, train_batch
+from contrastboundary_tpu_torch.data.prepare_scannet import prepare_scannet
+from contrastboundary_tpu_torch.data.synthetic import (
+    SyntheticSceneDataset, train_batch, write_scannet_scene,
+)
 from contrastboundary_tpu_torch.eval.run import (
     run_boundary_suite, run_enumerate_eval, run_voting_eval,
 )
@@ -281,8 +299,8 @@ from contrastboundary_tpu_torch.ops.tile_gather import window_starts
 from contrastboundary_tpu_torch.train import TrainStepConfig, make_optimizer, make_train_step
 from contrastboundary_tpu_torch.utils import StepTimer, read_scalars
 
-# main.py's own prefetch and setup, which phases 24-25 wrap
-entry_prefetch, entry_setup = entry.prefetch, entry.setup
+# main.py's own prefetch, setup and eval step, which phases 24-26 wrap
+entry_prefetch, entry_setup, entry_eval_step = entry.prefetch, entry.setup, entry.make_eval_step
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "results" / "ckpts" / "parity_s0_fast_e15.pkl"
 B, N, NUM_CLASSES = 2, 65536, 13
@@ -407,6 +425,13 @@ TRAIN_LR = 0.05
 ENTRY_ROOMS, ENTRY_POINTS = 4, 120_000
 ENTRY_SETS = "optim.batch_size:2;optim.epochs:1;data.loop:2;eval.num_votes:1.0"
 ENTRY_LOG = "log_freq:1"
+# phase 26: raw ScanNet scenes of write_scannet_scene's default room (6 x 6 x
+# 3 m) and the --set cuts of scannet_pt_cbl (the port's sorted layout and
+# strided sampler; batch 16 -> 2, epochs 200 -> 1, loop 30 -> 2: 3 steps)
+SCANNET_SCENES = 3
+SCANNET_SETS = ("model.layout:sorted;model.sampler:strided;optim.batch_size:2;optim.epochs:1;"
+                "data.loop:2")
+SCANNET_CLASSES = 20
 # gathers of a batch-BN bf16 step by dtype: the attention layers' kv rows are
 # bfloat16; TransitionDown's [p | x], TransitionUp's and the head's rows and
 # the training pyramid's and CBL's gathers come out of a BN or are float32
@@ -2276,6 +2301,91 @@ def train_entry_bf16(root: Path) -> None:
         require_bf16_counts(by_dtype, BF16_STEP_GATHERS, "a bfloat16 step of main.py")
 
 
+class RequestProbe:
+    """Phase 26's instrumentation of main.py's test mode: ``make_eval_step``
+    replaces main.py's and wraps the step it builds: each request ended by a
+    synchronize, its seconds and the launches it made; on the first request
+    also the probs of the plain versions on the same weights and batch."""
+
+    def __init__(self):
+        self.launches, self.seconds, self.probs = [], [], None
+
+    def make_eval_step(self, *args, **kw):
+        step = entry_eval_step(*args, **kw)
+
+        def probe(batch):
+            counts = read_counts()
+            t0 = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            self.launches.append(count_delta(read_counts(), counts))
+            if self.probs is None:
+                with plain_kernels():
+                    self.probs = (out[0].clone(), step(batch)[0])
+            return out
+        return probe
+
+
+def prepare_test(root: Path, serve_launches: dict, train_launches: dict) -> None:
+    """Phase 26: ScanNet's offline path through main.py: raw scenes written,
+    prepared, calibrated, trained on and served."""
+    raw, data, exp = root / "scannet_raw", root / "scannet", root / "exp_scannet"
+    t0 = time.perf_counter()
+    for i in range(SCANNET_SCENES):
+        write_scannet_scene(str(raw), f"scene{i:04d}_00", np.random.default_rng(i))
+    t1 = time.perf_counter()
+    converted = prepare_scannet(str(raw), str(data), verbose=False)
+    points = {Path(f).stem: len(np.load(f, mmap_mode="r")) for f in converted}
+    print(f"wrote {SCANNET_SCENES} raw scenes in {t1 - t0:.3f} s; prepare_scannet "
+          f"{time.perf_counter() - t1:.3f} s: points a scene {points}", flush=True)
+    require(len(points) == SCANNET_SCENES, f"prepared {sorted(points)}")
+    sets = f"data.data_root:{data};{SCANNET_SETS}"
+
+    n_points, _, secs, _ = run_entry(["-c", "scannet_pt_cbl", "--mode", "calibrate", "--set",
+                                      sets, "--exp_dir", str(exp)])
+    print(f"--mode calibrate: {secs:.3f} s, data.n_points={n_points} (the preset's 65536)",
+          flush=True)
+
+    probe = StepProbe()
+    _, _, secs, total = run_entry(
+        ["-c", "scannet_pt_cbl", "--mode", "train", "--set",
+         f"{sets};eval.num_votes:0;{ENTRY_LOG}", "--exp_dir", str(exp)], probe)
+    require(all(total[k] > 0 for k in TRAIN_KERNELS), f"a kernel was not launched: {total}")
+    print_probe("prepare-test train (scannet_pt_cbl, 20 classes)", probe)
+    steps, losses = entry_losses(exp)
+    print(f"--mode train: {secs:.3f} s; losses {losses} at steps {steps}", flush=True)
+    require(len(steps) == len(probe.steps) > 0 and all(np.isfinite(losses)), f"losses {losses}")
+    for i, launches in enumerate(probe.launches):
+        got = {k: launches[k] for k in TRAIN_KERNELS}
+        require(got == train_launches, f"step {i}: launches {got}, phase train's {train_launches}")
+
+    req = RequestProbe()
+    with mock.patch.object(entry, "make_eval_step", req.make_eval_step):
+        out, _, secs, _ = run_entry(
+            ["-c", "scannet_pt_cbl", "--mode", "test", "--model_path", "auto", "--set", sets,
+             "--exp_dir", str(exp), "--out_dir", str(root / "scannet_pred")])
+    per = [{k: launches[k] for k in serve_launches} for launches in req.launches]
+    probs, plain = req.probs
+    print(f"--mode test (the preset's votes): {secs:.3f} s, {len(req.seconds)} requests of "
+          f"{tuple(probs.shape)}, request median {statistics.median(req.seconds) * 1e3:.3f} ms, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; launches a request "
+          f"{per[0]}", flush=True)
+    require(all(p == serve_launches for p in per),
+            f"launches a request {per}, phase serve's {serve_launches}")
+    d = float((probs - plain).abs().max())
+    agree = float((probs.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"first request, kernels vs plain versions: max|dprobs| {d:.3g}, argmax agreement "
+          f"{agree:.6f}", flush=True)
+    require(d <= 1e-3 and agree >= 0.999, "test-request probs disagree with the plain versions")
+    for name, n in points.items():
+        pred = np.load(Path(out) / f"{name}_pred.npy")
+        print(f"{name}_pred.npy: {len(pred)} predictions for {n} prepared points, classes "
+              f"{np.bincount(pred, minlength=SCANNET_CLASSES).tolist()}", flush=True)
+        require(pred.shape == (n,) and np.issubdtype(pred.dtype, np.integer)
+                and pred.min() >= 0 and pred.max() < SCANNET_CLASSES, f"{name}: predictions")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2507,6 +2617,10 @@ def main() -> int:
         with phase("train-entry-bf16"), cbl_route_env("dense"):
             print(f"card: {card_line()}", flush=True)
             train_entry_bf16(root)
+        torch.cuda.empty_cache()
+        with phase("prepare-test"), cbl_route_env("dense"):
+            print(f"card: {card_line()}", flush=True)
+            prepare_test(root, f32_serve["launches"], batch_launches)
     torch.cuda.empty_cache()
 
     summary = []

@@ -26,7 +26,7 @@ def _host(x):
     return x.cpu().numpy()
 
 
-def _zero_labels(batch) -> dict:
+def zero_labels(batch) -> dict:
     """The eval step's inputs: a request carries no labels to score."""
     return {"points": batch["points"], "features": batch["features"],
             "labels": np.zeros(np.shape(batch["points"])[:2], np.int32)}
@@ -54,7 +54,7 @@ def run_voting_eval(model: torch.nn.Module, spec: PyramidSpec, dataset, *,
     eval_step = ctx["eval_step"]
 
     def predict(batch):
-        out = eval_step(_zero_labels(batch))
+        out = eval_step(zero_labels(batch))
         if with_features:
             probs, _, feats = out
             return _host(probs), {k: _host(v) for k, v in feats.items()}
@@ -152,7 +152,7 @@ def run_enumerate_eval(model: torch.nn.Module, spec: PyramidSpec, dataset, *,
     eval_step = ctx["eval_step"]
 
     def predict(batch):
-        return _host(eval_step(_zero_labels(batch))[0])
+        return _host(eval_step(zero_labels(batch))[0])
 
     ev = ctx["evaluator"] = EnumerateEvaluator(
         dataset, predict, num_classes, n_points, batch_size=batch_size,

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc, and its host library with the
+host C++ compiler, and load them with ctypes.
 
 Every source under ``csrc/`` is compiled by its own ``nvcc -c`` call, all of
 them started together, and the objects are linked by one more into one
@@ -7,6 +8,11 @@ into ``_build/<hash of the sources, the headers they include and the
 flags>/`` inside the package. A finished library is found again by its hash;
 a build writes to temporary names and renames the library into place, so a
 cut build leaves no library behind. A failed or timed-out build raises.
+
+The host sources (``HOST_SOURCES``: the data preparers' grid subsample) are
+not CUDA: one call of the host compiler builds them into their own
+``_build/<hash>/libcbl_native.so`` the same way, so that they build on a
+machine without nvcc.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+HOST_SOURCES = ("grid_subsample.cpp",)  # built by the host compiler, not nvcc
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 BUILD_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -88,12 +96,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def _digest(names, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in names:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def source_hash() -> str:
+    return _digest(SOURCES + HEADERS, NVCC_FLAGS + LINK_FLAGS)
 
 
 def library_path() -> Path:
@@ -101,8 +113,8 @@ def library_path() -> Path:
 
 
 def _run(cmds) -> None:
-    """Run the nvcc commands together; raise (after stopping the others) if
-    one fails or the batch outlasts BUILD_TIMEOUT_S."""
+    """Run the compiler commands together; raise (after stopping the others)
+    if one fails or the batch outlasts BUILD_TIMEOUT_S."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds]
     deadline = time.monotonic() + BUILD_TIMEOUT_S
@@ -112,12 +124,11 @@ def _run(cmds) -> None:
                 stdout, stderr = p.communicate(timeout=max(0.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired as e:
                 raise RuntimeError(
-                    f"nvcc timed out after {BUILD_TIMEOUT_S} s: {' '.join(cmd)}"
+                    f"{Path(cmd[0]).name} timed out after {BUILD_TIMEOUT_S} s: {' '.join(cmd)}"
                 ) from e
             if p.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}"
-                )
+                raise RuntimeError(f"{Path(cmd[0]).name} failed ({p.returncode}): "
+                                   f"{' '.join(cmd)}\n{stdout}\n{stderr}")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -144,6 +155,34 @@ def build() -> Path:
     finally:
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
+    return out
+
+
+def host_library_path() -> Path:
+    return BUILD_ROOT / _digest(HOST_SOURCES, CXX_FLAGS) / "libcbl_native.so"
+
+
+def _cxx() -> str:
+    for cand in ("g++", "c++"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler found (g++ or c++ on PATH)")
+
+
+def build_host() -> Path:
+    """Compile the host sources unless a library with their hash exists."""
+    out = host_library_path()
+    if out.exists():
+        return out
+    cxx = _cxx()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    try:
+        _run([[cxx, *CXX_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in HOST_SOURCES)]])
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
     return out
 
 

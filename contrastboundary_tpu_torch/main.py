@@ -5,6 +5,10 @@ of contrastboundary_tpu/main.py, the same flags plus ``--device``):
       --set data.data_root:/path/to/npy
   python -m contrastboundary_tpu_torch.main -c s3dis_pt_cbl --mode val \\
       --exp_dir <train run> --model_path auto
+  python -m contrastboundary_tpu_torch.main -c scannet_pt_cbl --mode calibrate \\
+      --set data.data_root:/path/to/npy
+  python -m contrastboundary_tpu_torch.main -c scannet_pt_cbl --mode test \\
+      --exp_dir <train run> --model_path best --out_dir <submission dir>
 
 A named preset, a YAML update file and ``--set a.b:v;c:v`` overrides make
 the config (config/); the model is built by ``Config.build_model``, its
@@ -13,8 +17,13 @@ augmented, cropped and padded (data/) by a prefetch thread; each step runs
 the train step (train/trainer.py) under the config's schedule and
 optimizer, with a NaN sentinel and scalars; each epoch ends with a voting
 eval (eval/run.py) and a snapshot (train/checkpoint.py), which ``--mode
-val`` restores. Everything runs on ``--device`` (``cuda`` by default: it
-raises without a card unless given ``--device cpu``), at world size 1.
+val`` restores. ``--mode test`` restores a snapshot, votes over the test
+split and writes the predictions of every raw point (the Semantic3D and
+NPM3D benchmarks' files, ``<scene>_pred.npy`` otherwise); ``--mode
+calibrate`` measures the train rooms for the static crop size (and the
+ConvNet's neighbour caps). Everything runs on ``--device`` (``cuda`` by
+default: it raises without a card unless given ``--device cpu``), at world
+size 1.
 """
 from __future__ import annotations
 
@@ -30,10 +39,14 @@ from .data import (
     PotentialSampler, S3DISDataset, SyntheticSceneDataset, default_train_transform,
     make_batch_iterator,
 )
+from .data.calibrate import calibrate_crop_points, calibrate_neighborhood_limits
+from .data.datasets import NPM3DDataset, ScanNetDataset, Semantic3DDataset, raw_projection
 from .data.prefetch import prefetch
 from .device import resolve_device
 from .eval.metrics import AverageMeter, metrics_from_confusion
-from .eval.run import analyze, run_enumerate_eval, run_voting_eval
+from .eval.run import analyze, run_enumerate_eval, run_voting_eval, zero_labels
+from .eval.step import make_eval_step
+from .eval.voting import VotingEvaluator
 from .train import (
     CheckpointManager, TrainStepConfig, dump_nan_state, exponential_epoch_decay,
     find_best_snapshot, make_optimizer, make_train_step, multistep_epoch_decay,
@@ -41,7 +54,8 @@ from .train import (
 )
 from .utils import ScalarWriter, setup_logger, trace
 
-DATA_ITEM = "ROADMAP Queue A item 4b"
+TEST_SMOOTH = 0.98  # the probs' smoothing of the test split's vote rounds
+DATASETS = {"scannet": ScanNetDataset, "semantic3d": Semantic3DDataset, "npm3d": NPM3DDataset}
 
 
 def build_dataset(cfg, split: str):
@@ -55,8 +69,9 @@ def build_dataset(cfg, split: str):
     if d.dataset == "s3dis":
         return S3DISDataset(d.data_root, split=split, test_area=d.test_area,
                             loop=d.loop if split == "train" else 1)
-    if d.dataset in ("scannet", "semantic3d", "npm3d"):
-        raise NotImplementedError(f"the {d.dataset} dataset is not ported ({DATA_ITEM})")
+    if d.dataset in DATASETS:
+        return DATASETS[d.dataset](d.data_root, split=split,
+                                   loop=d.loop if split == "train" else 1)
     raise ValueError(f"unknown dataset {d.dataset!r}")
 
 
@@ -225,6 +240,79 @@ def validate(cfg, logger, exp_dir: str, model_path: str, device, extra_ops: str 
     return run_eval(cfg, model, spec, logger, device, extra_ops=extra_ops, h5_path=h5)
 
 
+def run_test(cfg, logger, exp_dir: str, model_path: str, device, out_dir: str = "") -> str:
+    """Restore a snapshot of ``exp_dir`` (auto | best | path), vote over the
+    test split (no labels, smoothing TEST_SMOOTH), take the argmax on each
+    voted sub-cloud, carry it to the room's points (``ev.proj``) and to the
+    raw scan's (the dataset's raw projection, where it has one), and write
+    the benchmark's files → the zip (Semantic3D) or the output directory."""
+    model, spec, _, optimizer, _, _, _ = setup(cfg, logger, device)
+    ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
+    model_path = _resolve_model_path(exp_dir, model_path, logger)
+    step, skipped = ckpt.restore(model, optimizer, model_path)
+    logger.info(f"restored step {step} (skipped {len(skipped)})")
+
+    test_ds = build_dataset(cfg, "test")
+    eval_step = make_eval_step(model, spec, device, num_classes=cfg.data.num_classes)
+
+    def predict(batch):
+        return eval_step(zero_labels(batch))[0].cpu().numpy()
+
+    d = cfg.data
+    ev = VotingEvaluator(test_ds, predict, d.num_classes, d.n_points,
+                         batch_size=cfg.eval.batch_size, voxel_size=d.voxel_size,
+                         num_votes=cfg.eval.num_votes, smooth=TEST_SMOOTH, seed=cfg.seed,
+                         crop_mode=d.crop_mode, in_radius=d.in_radius)
+    ev.run(progress=lambda s, p: logger.info(f"  test vote step {s}, min_pot {p:.2f}"))
+
+    predictions = {}
+    for r, name in enumerate(test_ds.names):
+        pred = ev.clouds[r].predictions()[ev.proj[r]]  # voted sub-cloud → the room's points
+        proj = raw_projection(test_ds, name)
+        if proj is None:
+            logger.info(f"{name}: no raw projection file — submitting npy-level")
+        else:
+            pred = pred[proj]
+        predictions[name] = pred
+        logger.info(f"{name}: {len(pred)} point predictions")
+
+    out_dir = out_dir or os.path.join(exp_dir, "submission")
+    if d.dataset == "semantic3d":
+        zpath = Semantic3DDataset.write_submission(out_dir, predictions)
+        logger.info(f"submission zip: {zpath}")
+        return zpath
+    if d.dataset == "npm3d":
+        files = NPM3DDataset.write_submission(out_dir, predictions)
+        logger.info(f"submission files: {len(files)} in {out_dir}")
+        return out_dir
+    os.makedirs(out_dir, exist_ok=True)  # no external benchmark: the predictions as npy
+    for name, pred in predictions.items():
+        np.save(os.path.join(out_dir, f"{name}_pred.npy"), pred)
+    logger.info(f"saved raw predictions to {out_dir}")
+    return out_dir
+
+
+def calibrate(cfg, logger, max_clouds: int = 10) -> int:
+    """Measure up to ``max_clouds`` train rooms and log the static caps to
+    put in the config (data/calibrate.py) → the crop size ``n_points``. The
+    neighbour caps (ConvNet) need only the config's strides, radius and
+    voxel size, no model."""
+    ds = build_dataset(cfg, "train")
+    clouds = [ds.room(i)[0] for i in range(min(ds.num_rooms, max_clouds))]
+    n_points = calibrate_crop_points(clouds, cfg.data.in_radius, cfg.data.voxel_size,
+                                     max_clouds=max_clouds)
+    logger.info(f"calibrated crop size (radius {cfg.data.in_radius} m, 90th pct, pow2): "
+                f"data.n_points={n_points}")
+    if cfg.model.arch == "convnet":
+        nl = len(cfg.model.strides)
+        radii = [cfg.model.base_radius * 2 ** i for i in range(nl)]
+        cells = [cfg.data.voxel_size * 2 ** i for i in range(nl)]
+        limits = calibrate_neighborhood_limits(clouds, radii, cells, max_clouds=max_clouds)
+        logger.info(f"calibrated neighbor caps (80% untouched criterion): "
+                    f"model.neighborhood_limits={limits}")
+    return n_points
+
+
 def check_pipeline(cfg, logger, num_batches: int = 8):
     """Input-pipeline check: runs the batch iterator alone and reports its
     time a batch and the label, duplicate-pad and extent histograms."""
@@ -283,17 +371,11 @@ def main(argv=None):
                         help="torch device; without a card pass 'cpu'")
     args = parser.parse_args(argv)
 
-    if args.mode == "test":
-        raise NotImplementedError(
-            "--mode test (test-split inference and benchmark submission) is not ported "
-            "(ROADMAP Queue A item 6)")
-    if args.mode == "calibrate":
-        raise NotImplementedError(f"--mode calibrate is not ported ({DATA_ITEM})")
     device = resolve_device(args.device)
     cfg = load_config(args.config, args.sets, cfg_file=args.cfg_file)
     exp_dir = args.exp_dir or os.path.join(
         cfg.save_path, cfg.data.dataset, cfg.name, time.strftime("Log_%m%d_%H%M%S"))
-    if args.mode == "val" and args.exp_dir is None:
+    if args.mode in ("val", "test") and args.exp_dir is None:
         raise SystemExit(f"--mode {args.mode} requires --exp_dir pointing at a train run")
     os.makedirs(exp_dir, exist_ok=True)
     logger = setup_logger(log_file=os.path.join(exp_dir, f"log_{args.mode}.txt"))
@@ -304,6 +386,10 @@ def main(argv=None):
         return train(cfg, logger, exp_dir, device)
     if args.mode == "check":
         return check_pipeline(cfg, logger)
+    if args.mode == "calibrate":
+        return calibrate(cfg, logger)
+    if args.mode == "test":
+        return run_test(cfg, logger, exp_dir, args.model_path, device, args.out_dir)
     if args.mode == "analyze":
         return analyze(args.h5, cfg.data.num_classes, cfg.model.base_radius,
                        args.extra_ops, log=logger.info)

@@ -14,8 +14,9 @@ torch thread (the suite runs six workers at once on the machine's cores).
   re-reads to the same boundary numbers.
 - A NaN in a room's colours raises FloatingPointError and writes
   ``nan_dump.pkl``; ``--mode check`` logs its histograms; without CUDA and
-  without ``--device cpu`` the entry raises, and modes test and calibrate
-  raise NotImplementedError.
+  without ``--device cpu`` the entry raises (modes check, calibrate and
+  test), and a ConvNet preset's ``--mode train`` raises NotImplementedError
+  naming ROADMAP item 8.
 """
 import os
 import pickle
@@ -172,13 +173,11 @@ def test_check_mode_logs_histograms(tmp_path):
         assert what in log, what
 
 
-def test_entry_needs_cuda_unless_cpu_and_raises_for_unported_modes(tmp_path, monkeypatch):
+def test_entry_needs_cuda_unless_cpu_and_raises_for_a_convnet_preset(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        entry.main(["-c", "s3dis_pt_cbl", "--mode", "check", "--exp_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        entry.main(["-c", "s3dis_pt_cbl", "--mode", "test", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        entry.main(["-c", "s3dis_pt_cbl", "--mode", "calibrate", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        entry.build_dataset(load_config("scannet_pt_cbl"), "train")
+    for mode in ("check", "calibrate", "test"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry.main(["-c", "s3dis_pt_cbl", "--mode", mode, "--exp_dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        entry.main(["-c", "scannet_conv_cbl", "--mode", "train", "--device", "cpu",
+                    "--exp_dir", str(tmp_path)])
