@@ -239,6 +239,34 @@ is not 0:
            request's probs against the plain versions' on the same weights
            (1e-3, argmax >= 99.9%), and each scene's <scene>_pred.npy one
            class in 0-19 for each prepared point.
+27. conv-train the ConvNet family, which runs no kernel of the port (the
+           reference computes it in XLA): s3dis_conv_cbl at full width
+           (base_fdim 72, strides 1-4-4-4-4, neighbour caps 26-31-38-41-39,
+           radii 0.1·2^l, contrast 36-24-24-24-24, 13 classes) from fresh
+           weights (seed 0) with the preset's optimizer (SGD m 0.98, lr
+           0.02, decay 1e-3, clip 100), on B = 8 (the preset's; halved while
+           it does not fit) x N = 65536 synthetic train crops: the natural
+           pyramid on the card against the CPU's on one 8,192-point crop on
+           the 1/64 m grid (every index equal, up_w within 1e-6); one step
+           on that crop on the card against the CPU from the same weights
+           (loss rel <= 1e-4, gradient norm rel <= 1e-3); five steps at full
+           size lowering the loss, the median of the 3 warm ones, peak
+           memory, one profiled step (device time, busy share, top device
+           ops) and the device time of the training pyramid alone; one step
+           each of s3dis_conv_cbl_kl, s3dis_pospool_cbl and
+           s3dis_pseudogrid_cbl (losses finite); every launch count of the
+           port's kernels 0 through all of it.
+28. conv-serve the eval step of that model on those crops: probs finite, the
+           request median and peak memory, one profiled request; on the
+           8,192-point crop the card's probs against the CPU's (1e-4,
+           argmax >= 99.9%); launch counts 0.
+29. conv-entry scannet_conv_cbl through main.py on phase 26's prepared
+           scenes: --mode calibrate, whose neighbour caps are fed back
+           through --set; --mode train at full width with phase 26's cuts
+           (batch 2, epochs 1, loop 2: 3 steps, no eval request), losses
+           finite; --mode test --model_path auto with the preset's votes,
+           every request's probs finite and each scene's predictions one
+           class in 0-19 a point; launch counts 0.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -272,6 +300,7 @@ import numpy as np
 import torch
 
 from contrastboundary_tpu_torch import main as entry
+from contrastboundary_tpu_torch.config import load_config
 from contrastboundary_tpu_torch.data.prepare_scannet import prepare_scannet
 from contrastboundary_tpu_torch.data.synthetic import (
     SyntheticSceneDataset, train_batch, write_scannet_scene,
@@ -429,12 +458,17 @@ ENTRY_LOG = "log_freq:1"
 # 3 m) and the --set cuts of scannet_pt_cbl (the port's sorted layout and
 # strided sampler; batch 16 -> 2, epochs 200 -> 1, loop 30 -> 2: 3 steps)
 SCANNET_SCENES = 3
-SCANNET_SETS = ("model.layout:sorted;model.sampler:strided;optim.batch_size:2;optim.epochs:1;"
-                "data.loop:2")
+SCANNET_CUTS = "optim.batch_size:2;optim.epochs:1;data.loop:2"
+SCANNET_SETS = f"model.layout:sorted;model.sampler:strided;{SCANNET_CUTS}"
 SCANNET_CLASSES = 20
 # gathers of a batch-BN bf16 step by dtype: the attention layers' kv rows are
 # bfloat16; TransitionDown's [p | x], TransitionUp's and the head's rows and
 # the training pyramid's and CBL's gathers come out of a BN or are float32
+# phases 27-29: the ConvNet family at full width (no kernel of the port runs)
+CONV_PRESETS = ("s3dis_conv_cbl", "s3dis_conv_cbl_kl", "s3dis_pospool_cbl",
+                "s3dis_pseudogrid_cbl")
+CONV_B, CONV_GRID_N = 8, 8192
+CONV_ENTRY = "scannet_conv_cbl"
 BF16_STEP_GATHERS = {"window_gather": {"bfloat16": ATTENTION_LAYERS, "float32": 21},
                      "window_gather_bwd": {"bfloat16": ATTENTION_LAYERS, "float32": 12}}
 
@@ -2305,10 +2339,11 @@ class RequestProbe:
     """Phase 26's instrumentation of main.py's test mode: ``make_eval_step``
     replaces main.py's and wraps the step it builds: each request ended by a
     synchronize, its seconds and the launches it made; on the first request
-    also the probs of the plain versions on the same weights and batch."""
+    also the probs of the plain versions on the same weights and batch;
+    whether each request's probs are finite."""
 
     def __init__(self):
-        self.launches, self.seconds, self.probs = [], [], None
+        self.launches, self.seconds, self.probs, self.finite = [], [], None, []
 
     def make_eval_step(self, *args, **kw):
         step = entry_eval_step(*args, **kw)
@@ -2320,6 +2355,7 @@ class RequestProbe:
             torch.cuda.synchronize()
             self.seconds.append(time.perf_counter() - t0)
             self.launches.append(count_delta(read_counts(), counts))
+            self.finite.append(bool(torch.isfinite(out[0]).all()))
             if self.probs is None:
                 with plain_kernels():
                     self.probs = (out[0].clone(), step(batch)[0])
@@ -2384,6 +2420,236 @@ def prepare_test(root: Path, serve_launches: dict, train_launches: dict) -> None
               f"{np.bincount(pred, minlength=SCANNET_CLASSES).tolist()}", flush=True)
         require(pred.shape == (n,) and np.issubdtype(pred.dtype, np.integer)
                 and pred.min() >= 0 and pred.max() < SCANNET_CLASSES, f"{name}: predictions")
+
+
+def require_no_launches(what: str) -> None:
+    counts = {k: v for k, v in read_counts().items() if v}
+    require(not counts and knn.wide_calls == 0,
+            f"{what}: a kernel of the port was launched: {counts}, wide {knn.wide_calls}")
+
+
+def conv_setup(name: str, dev, seed: int = 0):
+    """A ConvNet preset's model (fresh weights from ``seed``), its
+    optimizer (the preset's) and train step on ``dev``."""
+    cfg = load_config(name)
+    model = cfg.build_model(device=dev, generator=torch.Generator().manual_seed(seed))
+    opt, step = conv_step(cfg, model, dev)
+    return cfg, model, opt, step
+
+
+def conv_step(cfg, model, dev):
+    """The preset's optimizer over ``model`` and its train step on ``dev``."""
+    o = cfg.optim
+    opt = make_optimizer(model.parameters(), o.base_lr, momentum=o.momentum,
+                         weight_decay=o.weight_decay, grad_clip_norm=o.grad_clip_norm)
+    step_cfg = TrainStepConfig(num_classes=cfg.data.num_classes, spec=cfg.pyramid_spec(),
+                               contrast=cfg.contrast, ignore_label=cfg.data.ignore_label)
+    return opt, make_train_step(model, step_cfg, opt, device=dev)
+
+
+def grid_crop(n: int, seed: int = 3) -> dict:
+    """One synthetic train crop of n points with coordinates on the 1/64 m
+    grid: every squared distance exact in float32 on both devices."""
+    rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
+    batch = train_batch(rooms, 1, n, np.random.default_rng(seed))
+    batch["points"] = (np.round(batch["points"] * 64) / 64).astype(np.float32)
+    return batch
+
+
+def compare_pyramids(spec, points: np.ndarray, dev) -> None:
+    """The natural pyramid on the card against the CPU's: every index
+    tensor equal, the IDW weights within 1e-6."""
+    cpu = build_pyramid(torch.as_tensor(points), spec)
+    t0 = time.perf_counter()
+    card = build_pyramid(torch.as_tensor(points, device=dev), spec)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = 0
+    for field in ("sample_idx", "self_idx", "down_idx", "up_idx", "near0_idx", "contrast_idx",
+                  "subscene_idx"):
+        for level, (a, b) in enumerate(zip(getattr(cpu, field), getattr(card, field))):
+            if a is None:
+                require(b is None, f"{field}[{level}]")
+                continue
+            require(torch.equal(a, b.cpu()), f"pyramid {field}[{level}]: card != CPU "
+                    f"({int((a != b.cpu()).sum())} of {a.numel()})")
+            n += a.numel()
+    w = max(float((a - b.cpu()).abs().max()) for a, b in zip(cpu.up_w[1:], card.up_w[1:]))
+    print(f"natural pyramid of {points.shape[1]} grid points: card = CPU on {n} indices, "
+          f"max|d up_w| {w:.3g} (card {secs * 1e3:.3f} ms)", flush=True)
+    require(w <= 1e-6, "up_w")
+
+
+def conv_train(dev) -> dict:
+    """Phase 27."""
+    cfg, model, opt, step = conv_setup(CONV_PRESETS[0], dev)
+    spec = cfg.pyramid_spec()
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"{CONV_PRESETS[0]}: {nparams} parameters, spec {spec}", flush=True)
+    reset_counts()
+
+    crop = grid_crop(CONV_GRID_N)
+    compare_pyramids(spec, crop["points"], dev)
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_opt, cpu_step = conv_step(cfg, cpu_model, "cpu")
+    snap0 = snapshot(model, opt)
+    m_card = step(crop)
+    loss_c, gn_c = float(m_card["loss"]), grad_norm(model)
+    m_cpu = cpu_step(crop)
+    loss_p, gn_p = float(m_cpu["loss"]), grad_norm(cpu_model)
+    print(f"one step on the grid crop, card vs CPU from the same weights: loss {loss_c:.7f} vs "
+          f"{loss_p:.7f} (rel {abs(loss_c - loss_p) / abs(loss_p):.3g}), gradient norm "
+          f"{gn_c:.7f} vs {gn_p:.7f} (rel {abs(gn_c - gn_p) / gn_p:.3g}); stages "
+          + ", ".join(f"{k} {float(m_card[k]):.6f}/{float(m_cpu[k]):.6f}" for k in m_card
+                      if k.startswith("cbl_stage")), flush=True)
+    require(abs(loss_c - loss_p) <= 1e-4 * abs(loss_p), "card and CPU losses disagree")
+    require(abs(gn_c - gn_p) <= 1e-3 * gn_p, "card and CPU gradient norms disagree")
+    del cpu_model, cpu_opt, cpu_step
+    restore(model, opt, snap0)
+
+    rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
+    b = CONV_B
+    while True:
+        batch = train_batch(rooms, b, N, np.random.default_rng(0))
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            step(batch)  # warm-up: library handles, allocator
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            restore(model, opt, snap0)
+            torch.cuda.empty_cache()
+            print(f"batch {b} x {N} does not fit in the card's memory; halved", flush=True)
+            require(b > 1, "one crop does not fit")
+            b //= 2
+    print(f"batch {b} x {N} (the preset's {cfg.optim.batch_size})", flush=True)
+    restore(model, opt, snap0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        print("  step: " + ", ".join(f"{k} {float(v):.6f}" for k, v in m.items()
+                                      if k != "confusion"), flush=True)
+    med = statistics.median(secs[2:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"ConvNet train step ({CONV_PRESETS[0]}, B={b}) median of 3 warm steps "
+          f"{med * 1e3:.3f} ms over {[round(x * 1e3, 3) for x in secs]}, {b * N / med:.1f} "
+          f"points/s, max_memory_allocated {peak} B", flush=True)
+    require(all(np.isfinite(losses)), f"losses {losses}")
+    require(losses[-1] < losses[0], f"5 steps on one batch did not lower the loss: {losses}")
+    busy_ms = profile_request(step, batch, top=20, what="ConvNet train step")
+    print(f"device busy {busy_ms:.3f} ms of the unprofiled median step {med * 1e3:.3f} ms: "
+          f"busy share {busy_ms / (med * 1e3):.3f}", flush=True)
+    pts_dev = torch.as_tensor(batch["points"], device=dev)
+    pyr_ms = time_ms(lambda: build_pyramid(pts_dev, spec), reps=1)
+    print(f"device time of the training pyramid alone {pyr_ms:.3f} ms", flush=True)
+    require_no_launches("the ConvNet train steps")
+    del opt, step
+    torch.cuda.empty_cache()
+
+    for name in CONV_PRESETS[1:]:
+        _, other, other_opt, other_step = conv_setup(name, dev)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = other_step(batch)
+        torch.cuda.synchronize()
+        loss = float(m["loss"])
+        print(f"{name}: one step at B={b}: {(time.perf_counter() - t0) * 1e3:.3f} ms (cold), "
+              + ", ".join(f"{k} {float(v):.6f}" for k, v in m.items() if k != "confusion")
+              + f", max_memory_allocated {torch.cuda.max_memory_allocated()} B", flush=True)
+        require(np.isfinite(loss) and all(np.isfinite(float(v)) for k, v in m.items()
+                                          if k != "confusion"), f"{name}: loss {loss}")
+        require_no_launches(name)
+        del other, other_opt, other_step, m
+        torch.cuda.empty_cache()
+    return dict(model=model, cfg=cfg, batch=batch, crop=crop, med=med, peak=peak, b=b)
+
+
+def conv_serve(dev, trained: dict) -> None:
+    """Phase 28."""
+    model, cfg, batch, crop = (trained[k] for k in ("model", "cfg", "batch", "crop"))
+    spec = cfg.pyramid_spec()
+    step = make_eval_step(model, spec, dev, num_classes=cfg.data.num_classes)
+    reset_counts()
+    probs, _ = step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        probs, conf = step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    require(bool(torch.isfinite(probs).all()), "ConvNet request probs not finite")
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    oa = float((probs.argmax(-1) == labels).float().mean())
+    print(f"ConvNet request (B={probs.shape[0]} x {probs.shape[1]}): median of 3 "
+          f"{statistics.median(secs) * 1e3:.3f} ms over {[round(x * 1e3, 3) for x in secs]}, "
+          f"max_memory_allocated {peak} B, crop OA {oa:.4f} after 5 steps", flush=True)
+    busy = profile_request(step, batch, top=12, what="ConvNet request")
+    print(f"device busy {busy:.3f} ms of the median request: busy share "
+          f"{busy / (statistics.median(secs) * 1e3):.3f}", flush=True)
+    card, _ = step(crop)
+    cpu_probs, _ = make_eval_step(copy.deepcopy(model).cpu(), spec, "cpu",
+                                  num_classes=cfg.data.num_classes)(crop)
+    d = float((card.cpu() - cpu_probs).abs().max())
+    agree = float((card.cpu().argmax(-1) == cpu_probs.argmax(-1)).float().mean())
+    print(f"grid crop of {CONV_GRID_N} points, card vs CPU probs: max|d| {d:.3g}, argmax "
+          f"agreement {agree:.6f}", flush=True)
+    require(d <= 1e-4 and agree >= 0.999, "card and CPU probs disagree")
+    require_no_launches("the ConvNet requests")
+
+
+def conv_entry(root: Path) -> None:
+    """Phase 29: scannet_conv_cbl through main.py on phase 26's scenes."""
+    data, exp = root / "scannet", root / "exp_scannet_conv"
+    sets = f"data.data_root:{data};{SCANNET_CUTS}"
+    print(f"main.py -c {CONV_ENTRY} --set {sets}: full width, the natural layout; cuts: batch "
+          f"8 -> 2, epochs 600 -> 1, loop 30 -> 2", flush=True)
+    _, _, secs, total = run_entry(["-c", CONV_ENTRY, "--mode", "calibrate", "--set", sets,
+                                   "--exp_dir", str(exp)])
+    log = (exp / "log_calibrate.txt").read_text()
+    caps = re.search(r"model\.neighborhood_limits=\(([\d, ]+)\)", log)
+    require(caps is not None, "no neighbour caps in the calibrate log")
+    caps = [int(c) for c in caps.group(1).split(",")]
+    print(f"--mode calibrate: {secs:.3f} s, neighbour caps {caps} (the preset's "
+          f"{list(load_config(CONV_ENTRY).model.neighborhood_limits)})", flush=True)
+    require(not any(total.values()), f"calibrate launched {total}")
+    sets = f"{sets};model.neighborhood_limits:{json.dumps(caps)}"
+
+    probe = StepProbe()
+    _, built, secs, total = run_entry(
+        ["-c", CONV_ENTRY, "--mode", "train", "--set", f"{sets};eval.num_votes:0;{ENTRY_LOG}",
+         "--exp_dir", str(exp)], probe)
+    require(tuple(built[0][1].k_self) == tuple(caps), f"caps not taken: {built[0][1]}")
+    print_probe(f"conv-entry train ({CONV_ENTRY}, 20 classes)", probe)
+    steps, losses = entry_losses(exp)
+    print(f"--mode train: {secs:.3f} s; losses {losses} at steps {steps}", flush=True)
+    require(len(steps) == len(probe.steps) > 0 and all(np.isfinite(losses)), f"losses {losses}")
+    require(not any(total.values()), f"train launched {total}")
+
+    req = RequestProbe()
+    with mock.patch.object(entry, "make_eval_step", req.make_eval_step):
+        out, _, secs, total = run_entry(
+            ["-c", CONV_ENTRY, "--mode", "test", "--model_path", "auto", "--set", sets,
+             "--exp_dir", str(exp), "--out_dir", str(root / "scannet_conv_pred")])
+    print(f"--mode test (the preset's votes): {secs:.3f} s, {len(req.seconds)} requests, request "
+          f"median {statistics.median(req.seconds) * 1e3:.3f} ms, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
+    require(all(req.finite), "a request's probs are not finite")
+    require(not any(total.values()), f"test launched {total}")
+    for f in sorted(Path(out).glob("*_pred.npy")):
+        pred = np.load(f)
+        n = len(np.load(data / f.name.replace("_pred.npy", ".npy"), mmap_mode="r"))
+        require(pred.shape == (n,) and pred.min() >= 0 and pred.max() < SCANNET_CLASSES,
+                f"{f.name}: predictions")
+    print(f"{len(list(Path(out).glob('*_pred.npy')))} scenes predicted", flush=True)
 
 
 def main() -> int:
@@ -2621,6 +2887,17 @@ def main() -> int:
         with phase("prepare-test"), cbl_route_env("dense"):
             print(f"card: {card_line()}", flush=True)
             prepare_test(root, f32_serve["launches"], batch_launches)
+        torch.cuda.empty_cache()
+        with phase("conv-train"):
+            print(f"card: {card_line()}", flush=True)
+            conv = conv_train(dev)
+        with phase("conv-serve"):
+            conv_serve(dev, conv)
+        del conv
+        torch.cuda.empty_cache()
+        with phase("conv-entry"):
+            print(f"card: {card_line()}", flush=True)
+            conv_entry(root)
     torch.cuda.empty_cache()
 
     summary = []

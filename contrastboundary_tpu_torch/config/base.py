@@ -5,12 +5,13 @@ defaults, presets and override grammar).
 ``pyramid_spec()`` and ``build_model()`` build the port's objects for the
 option points the port has: the point transformer on the Morton-sorted
 layout with strided sampling (``layout='sorted'``, ``sampler='strided'``),
-float32 or bfloat16, batch or stale BN, the flagship MultiHead and the
-softnn CBL (config/dsl.py). Every other option raises NotImplementedError
-naming the ROADMAP Queue A item that ports it: the ConvNet family (item 8);
-the natural layout, its samplers, approximate or windowed KNN settings the
-port's exact tile-window searches cannot hold, other heads and CBL options,
-remat (item 7).
+float32 or bfloat16, batch or stale BN; the ConvNet family (every
+aggregation) in float32 on the natural layout with the voxel sampler; the
+flagship MultiHead and the softnn CBL with cnt or kl positives
+(config/dsl.py). Every other option raises NotImplementedError naming the
+ROADMAP Queue A item that ports it (item 7): the other samplers,
+approximate or windowed KNN settings the port's exact searches cannot
+hold, other heads and CBL options, remat.
 """
 from __future__ import annotations
 
@@ -25,7 +26,6 @@ from ..losses.contrast import ContrastConfig
 from ..ops.pyramid import PyramidSpec
 from .dsl import OPTIONS_ITEM, parse_arch_out
 
-CONVNET_ITEM = "ROADMAP Queue A item 8"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # knn_recall values whose searches are the port's exact ones: 0 (exact) and
 # the presets' 0.95, an approximate top-k only on the TPU (exact on the CPU)
@@ -152,12 +152,46 @@ class Config:
     def contrast(self) -> Optional[ContrastConfig]:
         return self.heads.get("contrast")
 
+    def _convnet_spec(self) -> PyramidSpec:
+        """The ConvNet's natural-layout spec, as the reference's: radii
+        base_radius·2^l, self caps ``neighborhood_limits``; the pooling
+        search into level l takes the source level's radius and cap (the
+        reference's kr_sample = kr_search[:-1]), so ``down_radii`` and
+        ``k_down`` are shifted by one level."""
+        m = self.model
+        if m.layout != "natural":
+            raise ValueError(
+                "model.layout='sorted' is the point-transformer fast path; "
+                "convnet needs global shadow-index neighbors (layout='natural')")
+        unported = {"sampler": m.sampler != "voxel", "knn_window": m.knn_window != 0}
+        for key, bad in unported.items():
+            if bad:
+                raise NotImplementedError(
+                    f"model.{key}={getattr(m, key)!r} is not ported for the ConvNet "
+                    f"({OPTIONS_ITEM}); the port builds the natural layout with the voxel "
+                    "sampler and dense exact searches")
+        nl = len(m.strides)
+        radii = tuple(m.base_radius * 2**i for i in range(nl))
+        limits = tuple(m.neighborhood_limits[:nl])
+        return PyramidSpec(
+            strides=tuple(m.strides),
+            k_self=limits,
+            k_down=(limits[0],) + limits[:-1],
+            k_contrast=tuple(m.contrast_nsample) if self.contrast else None,
+            with_subscene=self.contrast is not None,
+            sampler=m.sampler,
+            layout=m.layout,
+            radii=radii,
+            down_radii=(radii[0],) + radii[:-1],
+            voxel_sizes=tuple(self.data.voxel_size * 2**i for i in range(nl)),
+        )
+
     def pyramid_spec(self) -> PyramidSpec:
         """The port's PyramidSpec of this config (the training one: with the
         contrast and sub-scene searches where the CBL runs)."""
         m = self.model
         if m.arch == "convnet":
-            raise NotImplementedError(f"arch='convnet' is not ported ({CONVNET_ITEM})")
+            return self._convnet_spec()
         if m.arch != "pointtransformer":
             raise ValueError(f"unknown arch {m.arch!r}")
         unported = {
@@ -183,12 +217,14 @@ class Config:
             sampler=m.sampler,
             layout=m.layout,
             self_window=m.self_window,
+            knn_recall=m.knn_recall if m.knn_recall > 0 else None,
         )
 
     def build_model(self, device="cuda", generator: Optional[torch.Generator] = None):
-        """The port's PointTransformerSeg of this config on ``device``, its
-        fresh weights flax's (models/init.py) drawn from ``generator``."""
-        from ..models import PointTransformerSeg
+        """The port's PointTransformerSeg or ConvNetSeg of this config on
+        ``device``, its fresh weights flax's (models/init.py) drawn from
+        ``generator``."""
+        from ..models import ConvNetSeg, PointTransformerSeg
 
         self.pyramid_spec()  # the model runs on the port's pyramid only
         m = self.model
@@ -196,10 +232,30 @@ class Config:
             raise NotImplementedError(
                 f"arch_out {self.arch_out!r}: a model without the multi head (the plain mlp "
                 f"head) is not ported ({OPTIONS_ITEM})")
-        if m.save_memory:
-            raise NotImplementedError(f"model.save_memory (remat) is not ported ({OPTIONS_ITEM})")
         if m.dtype not in DTYPES:
             raise ValueError(f"model.dtype {m.dtype!r} is not one of {sorted(DTYPES)}")
+        if m.arch == "convnet":
+            if m.dtype != "float32":
+                raise NotImplementedError(
+                    f"model.dtype={m.dtype!r} for the ConvNet is not ported ({OPTIONS_ITEM})")
+            model = ConvNetSeg(
+                num_classes=self.data.num_classes,
+                base_fdim=m.base_fdim,
+                bottleneck_ratio=m.bottleneck_ratio,
+                depth=m.depth,
+                base_radius=m.base_radius,
+                num_layers=len(m.strides),
+                aggregation=m.aggregation,
+                agg_kwargs=tuple(m.agg_kwargs),
+                density_parameter=m.density_parameter,
+                bn_mode=m.bn_mode,
+                in_features=m.in_features,
+                fea_dim=self.data.fea_dim,
+                generator=generator,
+            )
+            return model.to(resolve_device(device))
+        if m.save_memory:
+            raise NotImplementedError(f"model.save_memory (remat) is not ported ({OPTIONS_ITEM})")
         dev = resolve_device(device)
         model = PointTransformerSeg(
             num_classes=self.data.num_classes,

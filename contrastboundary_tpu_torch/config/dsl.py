@@ -25,7 +25,7 @@ OPTIONS_ITEM = "ROADMAP Queue A item 7"
 # the reference's ContrastConfig options that the port's lacks, at their
 # defaults: a token that sets one to another value raises
 _CONTRAST_DEFAULTS = dict(
-    contrast="softnn", pos="cnt", kl_threshold=0.5, project="", ftype="latent",
+    contrast="softnn", project="", ftype="latent",
     label_infer="soft", extra_pos_nn=0, extra_neg_rand=0, margin="", separate_pos=False,
     mask_mode=False, power=1.0,
 )

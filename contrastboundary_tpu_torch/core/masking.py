@@ -1,6 +1,7 @@
 """Masked reductions (a copy of what the port needs from
 contrastboundary_tpu/core/masking.py): the reference's constants
-``INF = 1e9`` and ``EPS = 1e-12`` and the masked mean."""
+``INF = 1e9`` and ``EPS = 1e-12``, the masked softmax and the masked
+mean."""
 from __future__ import annotations
 
 import torch
@@ -14,3 +15,14 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mask is empty."""
     m = mask.to(x.dtype)
     return (x * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+
+def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Softmax over ``dim`` with the entries where ``mask`` is false zeroed;
+    a row without a true entry gives zeros, not NaN. The max subtracted for
+    stability carries no gradient."""
+    mask = mask.to(torch.bool)
+    z = torch.where(mask, logits, torch.full_like(logits, -INF))
+    z = z - z.amax(dim, keepdim=True).detach()
+    e = torch.exp(z) * mask.to(logits.dtype)
+    return e / torch.clamp_min(e.sum(dim, keepdim=True), EPS)

@@ -1,5 +1,5 @@
 """The eval step: pyramid, model forward, predictions in the caller's row
-order, confusion (counterpart of contrastboundary_tpu/train/trainer.py::
+order (un-permuted from Morton order on the sorted layout), confusion (counterpart of contrastboundary_tpu/train/trainer.py::
 make_eval_step)."""
 from __future__ import annotations
 
@@ -42,12 +42,18 @@ def make_eval_step(model: torch.nn.Module, spec: PyramidSpec, device="cuda", *,
         labels = torch.as_tensor(batch["labels"], device=dev)
         pyramid = build_pyramid(points, eval_spec)
         order0 = pyramid.order0
-        out = model(batch_gather(features, order0), pyramid, with_latents=with_features)
+
+        def unsort(x):  # sorted layout: back to the caller's rows
+            return x if order0 is None else batch_gather(x, inv0)
+
+        if order0 is not None:
+            features = batch_gather(features, order0)
+            inv0 = torch.empty_like(order0)
+            inv0.scatter_(1, order0, torch.arange(order0.shape[1], device=dev).expand_as(order0))
+        out = model(features, pyramid, with_latents=with_features)
         logits = out.logits if with_features else out
         probs = logits if output == "logits" else torch.softmax(logits, -1)
-        inv0 = torch.empty_like(order0)
-        inv0.scatter_(1, order0, torch.arange(order0.shape[1], device=dev).expand_as(order0))
-        probs = batch_gather(probs, inv0)
+        probs = unsort(probs)
         conf = confusion_matrix(probs.argmax(-1), labels, num_classes, ignore_label)
         if not with_features:
             return probs, conf
@@ -56,7 +62,7 @@ def make_eval_step(model: torch.nn.Module, spec: PyramidSpec, device="cuda", *,
             if lat is None:
                 continue
             f0 = lat if i == 0 else batch_gather(lat, pyramid.near0_idx[i])
-            feats[f"latent{i}"] = batch_gather(f0, inv0)
+            feats[f"latent{i}"] = unsort(f0)
         return probs, conf, feats
 
     return step

@@ -1,19 +1,21 @@
-"""Contrastive Boundary Learning, the flagship configuration (counterpart
-of contrastboundary_tpu/losses/contrast.py).
+"""Contrastive Boundary Learning (counterpart of
+contrastboundary_tpu/losses/contrast.py).
 
-Ported: the soft sub-scene labels and the stage loss at the flagship
-option point (softnn over the window-relative contrast neighbours, l2 or
-norml2 distances, argmax-equality positives, each stage's masked mean ×
-weight) on the reference's three routes of ``cbl_stage_loss``, chosen in
-its order:
+Ported: the soft sub-scene labels and the stage loss of softnn over the
+contrast neighbours, l2 or norml2 distances, argmax-equality (``cnt``) or
+KL-threshold (``kl``) positives, each stage's masked mean × weight. The
+reference's routes of ``cbl_stage_loss`` are chosen in its order:
 
-- the dense-window route (ops/cuda/cbl_dense.py), unless the environment
+- with window-relative neighbours (the sorted layout) and cnt positives,
+  the dense-window route (ops/cuda/cbl_dense.py), unless the environment
   has CBL_DENSE=off (the reference's switch, ops/pallas/cbl_dense.py:384);
-- the fused v2 kernel (ops/cuda/cbl_tile2.py) when ContrastConfig.impl is
-  'auto' or 'pallas'; there is no probe and no fallback here: the kernel
-  launches, or its build or launch raises;
-- otherwise the XLA tile route: the fused [label argmax, validity |
-  features] rows gathered by ops/tile_gather.py, then plain tensor ops.
+- then, on the same option point, the fused v2 kernel
+  (ops/cuda/cbl_tile2.py) when ContrastConfig.impl is 'auto' or 'pallas';
+  there is no probe and no fallback here: the kernel launches, or its build
+  or launch raises;
+- otherwise plain tensor ops over the gathered [labels | features] rows:
+  the tile route (ops/tile_gather.py) for window-relative neighbours, the
+  global route (a row gather, the natural layout's) for global ones.
 
 The reference's ContrastConfig options of other option points are not
 fields here, so they raise.
@@ -35,26 +37,33 @@ from ..ops.tile_gather import tile_window_gather
 
 IMPLS = ("xla", "auto", "pallas")
 DISTS = ("l2", "norml2")
+POSITIVES = ("cnt", "kl")
 _LOG_EPS = 1e-12
 
 
 @dataclasses.dataclass(frozen=True)
 class ContrastConfig:
-    """The fields of the reference's ContrastConfig that the flagship option
-    point reads, with its defaults: the route is softnn over the contrast
-    neighbours, count-normalised positives, the stage latents as features,
-    soft sub-scene labels. ``dist`` is 'l2' or 'norml2' (rows normalised
-    first); ``impl`` picks the kernel when the dense route is off: 'xla'
-    (the tile route) or 'auto' / 'pallas' (the fused v2 kernel). Options of
-    other option points are not fields, so passing one raises."""
+    """The fields of the reference's ContrastConfig that the ported option
+    points read, with its defaults: softnn over the contrast neighbours,
+    the stage latents as features, soft sub-scene labels. ``dist`` is 'l2'
+    or 'norml2' (rows normalised first); ``pos`` is 'cnt' (a neighbour is
+    positive when its label argmax is the centre's) or 'kl' (when
+    KL(centre ‖ neighbour) < ``kl_threshold``); ``impl`` picks the kernel
+    when the dense route is off: 'xla' (plain ops) or 'auto' / 'pallas'
+    (the fused v2 kernel). Options of other option points are not fields,
+    so passing one raises."""
 
     temperature: float = 1.0
     weight: float = 0.1
     stages: Tuple[int, ...] = (0, 1, 2, 3, 4)
     dist: str = "l2"
     impl: str = "xla"
+    pos: str = "cnt"
+    kl_threshold: float = 0.5
 
     def __post_init__(self):
+        if self.pos not in POSITIVES:
+            raise ValueError(f"CBL pos {self.pos!r} is not one of {POSITIVES}")
         if not self.temperature or self.temperature <= 0:
             raise ValueError(f"CBL temperature must be > 0, got {self.temperature}")
         if self.dist not in DISTS:
@@ -86,20 +95,37 @@ def subscene_labels(labels0: torch.Tensor, subscene_idx: Optional[torch.Tensor],
     return batch_gather(onehot, idx).mean(-2)
 
 
-def _tile_route_loss(features, contrast_idx, label_soft, cfg, tile, width):
-    """The reference's XLA tile route (losses/contrast.py:341-357, 426-537)
-    at the flagship options: the 2-channel label pack [argmax, any valid]
-    and the features gathered as one [B, M, K, 2 + C] tensor, then the
-    masks, l2 distances with ε inside the sqrt, softnn with the −50 fill,
-    and the masked mean. The label pack is data: the gather's gradient for
-    its columns stops at the concatenation."""
-    center_arg = label_soft.argmax(-1)
-    lab_pack = torch.stack([center_arg.float(), (label_soft.sum(-1) > 0).float()], -1)
-    fused = torch.cat([lab_pack, features.float()], -1)
-    nb = tile_window_gather(fused, contrast_idx, tile, width)
-    nb_label, nb_feat = nb[..., :2], nb[..., 2:]
-    valid = (contrast_idx < tile * width) & (nb_label[..., 1] > 0.5)
-    posmask = center_arg[..., None] == nb_label[..., 0].long()
+def _posmask_kl(label_soft, nb_label, threshold):
+    """KL(label ‖ neighbour label) < threshold, the `kl` positives, with
+    both distributions floored at 1e-12 inside the logs."""
+    lab = label_soft[..., None, :]
+    kl = (lab * (torch.log(torch.clamp_min(lab, _LOG_EPS))
+                 - torch.log(torch.clamp_min(nb_label, _LOG_EPS)))).sum(-1)
+    return kl < threshold
+
+
+def _gathered_loss(features, contrast_idx, label_soft, cfg, gather, shadow):
+    """The reference's plain route (losses/contrast.py:341-357, 426-537 of
+    the JAX package): the label pack (cnt: the 2 channels [argmax, any
+    valid]; kl: the whole distribution) and the features gathered as one
+    [B, M, K, n + C] tensor by ``gather``, then the masks, l2 distances
+    with ε inside the sqrt, softnn with the −50 fill, and the masked mean.
+    The label pack is data: the gather's gradient for its columns stops at
+    the concatenation. ``shadow`` is the index of an invalid slot."""
+    if cfg.pos == "cnt":
+        center_arg = label_soft.argmax(-1)
+        lab_pack = torch.stack([center_arg.float(), (label_soft.sum(-1) > 0).float()], -1)
+    else:
+        lab_pack = label_soft
+    n_lab = lab_pack.shape[-1]
+    nb = gather(torch.cat([lab_pack, features.float()], -1))
+    nb_label, nb_feat = nb[..., :n_lab], nb[..., n_lab:]
+    if cfg.pos == "cnt":
+        valid = (contrast_idx < shadow) & (nb_label[..., 1] > 0.5)
+        posmask = center_arg[..., None] == nb_label[..., 0].long()
+    else:
+        valid = (contrast_idx < shadow) & (nb_label.sum(-1) > 0)
+        posmask = _posmask_kl(label_soft, nb_label, cfg.kl_threshold)
     validf = valid.float()
     pos_cnt = (posmask * validf).sum(-1)
     valid_cnt = validf.sum(-1)
@@ -118,28 +144,38 @@ def _tile_route_loss(features, contrast_idx, label_soft, cfg, tile, width):
 
 def cbl_stage_loss(features: torch.Tensor, contrast_idx: torch.Tensor,
                    label_soft: torch.Tensor, cfg: ContrastConfig,
-                   local: Tuple[int, int]) -> torch.Tensor:
+                   local: Optional[Tuple[int, int]]) -> torch.Tensor:
     """CBL loss of one stage (× cfg.weight): features [B, M, C] and
-    label_soft [B, M, ncls] in sorted order, contrast_idx [B, M, K]
-    window-relative with local = (tile, width)."""
-    if local is None:
-        raise ValueError("the port's CBL takes window-relative contrast indices")
-    tile, width = local
-    window = (width - 1) // 2
+    label_soft [B, M, ncls] in the pyramid's row order, contrast_idx
+    [B, M, K]: window-relative with local = (tile, width) (the sorted
+    layout, shadow tile·width), or global rows with local None (the natural
+    layout, shadow M)."""
+    m = features.shape[1]
     if cfg.dist == "norml2":
         features = features / torch.clamp_min(
             torch.linalg.vector_norm(features, dim=-1, keepdim=True), EPS)
     label_soft = label_soft.float()
-    if dense_route():
+    if local is None:
+        def gather(fused):
+            return batch_gather(fused, torch.where(contrast_idx < m, contrast_idx, 0))
+
+        return _gathered_loss(features, contrast_idx, label_soft, cfg, gather, m)
+    tile, width = local
+    window = (width - 1) // 2
+    if cfg.pos == "cnt" and dense_route():
         return cbl_dense_loss(features, label_soft, contrast_idx, float(cfg.temperature),
                               tile, width, window, weight=cfg.weight)
-    if cfg.impl in ("auto", "pallas"):
+    if cfg.pos == "cnt" and cfg.impl in ("auto", "pallas"):
         loss_sum, mask_sum = cbl_tile_softnn2(
             features.float(), label_soft, contrast_idx, float(cfg.temperature), tile,
             width, window,
         )
         return loss_sum.sum() / torch.clamp_min(mask_sum.sum(), 1.0) * cfg.weight
-    return _tile_route_loss(features, contrast_idx, label_soft, cfg, tile, width)
+
+    def gather(fused):
+        return tile_window_gather(fused, contrast_idx, tile, width)
+
+    return _gathered_loss(features, contrast_idx, label_soft, cfg, gather, tile * width)
 
 
 def cbl_loss(latents, pyramid, labels0: torch.Tensor, num_classes: int,

@@ -9,8 +9,9 @@ indices are window-relative in Morton-sorted space (ops/pyramid.py) and every
 neighbour read is a tile gather (ops/tile_gather.py).
 
 BatchNorm is flax ``nn.BatchNorm`` over the last axis (eps 1e-5, momentum
-0.9, the reference's bn_mode='batch'): in eval mode it normalizes with the
-running statistics; in train mode with the batch statistics. Under
+0.9 by default, the point transformer's; the ConvNet family passes its own,
+models/convnet.py): in eval mode it normalizes with the running
+statistics; in train mode with the batch statistics. Under
 bn_mode='stale' every BN is a StaleBatchNorm, and each attention layer runs
 the fused kernel (ops/pt_attn.py) with its BNs folded into the towers, as
 the reference does.
@@ -52,16 +53,16 @@ class BatchNorm(nn.Module):
 
     Train mode uses flax's fast variance: mean and E[x²] in float32 over
     every axis but the last, var = max(0, E[x²] − mean²), the biased
-    variance both to normalize and for the running update ra ← 0.9·ra +
-    0.1·batch, done in place without gradient. (``F.batch_norm`` keeps the
-    unbiased variance and the other momentum convention, so it is not used.)
-    Eval mode normalizes with the running statistics."""
+    variance both to normalize and for the running update ra ← m·ra +
+    (1 − m)·batch (m = ``momentum``, flax's 0.9 by default), done in place
+    without gradient. (``F.batch_norm`` keeps the unbiased variance and the
+    other momentum convention, so it is not used.) Eval mode normalizes
+    with the running statistics."""
 
-    momentum = 0.9  # flax's, the reference's
-
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -118,13 +119,14 @@ class StaleBatchNorm(BatchNorm):
         return x.float() * scale + shift
 
 
-def make_bn(mode: str, features: int) -> BatchNorm:
+def make_bn(mode: str, features: int, eps: float = 1e-5,
+            momentum: float = 0.9) -> BatchNorm:
     """The BN of every block: 'batch' = flax nn.BatchNorm (the reference's
     default), 'stale' = StaleBatchNorm."""
     if mode == "batch":
-        return BatchNorm(features)
+        return BatchNorm(features, eps, momentum)
     if mode == "stale":
-        return StaleBatchNorm(features)
+        return StaleBatchNorm(features, eps, momentum)
     raise ValueError(f"bn_mode {mode!r} is neither 'batch' nor 'stale'")
 
 

@@ -3,8 +3,8 @@
 The port's modules carry the flax module names, so each flax leaf maps to one
 state_dict key: ``params/<path>/kernel`` [in, out] → ``<path>.weight``
 [out, in] (transposed), ``bias`` → ``bias``, BatchNorm ``scale`` →
-``weight``; ``batch_stats/<path>/mean`` → ``running_mean``, ``var`` →
-``running_var``.
+``weight``, a KPConv's ``weights`` [P, C] → ``weights`` (as it is);
+``batch_stats/<path>/mean`` → ``running_mean``, ``var`` → ``running_var``.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+_PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight", "weights": "weights"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 _INV_STATS = {v: k for k, v in _STAT_LEAVES.items()}
 
@@ -76,8 +76,8 @@ def flax_path(model: torch.nn.Module, key: str) -> tuple:
     *path, leaf = key.split(".")
     if leaf in _INV_STATS:
         return ("batch_stats", *path, _INV_STATS[leaf])
-    if leaf == "bias":
-        return ("params", *path, "bias")
+    if leaf in ("bias", "weights"):
+        return ("params", *path, leaf)
     if leaf == "weight" and isinstance(model.get_submodule(".".join(path)), torch.nn.Linear):
         return ("params", *path, "kernel")
     if leaf == "weight":

@@ -6,7 +6,10 @@ a normal truncated to [−2σ, 2σ] with σ = √(1/fan_in)/0.87962566103423978,
 that the truncated draw has variance 1/fan_in) and a zero bias; flax
 ``nn.BatchNorm`` starts at scale one, bias zero, mean zero and variance one.
 ``nn.Linear``'s own default (a Kaiming-uniform weight of a third of that
-variance and a nonzero uniform bias) is overwritten.
+variance and a nonzero uniform bias) is overwritten. A module with
+parameters of another flax initializer draws them in its own
+``init_like_flax(generator)`` (the KPConv weights' xavier_uniform,
+models/local_aggregation.py).
 """
 from __future__ import annotations
 
@@ -36,10 +39,13 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Ten
 
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Every ``nn.Linear`` of ``model`` (in module order) drawn by
-    ``lecun_normal_`` from ``generator``, with a zero bias; every other
-    module's parameters and buffers as the port's modules build them (the
-    BatchNorms at flax's start)."""
+    ``lecun_normal_`` from ``generator``, with a zero bias, and every
+    module with an ``init_like_flax`` method drawn by it from the same
+    generator; every other module's parameters and buffers as the port's
+    modules build them (the BatchNorms at flax's start)."""
     for module in model.modules():
+        if hasattr(module, "init_like_flax"):
+            module.init_like_flax(generator)
         if isinstance(module, nn.Linear):
             lecun_normal_(module.weight, generator)
             if module.bias is not None:

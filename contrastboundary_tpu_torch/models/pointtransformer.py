@@ -15,6 +15,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..core.gather import batch_gather
 from ..ops.pyramid import Pyramid
 from ..ops.tile_gather import cross_window_gather
 from .blocks import MLPTower, PointTransformerBlock, TransitionDown, TransitionUp
@@ -33,7 +34,10 @@ class ModelOutput:
 
 class MultiHead(nn.Module):
     """Latent tower per up stage (``latent<i>``: Dense+BN+ReLU to
-    ``base_fdim``), nearest-point upsample to level 0, concat, linear ``cls``."""
+    ``base_fdim``), nearest-point upsample to level 0, concat, linear ``cls``.
+    The upsample is a cross-window gather on the sorted layout's pyramid and
+    a row gather of ``near0_idx`` on the natural one, as the reference
+    chooses by layout."""
 
     def __init__(self, planes: Sequence[int], num_classes: int, base_fdim: int = 32,
                  bn_mode: str = "batch", dtype: torch.dtype = torch.float32):
@@ -49,12 +53,14 @@ class MultiHead(nn.Module):
         for i in range(self.num_levels):
             lat = getattr(self, f"latent{i}")(up_feats[i])
             latents.append(lat)
-            if i > 0:
+            if i > 0 and pyramid.near0_meta[i] is not None:  # sorted layout
                 t, width, window = pyramid.near0_meta[i]
                 li = pyramid.near0_local[i][..., None]
                 lat = cross_window_gather(lat, li, lat.shape[1], t, width, window)[
                     ..., 0, :
                 ]
+            elif i > 0:  # natural layout
+                lat = batch_gather(lat, pyramid.near0_idx[i])
             collected.append(lat)
         return self.cls(torch.cat(collected, -1)), tuple(latents)
 

@@ -1,5 +1,6 @@
 """Tile-window KNN on Morton-sorted clouds (counterpart of
-contrastboundary_tpu/ops/knn.py::tile_self_knn and ::tile_cross_knn).
+contrastboundary_tpu/ops/knn.py::tile_self_knn and ::tile_cross_knn), and
+the dense exact search of the natural layout (::knn, ::pairwise_sqdist).
 
 The search follows the reference's width rule (``_EXACT_TOPK_WIDTH``,
 ops/knn.py:29 and :490 there): a window of W ≤ 2048 rows goes through
@@ -16,6 +17,9 @@ have no counterpart here.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from ..core.gather import batch_gather
@@ -23,6 +27,8 @@ from .cuda import win_topk
 from .sampling import serialized_order
 
 EXACT_TOPK_WIDTH = 2048
+# elements of one [B, chunk, N] distance block of the dense search
+KNN_BLOCK_ELEMS = 1 << 27
 # searches whose window was wider than EXACT_TOPK_WIDTH (plain PyTorch)
 wide_calls = 0
 
@@ -121,3 +127,95 @@ def tile_cross_knn(query: torch.Tensor, support: torch.Tensor, k: int, *,
     row0 = torch.as_tensor(starts, device=query.device).repeat_interleave(tile)
     idx = torch.where(local < width * tile, row0[None, :, None] + local, n)
     return idx.to(torch.int32), -neg
+
+
+def pairwise_sqdist(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
+    """Squared distances ‖q‖² + ‖s‖² − 2·q·s, clamped at 0, in the
+    reference's expression: query [..., M, 3], support [..., N, 3] →
+    [..., M, N] f32. Each product and sum is its own float32 op (no matmul,
+    so no TF32 and no reduced-precision pass): on clouds whose squared
+    distances are exact in float32 the two packages give the same bits.
+    The factor 2 is applied to the query's coordinates (exact: a power of
+    two commutes with each rounding), which saves one pass over [M, N]."""
+    q = query.float()[..., :, None, :]
+    s = support.float()[..., None, :, :]
+    qx, qy, qz = q.unbind(-1)
+    sx, sy, sz = s.unbind(-1)
+    qn = qx * qx + qy * qy + qz * qz
+    sn = sx * sx + sy * sy + sz * sz
+    qs2 = (2.0 * qx) * sx + (2.0 * qy) * sy + (2.0 * qz) * sz  # = 2·(q·s), bit for bit
+    return torch.clamp_min((qn + sn) - qs2, 0.0)
+
+
+def _smallest_k(d2: torch.Tensor, k: int, last_ties: bool = False):
+    """The k smallest of d2 [..., N] ascending, ties to the lower column
+    (as ``lax.top_k`` on −d2), or to the higher one with ``last_ties``: one
+    top-k over the int64 key (float32 bits of d2, column or N − 1 − column),
+    which is unique and orders as d2 first since d2 ≥ 0. → (idx int64, d2)."""
+    n = d2.shape[-1]
+    bits = d2.contiguous().view(torch.int32).to(torch.int64)
+    col = torch.arange(n, device=d2.device)
+    key = (bits << 32) | (n - 1 - col if last_ties else col)
+    top = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
+    d2k = (top >> 32).to(torch.int32).view(torch.float32)
+    low = top & 0xFFFFFFFF
+    return (n - 1 - low if last_ties else low), d2k
+
+
+@torch.no_grad()
+def knn(query: torch.Tensor, support: torch.Tensor, k: int, *,
+        support_mask: Optional[torch.Tensor] = None, exclude_self: bool = False,
+        radius: Optional[float] = None, chunk: int = 2048,
+        recall: Optional[float] = None, ensure_self: bool = False):
+    """Exact batched KNN over every support row.
+
+    query [B, M, 3], support [B, N, 3] → (idx [B, M, k] int32 in [0, N],
+    d2 [B, M, k] f32 ascending). A masked support row (``support_mask``
+    [B, N] False) or the query's own row (``exclude_self``, query is
+    support) scores +inf; every +inf slot, and the slots beyond N (or N − 1
+    without self) neighbours, are the shadow index N (d2 +inf).
+    ``ensure_self`` then writes (own row, 0) into slot 0; ``radius`` last
+    turns every slot with d2 > float32(radius)² into the shadow.
+
+    The search is exact whatever ``recall`` says. The reference's
+    ``recall`` selects ``lax.approx_max_k``, approximate on the TPU; on the
+    CPU it returns the exact top-k with first-column ties, except at k = 1
+    (k < N), where its ties go to the last column. ``recall`` keeps that
+    one rule, so that the nearest-point searches pick the tied point the
+    reference picks on the CPU. ``chunk`` bounds the
+    queries of one distance block (fewer when B·chunk·N exceeds
+    KNN_BLOCK_ELEMS); the result does not depend on it."""
+    b, m, _ = query.shape
+    n = support.shape[1]
+    dev = query.device
+    k_eff = min(k, n - 1 if exclude_self else n)
+    if k_eff <= 0:
+        idx = torch.full((b, m, k), n, dtype=torch.int32, device=dev)
+        d2 = torch.full((b, m, k), float("inf"), device=dev)
+    else:
+        step = max(1, min(chunk, m, KNN_BLOCK_ELEMS // max(b * n, 1)))
+        idx_parts, d2_parts = [], []
+        for c0 in range(0, m, step):
+            d2c = pairwise_sqdist(query[:, c0:c0 + step], support)
+            if support_mask is not None:
+                d2c = d2c.masked_fill(~support_mask[:, None, :], float("inf"))
+            if exclude_self:
+                rows = torch.arange(c0, c0 + d2c.shape[1], device=dev)
+                own = rows[:, None] == torch.arange(n, device=dev)[None, :]
+                d2c = d2c.masked_fill(own[None], float("inf"))
+            i, d = _smallest_k(d2c, k_eff, recall is not None and k_eff == 1 < n)
+            idx_parts.append(i)
+            d2_parts.append(d)
+        idx, d2 = torch.cat(idx_parts, 1), torch.cat(d2_parts, 1)
+        if k_eff < k:
+            pad = (0, k - k_eff)
+            idx = torch.nn.functional.pad(idx, pad, value=n)
+            d2 = torch.nn.functional.pad(d2, pad, value=float("inf"))
+        idx = torch.where(torch.isinf(d2), n, idx).to(torch.int32)
+    if ensure_self:
+        idx[..., 0] = torch.arange(m, dtype=torch.int32, device=dev)
+        d2[..., 0] = 0.0
+    if radius is not None:
+        r2 = np.float32(radius) * np.float32(radius)
+        idx = torch.where(d2 > float(r2), n, idx).to(torch.int32)
+    return idx, d2

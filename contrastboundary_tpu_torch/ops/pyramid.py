@@ -1,14 +1,23 @@
-"""Multi-resolution index pyramid for the Morton-sorted, strided layout
-(counterpart of contrastboundary_tpu/ops/pyramid.py::build_pyramid).
+"""Multi-resolution index pyramid (counterpart of
+contrastboundary_tpu/ops/pyramid.py::build_pyramid), in two layouts.
 
-Ported for the flagship: ``layout='sorted'``, ``sampler='strided'``, no
-radius masks; the training fields (``k_contrast``: the merged self+contrast
-search; ``with_subscene``: the kr = 4^l searches over level 0) as well as
-the eval ones. Every level is stored Morton-sorted (``order0`` maps the
-caller's level-0 rows to sorted rows), each level is a strided row pick of
-the previous one, and every search is a tile-window search (ops/knn.py), so
-each neighbour index has a window-relative twin for the tile gathers
-(ops/tile_gather.py).
+``layout='sorted'``, ``sampler='strided'`` (the point transformer): every
+level is stored Morton-sorted (``order0`` maps the caller's level-0 rows to
+sorted rows), each level is a strided row pick of the previous one, and
+every search is a tile-window search (ops/knn.py), so each neighbour index
+has a window-relative twin for the tile gathers (ops/tile_gather.py). With
+``k_contrast`` the self and contrast searches are one merged search; with
+``with_subscene`` the kr = 4^l searches over level 0 are added.
+
+``layout='natural'``, ``sampler='voxel'`` (the ConvNet family): the levels
+keep the caller's row order (``order0`` None), each level is the voxel
+sampler's pick of the previous one (ops/sampling.py::voxel_sample), and
+every search is the dense exact ops/knn.py::knn over global rows with the
+shadow index N: the pooling search within ``down_radii``, the self search
+within ``radii`` (slot 0 the point itself), the up, nearest-to-level-0,
+contrast (self excluded, k − 1) and sub-scene searches unbounded. The
+window-relative twins and the relative positions (``self_rel``,
+``down_rel``), which only the point transformer reads, are None there.
 """
 from __future__ import annotations
 
@@ -20,16 +29,22 @@ import torch
 
 from ..core.gather import batch_gather
 from .interpolate import interpolation_weights
-from .knn import cross_width, tile_cross_knn, tile_self_knn
-from .sampling import serialized_order
+from .knn import cross_width, knn as _knn, tile_cross_knn, tile_self_knn
+from .sampling import serialized_order, voxel_sample
 from .tile_gather import cross_window_gather, cross_window_starts, tile_window_gather
 
 
 @dataclasses.dataclass(frozen=True)
 class PyramidSpec:
     """Static description of the pyramid; field names and defaults as in the
-    JAX PyramidSpec (only the sorted + strided path is built, and the
-    contrast search shares the self search's tile and window)."""
+    JAX PyramidSpec. Two layouts are built: sorted with the strided sampler
+    (the contrast search shares the self search's tile and window) and
+    natural with the voxel sampler. ``radii[l]`` bounds the level-l self
+    search, ``down_radii[l]`` the level-(l−1) → l pooling search (natural
+    layout; None: unbounded); ``voxel_sizes[l]`` is the voxel sampler's cell
+    at level l (level 0 unused). ``knn_recall`` only sets the natural
+    layout's tie rule of its top-1 searches (ops/knn.py::knn): every search
+    of the port is exact."""
 
     strides: Tuple[int, ...] = (1, 4, 4, 4, 4)
     k_self: Tuple[int, ...] = (8, 16, 16, 16, 16)
@@ -41,6 +56,10 @@ class PyramidSpec:
     layout: str = "sorted"
     self_tile: int = 256
     self_window: int = 1
+    radii: Optional[Tuple[float, ...]] = None
+    down_radii: Optional[Tuple[float, ...]] = None
+    voxel_sizes: Optional[Tuple[float, ...]] = None
+    knn_recall: Optional[float] = 0.95
 
     @property
     def num_levels(self) -> int:
@@ -56,11 +75,14 @@ class PyramidSpec:
 class Pyramid:
     """Per-level tensors (tuples over levels, None where not defined); the
     field names and meanings of the JAX Pyramid. Neighbour and sample
-    indices are int32 (``order0`` int64); ``*_local`` are window-relative
-    twins with shadow tile·width, and ``*_meta`` the matching (tile, width,
-    window). ``contrast_idx`` (window-relative, self excluded, with
-    ``contrast_local`` = (tile, width)) and ``subscene_idx`` (global level-0
-    rows) are None per level unless the spec asks for them."""
+    indices are int32 (``order0`` int64, None in the natural layout);
+    ``*_local`` are window-relative twins with shadow tile·width, and
+    ``*_meta`` the matching (tile, width, window), all None in the natural
+    layout. ``contrast_idx`` (self excluded; window-relative with
+    ``contrast_local`` = (tile, width) in the sorted layout, global rows
+    with ``contrast_local`` None in the natural one) and ``subscene_idx``
+    (global level-0 rows) are None per level unless the spec asks for
+    them."""
 
     points: Tuple
     sample_idx: Tuple
@@ -71,7 +93,7 @@ class Pyramid:
     near0_idx: Tuple
     self_rel: Tuple
     down_rel: Tuple
-    order0: torch.Tensor
+    order0: Optional[torch.Tensor]
     self_local: Tuple
     down_local: Tuple
     up_local: Tuple
@@ -100,9 +122,15 @@ def strided_pick(n_prev: int, m: int) -> np.ndarray:
 
 
 def _check_spec(spec: PyramidSpec):
-    if spec.layout != "sorted" or spec.sampler != "strided":
-        raise ValueError("only layout='sorted', sampler='strided' is ported")
-    if spec.k_contrast is not None and len(spec.k_contrast) != spec.num_levels:
+    if (spec.layout, spec.sampler) not in (("sorted", "strided"), ("natural", "voxel")):
+        raise ValueError("the ported layouts are sorted with sampler='strided' and "
+                         f"natural with sampler='voxel', not {spec.layout!r} with "
+                         f"{spec.sampler!r}")
+    if spec.layout == "sorted" and (spec.radii or spec.down_radii):
+        raise ValueError("layout='sorted' does not support radius masks")
+    if spec.layout == "natural" and spec.voxel_sizes is None:
+        raise ValueError("sampler='voxel' requires voxel_sizes")
+    if spec.k_contrast is not None and len(spec.k_contrast) < spec.num_levels:
         raise ValueError(f"k_contrast {spec.k_contrast} needs {spec.num_levels} levels")
 
 
@@ -164,6 +192,8 @@ def build_pyramid(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
     """Build the pyramid from level-0 points [B, N, 3] (f32, on the device
     the searches should run on)."""
     _check_spec(spec)
+    if spec.layout == "natural":
+        return _build_natural(points.float(), spec)
     b, n, _ = points.shape
     dev = points.device
     order0 = serialized_order(points)
@@ -261,5 +291,72 @@ def build_pyramid(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
         contrast_local=tuple(
             None if c is None else self_local[l] for l, c in enumerate(contrast_idx)
         ),
+        subscene_idx=tuple(subscene_idx),
+    )
+
+
+def _build_natural(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
+    """The natural layout (JAX ``build_pyramid`` with layout='natural' and
+    sampler='voxel', knn_window 0): dense exact searches over global rows."""
+    b, n, _ = points.shape
+    nl = spec.num_levels
+    none = (None,) * nl
+
+    def radius(radii, l):
+        return radii[l] if radii else None
+
+    def knn(query, support, k, **kw):
+        return _knn(query, support, k, recall=spec.knn_recall, **kw)
+
+    ident = torch.arange(n, device=points.device, dtype=torch.int32)[None].expand(b, n)
+    pts, sample_idx = [points], [ident]
+    self_idx = [knn(points, points, spec.k_self[0], radius=radius(spec.radii, 0),
+                    ensure_self=True)[0]]
+    down_idx, up_idx, up_w, near0_idx = [None], [None], [None], [ident]
+    for l in range(1, nl):
+        prev = pts[l - 1]
+        idx = voxel_sample(prev, prev.shape[1] // spec.strides[l], spec.voxel_sizes[l])
+        cur = batch_gather(prev, idx)
+        pts.append(cur)
+        sample_idx.append(idx)
+        down_idx.append(knn(cur, prev, spec.k_down[l],
+                            radius=radius(spec.down_radii, l))[0])
+        self_idx.append(knn(cur, cur, spec.k_self[l], radius=radius(spec.radii, l),
+                            ensure_self=True)[0])
+        u_idx, u_d2 = knn(prev, cur, spec.k_up)
+        up_idx.append(u_idx)
+        up_w.append(interpolation_weights(u_d2))
+        near0_idx.append(knn(points, cur, 1)[0][..., 0])
+
+    contrast_idx = list(none)
+    if spec.k_contrast is not None:
+        for l in range(nl):
+            contrast_idx[l] = knn(pts[l], pts[l], spec.k_contrast[l] - 1,
+                                  exclude_self=True)[0]
+    subscene_idx = list(none)
+    if spec.with_subscene:
+        for l in range(1, nl):
+            subscene_idx[l] = knn(pts[l], points, spec.subscene_k(l))[0]
+
+    return Pyramid(
+        points=tuple(pts),
+        sample_idx=tuple(sample_idx),
+        self_idx=tuple(self_idx),
+        down_idx=tuple(down_idx),
+        up_idx=tuple(up_idx),
+        up_w=tuple(up_w),
+        near0_idx=tuple(near0_idx),
+        self_rel=none,
+        down_rel=none,
+        order0=None,
+        self_local=none,
+        down_local=none,
+        up_local=none,
+        near0_local=none,
+        down_meta=none,
+        up_meta=none,
+        near0_meta=none,
+        contrast_idx=tuple(contrast_idx),
+        contrast_local=none,
         subscene_idx=tuple(subscene_idx),
     )

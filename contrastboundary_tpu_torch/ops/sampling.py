@@ -1,5 +1,6 @@
-"""Morton (Z-order) serialization (counterpart of
-contrastboundary_tpu/ops/sampling.py:22-45 and ``serialized_order``)."""
+"""Morton (Z-order) serialization and the voxel sampler (counterpart of
+contrastboundary_tpu/ops/sampling.py:22-45, ``serialized_order`` and
+``voxel_sample``)."""
 from __future__ import annotations
 
 import torch
@@ -36,3 +37,31 @@ def serialized_order(points: torch.Tensor) -> torch.Tensor:
     """Morton-sort order of a batch of clouds [B, N, 3] → [B, N] int64
     (stable, like ``jnp.argsort``)."""
     return torch.argsort(morton_code(points), dim=-1, stable=True)
+
+
+def voxel_sample(points: torch.Tensor, m: int, voxel_size: float) -> torch.Tensor:
+    """One representative row per occupied voxel, thinned or padded to a
+    fixed m: the first row of each voxel in the stable hash order, then a
+    pick (j·count)//m over those first occurrences (repeating rows when
+    there are fewer than m voxels). points [B, N, 3] → idx [B, m] int32.
+
+    The reference packs the first occurrences to the front by a scatter
+    that sends every other row to slot n − 1 (never read); here they go to
+    an extra slot n that is dropped, so no duplicate write can land in a
+    slot that is read."""
+    from .voxel import voxelize_indices
+
+    b, n, _ = points.shape
+    h = voxelize_indices(points, voxel_size)
+    order = torch.argsort(h, dim=-1, stable=True)
+    hs = torch.gather(h, 1, order)
+    first = torch.ones_like(hs, dtype=torch.bool)
+    first[:, 1:] = hs[:, 1:] != hs[:, :-1]
+    count = first.sum(1, dtype=torch.int64)
+    rank = torch.cumsum(first.to(torch.int64), 1) - 1
+    slot = torch.where(first, rank, n)
+    pos = torch.arange(n, device=points.device).expand(b, n)
+    first_pos = torch.zeros((b, n + 1), dtype=torch.int64, device=points.device)
+    first_pos.scatter_(1, slot, pos)
+    j = (torch.arange(m, device=points.device)[None] * count[:, None]) // m
+    return torch.gather(order, 1, torch.gather(first_pos, 1, j)).to(torch.int32)

@@ -1,6 +1,7 @@
 """The train step (counterpart of contrastboundary_tpu/train/trainer.py::
-make_train_step): pyramid, features and labels into Morton order, the model
-in train mode, cross-entropy plus the 5-stage CBL, backward, the optimizer's
+make_train_step): pyramid, features and labels into its row order (Morton
+order on the sorted layout, the caller's on the natural one), the model in
+train mode, cross-entropy plus the 5-stage CBL, backward, the optimizer's
 update, and the confusion of the step's predictions; and ``Trainer``, the
 minimal epoch loop over it (::Trainer)."""
 from __future__ import annotations
@@ -48,10 +49,11 @@ def make_train_step(model: torch.nn.Module, cfg: TrainStepConfig,
         features = torch.as_tensor(batch["features"], dtype=torch.float32, device=dev)
         labels = torch.as_tensor(batch["labels"], device=dev).long()
         pyramid = build_pyramid(points, cfg.spec)
-        # the pyramid is in Morton order; every loss below is permutation
-        # invariant, so nothing is un-sorted
-        features = batch_gather(features, pyramid.order0)
-        labels = batch_gather(labels, pyramid.order0)
+        if pyramid.order0 is not None:
+            # the sorted layout's pyramid is in Morton order; every loss
+            # below is permutation invariant, so nothing is un-sorted
+            features = batch_gather(features, pyramid.order0)
+            labels = batch_gather(labels, pyramid.order0)
 
         out = model(features, pyramid)
         ce = cross_entropy(out.logits, labels, cfg.ignore_label)

@@ -188,8 +188,8 @@ def test_build_model(name, dtype):
 
 
 @pytest.mark.parametrize("name,sets,item", [
-    ("s3dis_conv_cbl", None, "item 8"),
-    ("synthetic_conv_tiny", None, "item 8"),
+    ("s3dis_randla_cbl", None, "item 7"),
+    ("synthetic_conv_tiny", "model.knn_window:4", "item 7"),
     ("synthetic_tiny", None, "item 7"),
     ("s3dis_pt_cbl_paper", None, "item 7"),
     ("s3dis_pt_cbl", "model.sampler:fps", "item 7"),
@@ -198,7 +198,8 @@ def test_build_model(name, dtype):
     ("s3dis_pt_cbl", "model.knn_window:4", "item 7"),
     ("s3dis_pt_cbl", "model.save_memory:true", "item 7"),
     ("s3dis_pt", None, "item 7"),
-    ("s3dis_pt_cbl_kl", None, "item 7"),
+    ("s3dis_pt_cbl", 'arch_out:"multi-Ua-concat-latent|contrast-Ua-nce-latent-label-l2-w.1"',
+     "item 7"),
 ])
 def test_unported_options_raise(name, sets, item):
     cfg = load_config(name, sets)

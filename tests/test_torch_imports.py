@@ -140,3 +140,38 @@ def test_runtime_modules_are_among_the_checked_files():
         "data.prepare_scannet", "data.synthetic", "native", "utils.mesh", "utils.ply",
         "utils.storage")}
     assert expected <= names, sorted(expected - names)
+
+
+def test_convnet_modules_are_checked_and_its_steps_need_cuda_unless_cpu(monkeypatch):
+    """The ConvNet family's modules are among the files walked above, and
+    its train and eval steps raise without CUDA unless given the CPU."""
+    from contrastboundary_tpu_torch.config import load_config
+    from contrastboundary_tpu_torch.eval.step import make_eval_step
+    from contrastboundary_tpu_torch.train import TrainStepConfig, make_optimizer, make_train_step
+
+    names = {".".join(p.relative_to(ROOT).with_suffix("").parts) for p in _port_files()}
+    expected = {f"contrastboundary_tpu_torch.{m}" for m in (
+        "ops.voxel", "ops.sampling", "ops.knn", "ops.pyramid", "core.masking",
+        "models.local_aggregation", "models.convnet", "losses.contrast")}
+    assert expected <= names, sorted(expected - names)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_config("synthetic_conv_tiny", "model.base_fdim:12;model.strides:[1,4,4]")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cfg.build_model()
+    model = cfg.build_model(device="cpu")
+    spec = cfg.pyramid_spec()
+    opt = make_optimizer(model.parameters(), 0.05)
+    step_cfg = TrainStepConfig(num_classes=13, spec=spec, contrast=cfg.contrast)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(model, step_cfg, opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_eval_step(model, spec)
+    rng = np.random.RandomState(0)
+    batch = {"points": np.round(rng.rand(1, 512, 3) * 64).astype(np.float32) / 64,
+             "features": rng.rand(1, 512, 3).astype(np.float32),
+             "labels": rng.randint(0, 13, (1, 512)).astype(np.int32)}
+    metrics = make_train_step(model, step_cfg, opt, device="cpu")(batch)
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["confusion"].sum()) == 512
+    probs, _ = make_eval_step(model, spec, device="cpu")(batch)
+    assert probs.shape == (1, 512, 13) and bool(torch.isfinite(probs).all())
