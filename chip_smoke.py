@@ -267,6 +267,38 @@ is not 0:
            finite; --mode test --model_path auto with the preset's votes,
            every request's probs finite and each scene's predictions one
            class in 0-19 a point; launch counts 0.
+30. pt-natural-train the point transformer on the natural layout, whose
+           only kernel of the port is the FPS chain (csrc/fps.cu):
+           s3dis_pt_cbl_paper at full width (planes 32-512, blocks
+           2-3-4-6-3, contrast 36-24-24-24-24, sub-scene searches, bucketed
+           FPS in 64 buckets) from the checkpoint (the same parameter tree;
+           fresh weights from seed 0 without it), SGD lr 0.05, on B = 2 (cut
+           from 16) x N = 65536 synthetic train crops: the natural pyramid
+           on the card against the CPU's on one 8,192-point crop on the
+           1/64 m grid (every index equal, up_w, self_rel and down_rel within
+           1e-6) and one step on it (loss rel <= 1e-4, gradient norm rel <=
+           1e-3); one step with the counts reset just before and read just
+           after: fps launched once a sampled level (4), every other kernel
+           and wide search 0; five steps lowering the loss, the median of the
+           3 warm ones, peak memory, one profiled step (busy share, top
+           device ops), the training pyramid's device time; one stale-BN
+           step (the unfused attention, as the reference's): fps 4, every
+           other kernel 0; then every fps call of the step and of the grid
+           crop's pyramid, and one exact FPS of 65536 -> 16384 rows on one
+           cloud, against the plain version (the same picks), the step's
+           calls and the exact one timed beside their bound and chain steps.
+31. pt-natural-serve the eval step of that model at the preset's eval batch
+           (B = 4 x 65536): fps 4 launches a request and nothing else, the
+           request median and peak memory, one profiled request; on the
+           8,192-point crop the card's probs against the CPU's (1e-4, argmax
+           >= 99.9%).
+32. pt-natural-entry main.py -c s3dis_pt_cbl_paper --mode train on phase
+           24's rooms with its cuts (batch 2, epochs 1, loop 2: 4 steps,
+           num_votes 20 -> 1 for the epoch-end eval), then --mode val; and
+           main.py -c scannet_pt_cbl --mode train as published (the natural
+           layout) on phase 26's scenes with its cuts (3 steps): the natural
+           spec built, losses finite, each step's launches fps 4 and nothing
+           else.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -275,8 +307,10 @@ are per serving request, with those of one train step under "train"; the
 training kernels' numbers are per train step; v1 and gather_rows, which
 no path runs, have the launches read from phase 13's step, which must be
 0 as in every train run, and their direct calls under "direct_launches"),
-and the bfloat16 instances as entries of their own, per train step (the
-gathers of phase 17's step, the attention of phase 18's), and as its last
+the bfloat16 instances as entries of their own, per train step (the
+gathers of phase 17's step, the attention of phase 18's), and the FPS
+kernel per natural train step (phase 30's; its exact call under "exact"),
+and as its last
 line {"ok": true, "device": {...}}. Without CUDA it exits with 2 before
 doing anything.
 """
@@ -316,10 +350,11 @@ from contrastboundary_tpu_torch.models import (
 )
 from contrastboundary_tpu_torch.losses import ContrastConfig
 from contrastboundary_tpu_torch.losses import contrast as cbl_losses
-from contrastboundary_tpu_torch.ops import PyramidSpec, build_pyramid, knn
+from contrastboundary_tpu_torch.ops import PyramidSpec, build_pyramid, knn, sampling
 from contrastboundary_tpu_torch.ops.cuda import cbl_dense as cd
 from contrastboundary_tpu_torch.ops.cuda import cbl_tile as c1
 from contrastboundary_tpu_torch.ops.cuda import cbl_tile2 as c2
+from contrastboundary_tpu_torch.ops.cuda import fps as fpk
 from contrastboundary_tpu_torch.ops.cuda import gather_dma as gd
 from contrastboundary_tpu_torch.ops.cuda import pt_attn as pa
 from contrastboundary_tpu_torch.ops.cuda import tile_gather as tg
@@ -384,6 +419,12 @@ KERNELS = {
         source="contrastboundary_tpu_torch/csrc/gather_rows.cu",
         replaces="contrastboundary_tpu/ops/pallas/gather_dma.py:52",
     ),
+    # the port's own kernel: the reference's FPS chain is a lax.fori_loop
+    # (no pallas_call)
+    "fps": dict(
+        source="contrastboundary_tpu_torch/csrc/fps.cu",
+        replaces="contrastboundary_tpu/ops/sampling.py:54",
+    ),
     # the bfloat16 instances: the same C entries on bfloat16 operands
     "window_gather_bf16": dict(
         source="contrastboundary_tpu_torch/csrc/tile_gather.cu",
@@ -424,6 +465,7 @@ WRAPPERS = {
     "cbl_tile_fwd": (c1, "cbl_tile_fwd", c1.cbl_tile_fwd_plain),
     "cbl_tile_bwd": (c1, "cbl_tile_bwd", c1.cbl_tile_bwd_plain),
     "gather_rows": (gd, "gather_rows", gd.gather_rows_plain),
+    "fps": (fpk, "fps_chains", fpk.fps_chains_plain),
 }
 SERVE_KERNELS = ("window_topk", "window_gather")
 PATH_KERNELS = ("window_topk", "window_gather", "window_gather_bwd")
@@ -469,6 +511,9 @@ CONV_PRESETS = ("s3dis_conv_cbl", "s3dis_conv_cbl_kl", "s3dis_pospool_cbl",
                 "s3dis_pseudogrid_cbl")
 CONV_B, CONV_GRID_N = 8, 8192
 CONV_ENTRY = "scannet_conv_cbl"
+# phases 30-32: the point transformer on the natural layout (bucket_fps), at
+# full width, the batch cut 16 -> B as every point-transformer phase
+PT_NATURAL, PT_NATURAL_SCANNET = "s3dis_pt_cbl_paper", "scannet_pt_cbl"
 BF16_STEP_GATHERS = {"window_gather": {"bfloat16": ATTENTION_LAYERS, "float32": 21},
                      "window_gather_bwd": {"bfloat16": ATTENTION_LAYERS, "float32": 12}}
 
@@ -589,7 +634,7 @@ def reset_counts():
     cd.fwd_launches = cd.bwd_launches = 0
     pa.fwd_launches = pa.bwd_launches = 0
     c2.fwd_launches = c2.bwd_launches = c1.fwd_launches = c1.bwd_launches = 0
-    gd.launches = 0
+    gd.launches = fpk.launches = 0
     knn.wide_calls = 0
 
 
@@ -599,7 +644,7 @@ def read_counts() -> dict:
             "cbl_stats_bwd": cd.bwd_launches, "pt_attn_fwd": pa.fwd_launches,
             "pt_attn_bwd": pa.bwd_launches, "cbl_tile2_fwd": c2.fwd_launches,
             "cbl_tile2_bwd": c2.bwd_launches, "cbl_tile_fwd": c1.fwd_launches,
-            "cbl_tile_bwd": c1.bwd_launches, "gather_rows": gd.launches}
+            "cbl_tile_bwd": c1.bwd_launches, "gather_rows": gd.launches, "fps": fpk.launches}
 
 
 def read_dtype_counts() -> dict:
@@ -836,6 +881,12 @@ def compare_call(name, call, exact_topk=False) -> float:
         args, _, out = call
         require(torch.equal(out, gd.gather_rows_plain(*args)), "gather_rows differs")
         return 0.0
+    if name == "fps":
+        args, _, out = call
+        plain = fpk.fps_chains_plain(*args)
+        require(torch.equal(out, plain), f"fps picks differ at {tuple(args[0].shape)}, "
+                f"{args[1]} picks: {int((out != plain).sum())} of {out.numel()}")
+        return float((out - plain).abs().max()) if out.numel() else 0.0
     if name == "pt_attn_fwd":
         return compare_pt_attn_fwd(call)
     if name == "pt_attn_bwd":
@@ -1124,6 +1175,14 @@ def call_costs(name, call):
         shape = dict(x=list(x.shape), M=idx.numel(), distinct_rows=rows)
         return (kern, plain, lambda: torch.index_select(x, 0, idx_long), n_bytes, 0.0,
                 shape)
+    if name == "fps":
+        # points read once, picks written once; 9 FP32 operations and one
+        # compare a row a step, m_per - 1 steps one after another
+        grouped, m_per = args
+        p, per, _ = grouped.shape
+        steps = max(m_per - 1, 0)
+        shape = dict(buckets=p, rows=per, picks=m_per, chain_steps=steps)
+        return kern, plain, None, size(grouped) + size(out), 10.0 * p * per * steps, shape
     if name in ("pt_attn_fwd", "pt_attn_bwd"):
         # inputs read once, outputs written once, each at its dtype (q, kv,
         # out, g_out, dq and dkv bfloat16 in a bf16 call); FP32 operations of
@@ -2422,10 +2481,16 @@ def prepare_test(root: Path, serve_launches: dict, train_launches: dict) -> None
                 and pred.min() >= 0 and pred.max() < SCANNET_CLASSES, f"{name}: predictions")
 
 
-def require_no_launches(what: str) -> None:
-    counts = {k: v for k, v in read_counts().items() if v}
-    require(not counts and knn.wide_calls == 0,
-            f"{what}: a kernel of the port was launched: {counts}, wide {knn.wide_calls}")
+def require_no_launches(what: str, fps_launches: int = 0) -> dict:
+    """No launch of a kernel of the port and no wide-window search, but
+    ``fps_launches`` of the FPS kernel (the natural point transformer's, one
+    a sampled level; the ConvNet's voxel sampler launches none)."""
+    counts = read_counts()
+    others = {k: v for k, v in counts.items() if k != "fps" and v}
+    require(counts["fps"] == fps_launches and not others and knn.wide_calls == 0,
+            f"{what}: fps {counts['fps']} launches (not {fps_launches}), others {others}, "
+            f"wide {knn.wide_calls}")
+    return counts
 
 
 def conv_setup(name: str, dev, seed: int = 0):
@@ -2458,7 +2523,7 @@ def grid_crop(n: int, seed: int = 3) -> dict:
 
 def compare_pyramids(spec, points: np.ndarray, dev) -> None:
     """The natural pyramid on the card against the CPU's: every index
-    tensor equal, the IDW weights within 1e-6."""
+    tensor equal, the IDW weights and the relative positions within 1e-6."""
     cpu = build_pyramid(torch.as_tensor(points), spec)
     t0 = time.perf_counter()
     card = build_pyramid(torch.as_tensor(points, device=dev), spec)
@@ -2475,9 +2540,13 @@ def compare_pyramids(spec, points: np.ndarray, dev) -> None:
                     f"({int((a != b.cpu()).sum())} of {a.numel()})")
             n += a.numel()
     w = max(float((a - b.cpu()).abs().max()) for a, b in zip(cpu.up_w[1:], card.up_w[1:]))
+    rel = max(float((a - b.cpu()).abs().max())
+              for f in ("self_rel", "down_rel") for a, b in zip(getattr(cpu, f), getattr(card, f))
+              if a is not None)
     print(f"natural pyramid of {points.shape[1]} grid points: card = CPU on {n} indices, "
-          f"max|d up_w| {w:.3g} (card {secs * 1e3:.3f} ms)", flush=True)
-    require(w <= 1e-6, "up_w")
+          f"max|d up_w| {w:.3g}, max|d self_rel, down_rel| {rel:.3g} (card {secs * 1e3:.3f} ms)",
+          flush=True)
+    require(w <= 1e-6 and rel <= 1e-6, "up_w or the relative positions")
 
 
 def conv_train(dev) -> dict:
@@ -2650,6 +2719,221 @@ def conv_entry(root: Path) -> None:
         require(pred.shape == (n,) and pred.min() >= 0 and pred.max() < SCANNET_CLASSES,
                 f"{f.name}: predictions")
     print(f"{len(list(Path(out).glob('*_pred.npy')))} scenes predicted", flush=True)
+
+
+def pt_natural_model(cfg, dev):
+    """The preset's point transformer from the checkpoint (the same
+    parameter tree as the sorted flagship's), or fresh weights from seed 0
+    where it is absent."""
+    model = cfg.build_model(device=dev, generator=torch.Generator().manual_seed(0))
+    if CKPT.exists():
+        load_jax_variables(model, load_checkpoint(str(CKPT)))
+    return model
+
+
+def pt_natural_step(cfg, model, dev):
+    opt = make_optimizer(model.parameters(), TRAIN_LR)
+    step_cfg = TrainStepConfig(num_classes=cfg.data.num_classes, spec=cfg.pyramid_spec(),
+                               contrast=cfg.contrast, ignore_label=cfg.data.ignore_label)
+    return opt, make_train_step(model, step_cfg, opt, device=dev)
+
+
+@torch.no_grad()
+def check_fps(dev, step_calls, launches, grid_calls, points) -> dict:
+    """The FPS kernel against its plain version: every call of the grid
+    crop's pyramid and of the step's (``launches`` the step's count), and
+    one exact FPS of a cloud of N points to N / 4; the step's calls and the
+    exact one timed."""
+    for c in grid_calls:
+        compare_call("fps", c)
+    print(f"  grid crop: {len(grid_calls)} fps calls equal to the plain version", flush=True)
+    fps_entry, = time_calls({"fps": step_calls}, dev, {"fps": launches}, {"fps": 0.0},
+                            ("fps",), reps=5)
+    pts = torch.as_tensor(points[:1], device=dev)
+    out = sampling.fps(pts, N // 4)
+    # one timed run of each after a warm one: the plain chain takes ~3.4 s
+    exact, = time_calls({"fps": [((pts.contiguous(), N // 4), {}, out)]}, dev, {"fps": 1},
+                        {"fps": 0.0}, ("fps",), reps=1)
+    steps = N // 4 - 1
+    print(f"  exact fps {N} -> {N // 4} on one cloud: equal to the plain version; kernel "
+          f"{exact['ms']:.3f} ms ({exact['ms'] / steps * 1e3:.3f} us a chain step), plain "
+          f"{exact['plain_ms']:.3f} ms, bound {exact['bound_ms']:.5f} ms ({exact['bound_by']})",
+          flush=True)
+    fps_entry["exact"] = {k: exact[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    fps_entry["exact"]["shape"] = dict(points=N, picks=N // 4, chain_steps=steps)
+    return fps_entry
+
+
+def pt_natural_train(dev) -> dict:
+    """Phase 30."""
+    cfg = load_config(PT_NATURAL)
+    spec = cfg.pyramid_spec()
+    levels = spec.num_levels - 1  # one fps launch a sampled level
+    model = pt_natural_model(cfg, dev)
+    opt, step = pt_natural_step(cfg, model, dev)
+    print(f"{PT_NATURAL}: planes {cfg.model.planes}, blocks {cfg.model.blocks}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"{'the checkpoint' if CKPT.exists() else 'fresh weights (seed 0)'}; spec {spec}; "
+          f"cut: batch {cfg.optim.batch_size} -> {B}; SGD lr {TRAIN_LR}", flush=True)
+    snap0 = snapshot(model, opt)
+
+    crop = grid_crop(CONV_GRID_N)
+    with recording() as grid_calls:
+        compare_pyramids(spec, crop["points"], dev)
+    grid_fps = [c for c in grid_calls["fps"] if c[0][0].is_cuda]
+    cpu_model = copy.deepcopy(model).cpu()
+    _, cpu_step = pt_natural_step(cfg, cpu_model, "cpu")
+    loss_c = float(step(crop)["loss"])
+    gn_c = grad_norm(model)
+    loss_p = float(cpu_step(crop)["loss"])
+    gn_p = grad_norm(cpu_model)
+    print(f"one step on the grid crop, card vs CPU from the same weights: loss {loss_c:.7f} vs "
+          f"{loss_p:.7f} (rel {abs(loss_c - loss_p) / abs(loss_p):.3g}), gradient norm "
+          f"{gn_c:.7f} vs {gn_p:.7f} (rel {abs(gn_c - gn_p) / gn_p:.3g})", flush=True)
+    require(abs(loss_c - loss_p) <= 1e-4 * abs(loss_p), "card and CPU losses disagree")
+    require(abs(gn_c - gn_p) <= 1e-3 * gn_p, "card and CPU gradient norms disagree")
+    del cpu_model, cpu_step
+    restore(model, opt, snap0)
+
+    rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
+    batch = train_batch(rooms, B, N, np.random.default_rng(0))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with recording() as calls:
+        step(batch)
+        torch.cuda.synchronize()
+    counts = require_no_launches("a batch-BN train step", levels)
+    print(f"launches in one batch-BN train step: fps {counts['fps']} (the {levels} sampled "
+          f"levels), every other kernel 0", flush=True)
+    restore(model, opt, snap0)
+    losses, secs = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        print("  step: " + ", ".join(f"{k} {float(v):.6f}" for k, v in m.items()
+                                      if k != "confusion"), flush=True)
+    med = statistics.median(secs[2:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"natural train step ({PT_NATURAL}, B={B}) median of 3 warm steps {med * 1e3:.3f} ms "
+          f"over {[round(x * 1e3, 3) for x in secs]}, {B * N / med:.1f} points/s, "
+          f"max_memory_allocated {peak} B", flush=True)
+    require(all(np.isfinite(losses)), f"losses {losses}")
+    require(losses[-1] < losses[0], f"5 steps on one batch did not lower the loss: {losses}")
+    busy_ms = profile_request(step, batch, top=15, what="natural train step")
+    print(f"device busy {busy_ms:.3f} ms of the unprofiled median step {med * 1e3:.3f} ms: "
+          f"busy share {busy_ms / (med * 1e3):.3f}", flush=True)
+    pts_dev = torch.as_tensor(batch["points"], device=dev)
+    pyr_ms = time_ms(lambda: build_pyramid(pts_dev, spec), reps=1)
+    print(f"device time of the training pyramid alone {pyr_ms:.3f} ms", flush=True)
+
+    stale_cfg = load_config(PT_NATURAL, "model.bn_mode:stale")
+    stale = stale_cfg.build_model(device=dev)
+    stale.load_state_dict(model.state_dict())
+    _, stale_step = pt_natural_step(stale_cfg, stale, dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    ms = stale_step(batch)
+    torch.cuda.synchronize()
+    require_no_launches("a stale-BN train step", levels)
+    print(f"one stale-BN step (the unfused attention, StaleBatchNorm): "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms (cold), loss {float(ms['loss']):.6f}; "
+          f"launches: fps {levels}, every other kernel 0", flush=True)
+    require(np.isfinite(float(ms["loss"])), "stale loss not finite")
+    del stale, stale_step, ms
+
+    summary = check_fps(dev, calls["fps"], counts["fps"], grid_fps, batch["points"])
+    del calls, grid_calls, opt, step
+    torch.cuda.empty_cache()
+    return dict(model=model, cfg=cfg, spec=spec, crop=crop, levels=levels, summary=summary)
+
+
+def pt_natural_serve(dev, trained: dict) -> None:
+    """Phase 31."""
+    model, cfg, spec, crop = (trained[k] for k in ("model", "cfg", "spec", "crop"))
+    b = cfg.eval.batch_size
+    rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
+    batch = train_batch(rooms, b, N, np.random.default_rng(1))
+    step = make_eval_step(model, spec, dev, num_classes=cfg.data.num_classes)
+    reset_counts()
+    probs, _ = step(batch)
+    torch.cuda.synchronize()
+    require_no_launches("a request", trained["levels"])
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        probs, _ = step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    med, peak = statistics.median(secs), torch.cuda.max_memory_allocated()
+    require(bool(torch.isfinite(probs).all()), "natural request probs not finite")
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    oa = float((probs.argmax(-1) == labels).float().mean())
+    print(f"natural request (B={b}, the preset's eval batch, x {N}): median of 3 "
+          f"{med * 1e3:.3f} ms over {[round(x * 1e3, 3) for x in secs]}, {b * N / med:.1f} "
+          f"points/s, max_memory_allocated {peak} B, crop OA {oa:.4f}; launches: fps "
+          f"{trained['levels']}, every other kernel 0", flush=True)
+    busy = profile_request(step, batch, top=12, what="natural request")
+    print(f"device busy {busy:.3f} ms of the median request: busy share "
+          f"{busy / (med * 1e3):.3f}", flush=True)
+    card, _ = step(crop)
+    cpu_probs, _ = make_eval_step(copy.deepcopy(model).cpu(), spec, "cpu",
+                                  num_classes=cfg.data.num_classes)(crop)
+    d = float((card.cpu() - cpu_probs).abs().max())
+    agree = float((card.cpu().argmax(-1) == cpu_probs.argmax(-1)).float().mean())
+    print(f"grid crop of {CONV_GRID_N} points, card vs CPU probs: max|d| {d:.3g}, argmax "
+          f"agreement {agree:.6f}", flush=True)
+    require(d <= 1e-4 and agree >= 0.999, "card and CPU probs disagree")
+
+
+def natural_entry_train(argv, what, levels) -> StepProbe:
+    """One --mode train run of a natural point-transformer preset through
+    main.py: the natural spec built, every step's loss finite, each step's
+    launches the sampled levels' fps and nothing else."""
+    probe = StepProbe()
+    _, built, secs, total = run_entry(argv, probe)
+    (_, spec, *_), = built
+    require((spec.layout, spec.sampler) == ("natural", "bucket_fps"), f"spec {spec}")
+    print_probe(what, probe)
+    exp = Path(argv[argv.index("--exp_dir") + 1])
+    steps, losses = entry_losses(exp)
+    print(f"--mode train: {secs:.3f} s; losses {losses} at steps {steps}; launches of the run "
+          f"{ {k: v for k, v in total.items() if v} }", flush=True)
+    require(len(steps) == len(probe.steps) > 0 and all(np.isfinite(losses)), f"losses {losses}")
+    for i, launches in enumerate(probe.launches):
+        others = {k: v for k, v in launches.items() if k != "fps" and v}
+        require(launches["fps"] == levels and not others,
+                f"step {i}: fps {launches['fps']} (not {levels}), others {others}")
+    require(not {k: v for k, v in total.items() if k != "fps" and v}, f"launches {total}")
+    return probe
+
+
+def pt_natural_entry(root: Path, levels: int) -> None:
+    """Phase 32: s3dis_pt_cbl_paper through main.py on phase 24's rooms
+    (train, then val), and scannet_pt_cbl as published on phase 26's
+    scenes."""
+    exp = root / "exp_pt_natural"
+    sets = f"data.data_root:{root / 'data'};{ENTRY_SETS}"
+    print(f"main.py -c {PT_NATURAL} --set {sets}: full width, the natural layout, bucket_fps; "
+          f"cuts: batch 16 -> 2, epochs 200 -> 1, loop 30 -> 2, num_votes 20 -> 1", flush=True)
+    natural_entry_train(["-c", PT_NATURAL, "--mode", "train", "--set", f"{sets};{ENTRY_LOG}",
+                         "--exp_dir", str(exp)], f"pt-natural-entry train ({PT_NATURAL})",
+                        levels)
+    m, _, secs, total = run_entry(["-c", PT_NATURAL, "--mode", "val", "--model_path", "auto",
+                                   "--extra_ops", "", "--set", sets, "--exp_dir", str(exp)])
+    print(f"--mode val: {secs:.3f} s, full mIoU {m['full']['mIoU']:.4f} OA {m['full']['OA']:.4f}; "
+          f"launches {total}", flush=True)
+    require(np.isfinite(m["full"]["OA"]) and total["fps"] > 0
+            and not {k: v for k, v in total.items() if k != "fps" and v}, f"launches {total}")
+    sets = f"data.data_root:{root / 'scannet'};{SCANNET_CUTS};eval.num_votes:0;{ENTRY_LOG}"
+    print(f"main.py -c {PT_NATURAL_SCANNET} --set {sets}: as published (the natural layout), "
+          f"phase 26's cuts", flush=True)
+    natural_entry_train(["-c", PT_NATURAL_SCANNET, "--mode", "train", "--set", sets,
+                         "--exp_dir", str(root / "exp_scannet_natural")],
+                        f"pt-natural-entry train ({PT_NATURAL_SCANNET}, 20 classes)", levels)
 
 
 def main() -> int:
@@ -2898,6 +3182,18 @@ def main() -> int:
         with phase("conv-entry"):
             print(f"card: {card_line()}", flush=True)
             conv_entry(root)
+        torch.cuda.empty_cache()
+        with phase("pt-natural-train"):
+            print(f"card: {card_line()}", flush=True)
+            natural = pt_natural_train(dev)
+        with phase("pt-natural-serve"):
+            pt_natural_serve(dev, natural)
+        fps_summary, levels = natural["summary"], natural["levels"]
+        del natural
+        torch.cuda.empty_cache()
+        with phase("pt-natural-entry"):
+            print(f"card: {card_line()}", flush=True)
+            pt_natural_entry(root, levels)
     torch.cuda.empty_cache()
 
     summary = []
@@ -2911,6 +3207,7 @@ def main() -> int:
                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}})
     summary += bf16_summary  # per bfloat16 train step
+    summary.append(fps_summary)  # per natural train step
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

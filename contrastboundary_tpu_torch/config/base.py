@@ -4,14 +4,16 @@ defaults, presets and override grammar).
 
 ``pyramid_spec()`` and ``build_model()`` build the port's objects for the
 option points the port has: the point transformer on the Morton-sorted
-layout with strided sampling (``layout='sorted'``, ``sampler='strided'``),
-float32 or bfloat16, batch or stale BN; the ConvNet family (every
-aggregation) in float32 on the natural layout with the voxel sampler; the
-flagship MultiHead and the softnn CBL with cnt or kl positives
-(config/dsl.py). Every other option raises NotImplementedError naming the
-ROADMAP Queue A item that ports it (item 7): the other samplers,
-approximate or windowed KNN settings the port's exact searches cannot
-hold, other heads and CBL options, remat.
+layout (``layout='sorted'``; float32 or bfloat16) or the natural one
+(float32), with the strided (sorted only), serialized, fps or bucket_fps
+sampler, batch or stale BN; the ConvNet family (every aggregation) in
+float32 on the natural layout with the voxel sampler; the flagship
+MultiHead and the softnn CBL with cnt or kl positives (config/dsl.py).
+Every other option raises NotImplementedError naming the ROADMAP Queue A
+item that ports it (item 7): the random sampler, approximate or windowed
+KNN settings the port's exact searches cannot hold, the tile contrast
+search and bfloat16 on the natural layout, other heads and CBL options,
+remat.
 """
 from __future__ import annotations
 
@@ -194,19 +196,25 @@ class Config:
             return self._convnet_spec()
         if m.arch != "pointtransformer":
             raise ValueError(f"unknown arch {m.arch!r}")
+        natural = m.layout == "natural"
+        if m.layout not in ("sorted", "natural"):
+            raise ValueError(f"unknown model.layout {m.layout!r}")
         unported = {
-            "layout": m.layout != "sorted",
-            "sampler": m.sampler != "strided",
+            "sampler": m.sampler == "random",
             "knn_window": m.knn_window != 0,
             "knn_recall": float(m.knn_recall) not in EXACT_RECALLS,
-            "contrast_window": m.contrast_window != m.self_window,
+            "contrast_window": not natural and m.contrast_window != m.self_window,
+            "contrast_mode": natural and m.contrast_mode != "dense",
         }
         for key, bad in unported.items():
             if bad:
                 raise NotImplementedError(
                     f"model.{key}={getattr(m, key)!r} is not ported ({OPTIONS_ITEM}); the port "
-                    "builds the sorted layout with strided sampling and exact tile-window "
-                    "searches, the contrast search on the self search's window")
+                    "builds the sorted layout with exact tile-window searches (the contrast "
+                    "search on the self search's window) and the natural layout with dense "
+                    "exact searches, with the strided, serialized, fps and bucket_fps samplers")
+        if m.sampler not in ("strided", "serialized", "fps", "bucket_fps"):
+            raise ValueError(f"model.sampler {m.sampler!r} for the point transformer")
         contrast = self.contrast
         return PyramidSpec(
             strides=tuple(m.strides),
@@ -256,6 +264,9 @@ class Config:
             return model.to(resolve_device(device))
         if m.save_memory:
             raise NotImplementedError(f"model.save_memory (remat) is not ported ({OPTIONS_ITEM})")
+        if m.layout == "natural" and m.dtype != "float32":
+            raise NotImplementedError(
+                f"model.dtype={m.dtype!r} on the natural layout is not ported ({OPTIONS_ITEM})")
         dev = resolve_device(device)
         model = PointTransformerSeg(
             num_classes=self.data.num_classes,

@@ -11,9 +11,16 @@ Reference sources:
   lr 0.01 × 0.9885531^epoch, grad clip 100).
 
 The port builds the point-transformer presets on the sorted layout
-(s3dis_pt_cbl, s3dis_pt_cbl_bf16); the others load, and building their
-model or pyramid raises NotImplementedError naming the ROADMAP item that
-ports what they need (config/base.py).
+(s3dis_pt_cbl, s3dis_pt_cbl_kl, s3dis_pt_cbl_bf16) and on the natural one
+with bucketed FPS (s3dis_pt_cbl_paper, scannet_pt_cbl, synthetic_tiny,
+synthetic_full, default), and the ConvNet presets on the natural layout
+with the voxel sampler (s3dis_conv_cbl, s3dis_conv_cbl_kl,
+s3dis_pospool_cbl, s3dis_pseudogrid_cbl, scannet_conv_cbl,
+semantic3d_conv_cbl, npm3d_conv_cbl, s3dis_conv_cbl_paper,
+synthetic_conv_tiny); the others load, and building their model or
+pyramid raises NotImplementedError naming the ROADMAP item that ports what
+they need (config/base.py): s3dis_pt (the plain mlp head) and
+s3dis_randla_cbl (the random sampler).
 """
 from .base import register_config
 

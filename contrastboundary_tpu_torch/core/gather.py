@@ -13,6 +13,19 @@ def batch_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[bidx, idx.long()]
 
 
+def clamped_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """batch_gather as the reference's ``x[idx]`` computes it at a shadow
+    index N: XLA clamps an out-of-range gather, so the slot reads row
+    N − 1, and drops an out-of-range update of its transpose (a scatter-add),
+    so the slot's cotangent reaches no row."""
+    n = x.shape[1]
+    out = batch_gather(x, idx.clamp_max(n - 1))
+    if not out.requires_grad:
+        return out
+    valid = (idx < n).reshape(idx.shape + (1,) * (out.ndim - idx.ndim))
+    return torch.where(valid, out, out.detach())
+
+
 def shadow_gather(x: torch.Tensor, idx: torch.Tensor, fill: float = 0.0):
     """Gather where idx == N (or beyond) reads ``fill``. Returns (gathered,
     valid) with valid shaped like idx."""

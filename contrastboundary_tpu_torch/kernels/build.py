@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = (
     "win_topk.cu", "tile_gather.cu", "window_gather_bwd.cu", "cbl_dense.cu", "pt_attn.cu",
-    "cbl_tile2.cu", "gather_rows.cu",
+    "cbl_tile2.cu", "gather_rows.cu", "fps.cu",
 )
 HEADERS = ("window_sort.cuh", "slot_scatter.cuh")  # included by sources; part of the hash
 NVCC_FLAGS = (
@@ -83,6 +83,8 @@ SIGNATURES = {
     "cbl_tile_bwd": (_P,) * 10 + (_I,) * 8 + (_F, _I, _I, _P),
     # x, idx, out, n, m, row bytes, stream
     "cbl_gather_rows": (_P, _P, _P, _I, _I, _I, _P),
+    # planes, out, scratch, buckets, rows a bucket, picks a bucket, stream
+    "cbl_fps": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -1,20 +1,25 @@
 """Point-transformer blocks (counterpart of
-contrastboundary_tpu/models/blocks.py:177-458, the XLA path of
-PointTransformerLayer, not the fused ``pt_attn`` kernel, which the reference
-runs only under bn_mode='stale').
+contrastboundary_tpu/models/blocks.py:177-458).
 
 Submodule names are the flax names of the JAX modules, so a flax variable
-path maps onto a state_dict key one to one (models/convert.py). Neighbour
-indices are window-relative in Morton-sorted space (ops/pyramid.py) and every
-neighbour read is a tile gather (ops/tile_gather.py).
+path maps onto a state_dict key one to one (models/convert.py). Each block
+takes one of the pyramid's two routes (ops/pyramid.py), as the reference
+chooses by whether ``local`` is given: on the sorted layout the neighbour
+indices are window-relative in Morton-sorted space and every neighbour read
+is a tile gather (ops/tile_gather.py); on the natural layout (``local``
+None) they are global rows, read by a row gather that reads the shadow
+index N as row N − 1 and drops its cotangent, as XLA's gather and its
+transpose do (core/gather.py::clamped_gather), and the attention's softmax
+masks no slot, as the reference's does not.
 
 BatchNorm is flax ``nn.BatchNorm`` over the last axis (eps 1e-5, momentum
 0.9 by default, the point transformer's; the ConvNet family passes its own,
 models/convnet.py): in eval mode it normalizes with the running
 statistics; in train mode with the batch statistics. Under
-bn_mode='stale' every BN is a StaleBatchNorm, and each attention layer runs
-the fused kernel (ops/pt_attn.py) with its BNs folded into the towers, as
-the reference does.
+bn_mode='stale' every BN is a StaleBatchNorm, and each attention layer of
+the sorted layout runs the fused kernel (ops/pt_attn.py) with its BNs
+folded into the towers, as the reference does; the natural layout's runs
+the unfused layer, as the reference's (its kernel needs ``local``).
 
 ``dtype`` is the flax modules' compute dtype (float32, or bfloat16 as in the
 reference's bf16 presets). Parameters stay float32. Each op rounds where the
@@ -32,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.gather import clamped_gather
 from ..ops.pt_attn import pt_attn
 from ..ops.tile_gather import cross_window_gather, tile_window_gather
 
@@ -154,22 +160,27 @@ class PointTransformerLayer(nn.Module):
         self.w_fc2 = nn.Linear(c // s, c // s)
 
     def forward(self, x, nb_idx, rel, local):
-        tile, width = local
+        """local: (tile, width) of window-relative ``nb_idx`` (sorted
+        layout), or None for global rows (natural layout)."""
         c, s, dt = x.shape[-1], self.share_planes, self.dtype
         q = dense(self.linear_q, x, dt)
         kv = torch.cat([dense(self.linear_k, x, dt), dense(self.linear_v, x, dt)], -1)
-        if self.stale:
-            return self._fused(q, kv, nb_idx, rel, tile, width)
-        kv_nb = tile_window_gather(kv, nb_idx, tile, width)
+        if local is None:
+            kv_nb = clamped_gather(kv, nb_idx)
+        elif self.stale:
+            return self._fused(q, kv, nb_idx, rel, *local)
+        else:
+            kv_nb = tile_window_gather(kv, nb_idx, *local)
         k_nb, v_nb = kv_nb[..., :c], kv_nb[..., c:]
 
         pe = dense(self.p_fc2, F.relu(self.p_bn(dense(self.p_fc1, rel.to(dt), dt))), dt)
         w = k_nb - q[:, :, None, :] + pe
         w = dense(self.w_fc1, F.relu(self.w_bn1(w)), dt)
         w = dense(self.w_fc2, F.relu(self.w_bn2(w)), dt).float()
-        # shadow slots (tiny levels); slot 0 is the query itself, so no row
-        # is all shadow
-        w = w.masked_fill((nb_idx == tile * width)[..., None], float("-inf"))
+        if local is not None:
+            # shadow slots (tiny levels); slot 0 is the query itself, so no
+            # row is all shadow
+            w = w.masked_fill((nb_idx == local[0] * local[1])[..., None], float("-inf"))
         w = torch.softmax(w, dim=2).to(dt)
 
         b, n, kk, _ = v_nb.shape
@@ -231,8 +242,11 @@ class PointTransformerBlock(nn.Module):
 
 
 class TransitionDown(nn.Module):
-    """stride 1: Dense(no bias)+BN+ReLU. stride > 1: one cross-window gather
-    of [p_prev | x_prev], relative xyz, Dense(no bias)+BN+ReLU, max over k."""
+    """stride 1: Dense(no bias)+BN+ReLU. stride > 1: the neighbours'
+    features with their relative xyz, Dense(no bias)+BN+ReLU, max over k;
+    on the sorted layout one cross-window gather of [p_prev | x_prev]
+    (``local``), on the natural one a row gather of x_prev at ``idx`` beside
+    the pyramid's ``rel``."""
 
     def __init__(self, in_planes: int, out_planes: int, stride: int = 1,
                  bn_mode: str = "batch", dtype: torch.dtype = torch.float32):
@@ -243,17 +257,21 @@ class TransitionDown(nn.Module):
         self.Dense_0 = nn.Linear(in_planes + extra, out_planes, bias=False)
         self.BatchNorm_0 = make_bn(bn_mode, out_planes)
 
-    def forward(self, p_prev, x_prev, p_cur=None, local=None):
+    def forward(self, p_prev, x_prev, p_cur=None, local=None, idx=None, rel=None):
         dt = self.dtype
         if self.stride == 1:
             return F.relu(self.BatchNorm_0(dense(self.Dense_0, x_prev, dt)))
-        li, tile, width, window = local
-        fused = torch.cat([p_prev.to(x_prev.dtype), x_prev], -1)
-        nb = cross_window_gather(fused, li, p_prev.shape[1], tile, width, window)
-        rel = nb[..., :3] - p_cur[:, :, None, :].to(nb.dtype)
-        rel = torch.where((li < tile * width)[..., None], rel, 0.0)
+        if local is None:
+            x_nb = clamped_gather(x_prev, idx)
+        else:
+            li, tile, width, window = local
+            fused = torch.cat([p_prev.to(x_prev.dtype), x_prev], -1)
+            nb = cross_window_gather(fused, li, p_prev.shape[1], tile, width, window)
+            rel = nb[..., :3] - p_cur[:, :, None, :].to(nb.dtype)
+            rel = torch.where((li < tile * width)[..., None], rel, 0.0)
+            x_nb = nb[..., 3:]
         # rel rounded to dtype, then promoted with the features (JAX's concat)
-        g = torch.cat([rel.to(dt).to(nb.dtype), nb[..., 3:]], -1)
+        g = torch.cat([rel.to(dt).to(x_nb.dtype), x_nb], -1)
         g = F.relu(self.BatchNorm_0(dense(self.Dense_0, g, dt)))
         return g.amax(2)
 
@@ -261,7 +279,9 @@ class TransitionDown(nn.Module):
 class TransitionUp(nn.Module):
     """Decoder fusion: linear1(x_skip) + IDW-interp(linear2(x_deep)), each
     linear a Dense+BN+ReLU; the head variant (``is_head``) concatenates the
-    per-cloud mean through linear2 = Dense+ReLU instead."""
+    per-cloud mean through linear2 = Dense+ReLU instead. The deep rows are
+    read by a cross-window gather (``local``, sorted layout) or a row
+    gather at ``idx`` (natural layout)."""
 
     def __init__(self, in_planes: int, out_planes: int, is_head: bool = False,
                  bn_mode: str = "batch", dtype: torch.dtype = torch.float32):
@@ -277,7 +297,7 @@ class TransitionUp(nn.Module):
     def _linear1(self, x):
         return F.relu(self.linear1_bn(dense(self.linear1_fc, x, self.dtype)))
 
-    def forward(self, x_skip, x_deep=None, up_w=None, local=None):
+    def forward(self, x_skip, x_deep=None, up_w=None, local=None, idx=None):
         if self.is_head:
             # the mean through a Dense in dtype, promoted with x_skip
             g = F.relu(dense(self.linear2_fc, x_skip.mean(1, keepdim=True), self.dtype))
@@ -285,8 +305,11 @@ class TransitionUp(nn.Module):
                 torch.cat([x_skip, g.expand(-1, x_skip.shape[1], -1).to(x_skip.dtype)], -1)
             )
         deep = F.relu(self.linear2_bn(dense(self.linear2_fc, x_deep, self.dtype)))
-        li, tile, width, window = local
-        deep_up = cross_window_gather(deep, li, deep.shape[1], tile, width, window)
+        if local is None:
+            deep_up = clamped_gather(deep, idx)
+        else:
+            li, tile, width, window = local
+            deep_up = cross_window_gather(deep, li, deep.shape[1], tile, width, window)
         deep_up = (deep_up * up_w[..., None].to(deep_up.dtype)).sum(2)
         return self._linear1(x_skip) + deep_up
 

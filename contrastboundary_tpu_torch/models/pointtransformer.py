@@ -110,7 +110,8 @@ class PointTransformerSeg(nn.Module):
                        else torch.Generator().manual_seed(0))
 
     def forward(self, features: torch.Tensor, pyramid: Pyramid, with_latents: bool = False):
-        """features [B, N0, in_features] in the pyramid's sorted row order →
+        """features [B, N0, in_features] in the pyramid's row order (Morton
+        order on the sorted layout, the caller's on the natural one) →
         in eval mode logits [B, N0, num_classes]; in train mode (batch
         statistics in BatchNorm), or with ``with_latents``, a ModelOutput
         with the latents too."""
@@ -122,8 +123,8 @@ class PointTransformerSeg(nn.Module):
                 x, pyramid.self_idx[l], pyramid.self_rel[l], pyramid.self_local[l]
             )
 
-        def meta(local, metas, l):
-            return (local[l],) + metas[l]
+        def meta(local, metas, l):  # None on the natural layout: global rows
+            return None if metas[l] is None else (local[l],) + metas[l]
 
         x = torch.cat([pts[0], features], -1).to(self.dtype)
         down_feats = []
@@ -134,6 +135,7 @@ class PointTransformerSeg(nn.Module):
                 x = getattr(self, f"enc{l}_down")(
                     pts[l - 1], x, pts[l],
                     meta(pyramid.down_local, pyramid.down_meta, l),
+                    pyramid.down_idx[l], pyramid.down_rel[l],
                 )
             for b in range(1, self.blocks[l]):
                 x = block(f"enc{l}_blk{b}", l, x)
@@ -146,7 +148,7 @@ class PointTransformerSeg(nn.Module):
         for l in range(nl - 2, -1, -1):
             x = getattr(self, f"dec{l}_up")(
                 down_feats[l], x, pyramid.up_w[l + 1],
-                meta(pyramid.up_local, pyramid.up_meta, l + 1),
+                meta(pyramid.up_local, pyramid.up_meta, l + 1), pyramid.up_idx[l + 1],
             )
             x = block(f"dec{l}_blk", l, x)
             up_feats[l] = x

@@ -1,23 +1,28 @@
 """Multi-resolution index pyramid (counterpart of
 contrastboundary_tpu/ops/pyramid.py::build_pyramid), in two layouts.
 
-``layout='sorted'``, ``sampler='strided'`` (the point transformer): every
-level is stored Morton-sorted (``order0`` maps the caller's level-0 rows to
-sorted rows), each level is a strided row pick of the previous one, and
-every search is a tile-window search (ops/knn.py), so each neighbour index
-has a window-relative twin for the tile gathers (ops/tile_gather.py). With
-``k_contrast`` the self and contrast searches are one merged search; with
-``with_subscene`` the kr = 4^l searches over level 0 are added.
+``layout='sorted'`` (the point transformer's fast path): every level is
+stored Morton-sorted (``order0`` maps the caller's level-0 rows to sorted
+rows) and every search is a tile-window search (ops/knn.py), so each
+neighbour index has a window-relative twin for the tile gathers
+(ops/tile_gather.py). With ``sampler='strided'`` each level is a strided
+row pick of the previous one; with ``fps``, ``bucket_fps`` or
+``serialized`` it is that sampler's pick, sorted by row (a subset of a
+sorted level, in row order, is sorted). With ``k_contrast`` the self and
+contrast searches are one merged search; with ``with_subscene`` the
+kr = 4^l searches over level 0 are added.
 
-``layout='natural'``, ``sampler='voxel'`` (the ConvNet family): the levels
-keep the caller's row order (``order0`` None), each level is the voxel
-sampler's pick of the previous one (ops/sampling.py::voxel_sample), and
-every search is the dense exact ops/knn.py::knn over global rows with the
-shadow index N: the pooling search within ``down_radii``, the self search
-within ``radii`` (slot 0 the point itself), the up, nearest-to-level-0,
-contrast (self excluded, k − 1) and sub-scene searches unbounded. The
-window-relative twins and the relative positions (``self_rel``,
-``down_rel``), which only the point transformer reads, are None there.
+``layout='natural'`` (the ConvNet family with ``sampler='voxel'``, the
+point transformer with ``fps``, ``bucket_fps`` or ``serialized``, which
+``strided`` means there): the levels keep the caller's row order
+(``order0`` None), each level is the sampler's pick of the previous one
+(ops/sampling.py), and every search is the dense exact ops/knn.py::knn over
+global rows with the shadow index N: the pooling search within
+``down_radii``, the self search within ``radii`` (slot 0 the point
+itself), the up, nearest-to-level-0, contrast (self excluded, k − 1) and
+sub-scene searches unbounded. The relative positions ``self_rel`` and
+``down_rel`` are the neighbour's coordinates (read at min(idx, N − 1)) less
+the query's, zero at a shadow slot; the window-relative twins are None.
 """
 from __future__ import annotations
 
@@ -27,24 +32,30 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.gather import batch_gather
+from ..core.gather import batch_gather, clamped_gather
 from .interpolate import interpolation_weights
 from .knn import cross_width, knn as _knn, tile_cross_knn, tile_self_knn
-from .sampling import serialized_order, voxel_sample
+from .sampling import (bucket_fps, fps, serialized_order, serialized_sample, strided_pick,
+                       voxel_sample)
 from .tile_gather import cross_window_gather, cross_window_starts, tile_window_gather
 
 
 @dataclasses.dataclass(frozen=True)
 class PyramidSpec:
-    """Static description of the pyramid; field names and defaults as in the
-    JAX PyramidSpec. Two layouts are built: sorted with the strided sampler
-    (the contrast search shares the self search's tile and window) and
-    natural with the voxel sampler. ``radii[l]`` bounds the level-l self
-    search, ``down_radii[l]`` the level-(l−1) → l pooling search (natural
-    layout; None: unbounded); ``voxel_sizes[l]`` is the voxel sampler's cell
-    at level l (level 0 unused). ``knn_recall`` only sets the natural
-    layout's tie rule of its top-1 searches (ops/knn.py::knn): every search
-    of the port is exact."""
+    """Static description of the pyramid; field names as in the JAX
+    PyramidSpec, whose defaults differ in ``sampler`` and ``layout`` (the
+    port's default is the flagship's sorted, strided pyramid). Two layouts
+    are built: sorted (the contrast search shares the self search's tile
+    and window) and natural; the samplers are strided (the sorted
+    layout's inherited order; serialized on the natural one), serialized,
+    fps, bucket_fps (``num_buckets`` Morton buckets, halved until they
+    divide both level sizes, exact fps at one) and voxel (with
+    ``voxel_sizes``). ``radii[l]`` bounds the level-l self search,
+    ``down_radii[l]`` the level-(l−1) → l pooling search (natural layout;
+    None: unbounded); ``voxel_sizes[l]`` is the voxel sampler's cell at
+    level l (level 0 unused). ``knn_recall`` only sets the natural layout's
+    tie rule of its top-1 searches (ops/knn.py::knn): every search of the
+    port is exact."""
 
     strides: Tuple[int, ...] = (1, 4, 4, 4, 4)
     k_self: Tuple[int, ...] = (8, 16, 16, 16, 16)
@@ -53,6 +64,7 @@ class PyramidSpec:
     k_contrast: Optional[Tuple[int, ...]] = None
     with_subscene: bool = False
     sampler: str = "strided"
+    num_buckets: int = 64
     layout: str = "sorted"
     self_tile: int = 256
     self_window: int = 1
@@ -106,32 +118,37 @@ class Pyramid:
     subscene_idx: Tuple
 
 
-def strided_pick(n_prev: int, m: int) -> np.ndarray:
-    """Row pick ``jnp.linspace(0, n_prev − 1, m).round()`` with the bits XLA
-    gives it: its simplifier folds (n_prev − 1)·(i/div) into
-    i·((n_prev − 1)·(1/div)) in float32 (checked against JAX on the CPU by
-    tests/test_torch_pyramid.py); the last entry is exactly n_prev − 1, and
-    rounding is half to even."""
-    if m == 1:
-        return np.zeros(1, np.int32)
-    div = m - 1
-    stop = np.float32(n_prev - 1)
-    out = np.arange(div, dtype=np.float32) * (stop * (np.float32(1) / np.float32(div)))
-    out = np.concatenate([out, np.array([stop], np.float32)])
-    return np.round(out).astype(np.int32)
+SAMPLERS = ("strided", "serialized", "fps", "bucket_fps", "voxel")
 
 
 def _check_spec(spec: PyramidSpec):
-    if (spec.layout, spec.sampler) not in (("sorted", "strided"), ("natural", "voxel")):
-        raise ValueError("the ported layouts are sorted with sampler='strided' and "
-                         f"natural with sampler='voxel', not {spec.layout!r} with "
-                         f"{spec.sampler!r}")
+    if spec.layout not in ("sorted", "natural"):
+        raise ValueError(f"unknown layout {spec.layout!r}")
+    if spec.sampler not in SAMPLERS:
+        raise ValueError(f"sampler {spec.sampler!r} is not one of the ported samplers {SAMPLERS}")
     if spec.layout == "sorted" and (spec.radii or spec.down_radii):
         raise ValueError("layout='sorted' does not support radius masks")
-    if spec.layout == "natural" and spec.voxel_sizes is None:
+    if spec.sampler == "voxel" and spec.voxel_sizes is None:
         raise ValueError("sampler='voxel' requires voxel_sizes")
     if spec.k_contrast is not None and len(spec.k_contrast) < spec.num_levels:
         raise ValueError(f"k_contrast {spec.k_contrast} needs {spec.num_levels} levels")
+
+
+def _sample(points: torch.Tensor, m: int, spec: PyramidSpec, level: int) -> torch.Tensor:
+    """The sampler's m rows of ``points`` [B, N, 3] → [B, m] int32 (JAX
+    ``_sample``): bucket_fps halves its buckets while they do not divide N
+    and m, and is exact fps at one bucket; strided is serialized here (the
+    sorted layout's strided pick never comes here)."""
+    if spec.sampler == "fps":
+        return fps(points, m)
+    if spec.sampler == "bucket_fps":
+        g, n = spec.num_buckets, points.shape[1]
+        while g > 1 and (n % g or m % g):
+            g //= 2
+        return fps(points, m) if g <= 1 else bucket_fps(points, m, g)
+    if spec.sampler in ("serialized", "strided"):
+        return serialized_sample(points, m)
+    return voxel_sample(points, m, spec.voxel_sizes[level])
 
 
 def _tile(spec: PyramidSpec, *sizes: int) -> int:
@@ -187,6 +204,12 @@ def _masked_rel(nb, p_query, li, shadow):
     return torch.where(valid, nb - p_query[:, :, None, :], 0.0)
 
 
+def _rel(p_support, p_query, idx):
+    """Neighbour minus query coordinates over global rows (JAX ``_rel``):
+    the neighbour read at min(idx, N − 1), zero where idx is the shadow N."""
+    return _masked_rel(clamped_gather(p_support, idx), p_query, idx, p_support.shape[1])
+
+
 @torch.no_grad()
 def build_pyramid(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
     """Build the pyramid from level-0 points [B, N, 3] (f32, on the device
@@ -226,10 +249,15 @@ def build_pyramid(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
     for l in range(1, spec.num_levels):
         prev = pts[l - 1]
         m = prev.shape[1] // spec.strides[l]
-        pick = torch.as_tensor(strided_pick(prev.shape[1], m), device=dev)
-        cur = prev[:, pick.long()]
+        if spec.sampler == "strided":
+            pick = torch.as_tensor(strided_pick(prev.shape[1], m), device=dev)
+            cur = prev[:, pick.long()]
+            sample_idx.append(pick[None].expand(b, m))
+        else:
+            idx = torch.sort(_sample(prev, m, spec, l), dim=1).values
+            cur = batch_gather(prev, idx)
+            sample_idx.append(idx)
         pts.append(cur)
-        sample_idx.append(pick[None].expand(b, m))
 
         d_idx, _, d_meta, d_loc = _cross(spec, cur, prev, spec.k_down[l])
         down_idx.append(d_idx)
@@ -296,8 +324,9 @@ def build_pyramid(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
 
 
 def _build_natural(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
-    """The natural layout (JAX ``build_pyramid`` with layout='natural' and
-    sampler='voxel', knn_window 0): dense exact searches over global rows."""
+    """The natural layout (JAX ``build_pyramid`` with layout='natural',
+    knn_window 0 and contrast_mode 'dense'): dense exact searches over
+    global rows."""
     b, n, _ = points.shape
     nl = spec.num_levels
     none = (None,) * nl
@@ -315,7 +344,7 @@ def _build_natural(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
     down_idx, up_idx, up_w, near0_idx = [None], [None], [None], [ident]
     for l in range(1, nl):
         prev = pts[l - 1]
-        idx = voxel_sample(prev, prev.shape[1] // spec.strides[l], spec.voxel_sizes[l])
+        idx = _sample(prev, prev.shape[1] // spec.strides[l], spec, l)
         cur = batch_gather(prev, idx)
         pts.append(cur)
         sample_idx.append(idx)
@@ -346,8 +375,8 @@ def _build_natural(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
         up_idx=tuple(up_idx),
         up_w=tuple(up_w),
         near0_idx=tuple(near0_idx),
-        self_rel=none,
-        down_rel=none,
+        self_rel=tuple(_rel(pts[l], pts[l], self_idx[l]) for l in range(nl)),
+        down_rel=(None,) + tuple(_rel(pts[l - 1], pts[l], down_idx[l]) for l in range(1, nl)),
         order0=None,
         self_local=none,
         down_local=none,

@@ -1,9 +1,17 @@
-"""Morton (Z-order) serialization and the voxel sampler (counterpart of
-contrastboundary_tpu/ops/sampling.py:22-45, ``serialized_order`` and
-``voxel_sample``)."""
+"""Morton (Z-order) serialization and the samplers (counterpart of
+contrastboundary_tpu/ops/sampling.py:22-148): ``serialized_order``, exact
+``fps``, ``bucket_fps``, ``serialized_sample`` and ``voxel_sample``.
+
+The FPS chains run in ops/cuda/fps.py (the CUDA kernel for CUDA tensors,
+the plain version for CPU tensors). The reference's ``random_sample`` (its
+bits are threefry's) is not ported.
+"""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .cuda import fps as fps_cuda
 
 
 def _part1by2(x: torch.Tensor) -> torch.Tensor:
@@ -37,6 +45,51 @@ def serialized_order(points: torch.Tensor) -> torch.Tensor:
     """Morton-sort order of a batch of clouds [B, N, 3] → [B, N] int64
     (stable, like ``jnp.argsort``)."""
     return torch.argsort(morton_code(points), dim=-1, stable=True)
+
+
+def strided_pick(n_prev: int, m: int) -> np.ndarray:
+    """Row pick ``jnp.linspace(0, n_prev − 1, m).round()`` with the bits XLA
+    gives it: its simplifier folds (n_prev − 1)·(i/div) into
+    i·((n_prev − 1)·(1/div)) in float32 (checked against JAX on the CPU by
+    tests/test_torch_pyramid.py); the last entry is exactly n_prev − 1, and
+    rounding is half to even."""
+    if m == 1:
+        return np.zeros(1, np.int32)
+    div = m - 1
+    stop = np.float32(n_prev - 1)
+    out = np.arange(div, dtype=np.float32) * (stop * (np.float32(1) / np.float32(div)))
+    out = np.concatenate([out, np.array([stop], np.float32)])
+    return np.round(out).astype(np.int32)
+
+
+def fps(points: torch.Tensor, m: int) -> torch.Tensor:
+    """Exact batched FPS (the reference's ``_fps_single`` on each cloud):
+    points [B, N, 3] → idx [B, m] int32."""
+    return fps_cuda.fps_chains(points.float().contiguous(), m)
+
+
+def bucket_fps(points: torch.Tensor, m: int, num_buckets: int = 64) -> torch.Tensor:
+    """Bucketed FPS: Morton-sort, split into ``num_buckets`` contiguous
+    groups, run the FPS chain in each, and map the picks back through the
+    order. points [B, N, 3] → idx [B, m] int32 in the caller's rows; needs
+    N % num_buckets == 0 and m % num_buckets == 0."""
+    b, n, _ = points.shape
+    g = num_buckets
+    if n % g or m % g:
+        raise ValueError(f"N={n} and m={m} must be divisible by num_buckets={g}")
+    order = serialized_order(points)
+    grouped = torch.gather(points.float(), 1, order[..., None].expand(b, n, 3))
+    local = fps_cuda.fps_chains(grouped.reshape(b * g, n // g, 3), m // g)
+    picked = torch.gather(order.reshape(b, g, n // g), 2, local.reshape(b, g, m // g).long())
+    return picked.reshape(b, m).to(torch.int32)
+
+
+def serialized_sample(points: torch.Tensor, m: int) -> torch.Tensor:
+    """Strided pick along the Morton curve, the reference's
+    ``order[:, linspace(0, n − 1, m).round()]`` with XLA's linspace bits
+    (``strided_pick``). points [B, N, 3] → idx [B, m] int32."""
+    pick = torch.as_tensor(strided_pick(points.shape[1], m), device=points.device)
+    return serialized_order(points)[:, pick.long()].to(torch.int32)
 
 
 def voxel_sample(points: torch.Tensor, m: int, voxel_size: float) -> torch.Tensor:

@@ -190,9 +190,9 @@ def test_build_model(name, dtype):
 @pytest.mark.parametrize("name,sets,item", [
     ("s3dis_randla_cbl", None, "item 7"),
     ("synthetic_conv_tiny", "model.knn_window:4", "item 7"),
-    ("synthetic_tiny", None, "item 7"),
-    ("s3dis_pt_cbl_paper", None, "item 7"),
-    ("s3dis_pt_cbl", "model.sampler:fps", "item 7"),
+    ("s3dis_pt_cbl_paper", "model.contrast_mode:tile", "item 7"),
+    ("s3dis_pt_cbl_paper", "model.dtype:bfloat16", "item 7"),
+    ("s3dis_pt_cbl_paper", "model.sampler:random", "item 7"),
     ("s3dis_pt_cbl", "model.knn_recall:0.9", "item 7"),
     ("s3dis_pt_cbl", "model.contrast_window:2", "item 7"),
     ("s3dis_pt_cbl", "model.knn_window:4", "item 7"),
