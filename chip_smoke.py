@@ -254,8 +254,10 @@ is not 0:
            memory, one profiled step (device time, busy share, top device
            ops) and the device time of the training pyramid alone; one step
            each of s3dis_conv_cbl_kl, s3dis_pospool_cbl and
-           s3dis_pseudogrid_cbl (losses finite); every launch count of the
-           port's kernels 0 through all of it.
+           s3dis_pseudogrid_cbl on the first 2 of those crops (losses
+           finite; the batch cut 8 -> 2 keeps the script in its time as
+           phases 33-34 join it); every launch count of the port's kernels
+           0 through all of it.
 28. conv-serve the eval step of that model on those crops: probs finite, the
            request median and peak memory, one profiled request; on the
            8,192-point crop the card's probs against the CPU's (1e-4,
@@ -299,6 +301,28 @@ is not 0:
            layout) on phase 26's scenes with its cuts (3 steps): the natural
            spec built, losses finite, each step's launches fps 4 and nothing
            else.
+33. dp-gloo data parallel (parallel/) over two ranks of a gloo group on the
+           one card (NCCL refuses two ranks on one device), each a process
+           of this script (--dp-rank) taking one crop of 65536 points of
+           B = 2: two batch-BN flagship steps (the dense CBL route) and one
+           stale-BN step from the checkpoint; then, from rank 0's state
+           before each, the world-size-1 kernel step on both crops here.
+           Loss and metrics rtol 2e-4, the confusion's rows exact (at most
+           0.1% of points moved elsewhere), parameters within 1e-2 of the
+           update, running statistics elementwise to rtol 1e-5 plus 1e-5
+           of each statistic's RMS (the CPU tests' tolerances), every rank's state bit for bit rank 0's, every
+           rank's kernel launches the world-size-1 step's, its collectives
+           all-reduces only (calls and bytes printed; each rank's step time
+           is a check, not a figure).
+34. dp-nccl an NCCL group over the visible cards (at most 4; one on a
+           one-card machine) and one all-reduce (--nccl-rank); then python
+           -m contrastboundary_tpu_torch.main -c s3dis_pt_cbl --mode train
+           on phase 24's rooms, one process a card under CBL_COORDINATOR,
+           CBL_NUM_PROCESSES and CBL_PROCESS_ID (one epoch, batch a multiple
+           of the world size, 0.1 votes): losses finite, the snapshot
+           written, and at world size 1 no collective in its steps (the
+           log's count); on 2-4 cards the comparison of phase 33 under
+           NCCL, a crop a card.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -316,11 +340,14 @@ doing anything.
 """
 from __future__ import annotations
 
+import ast
 import copy
 import ctypes
 import json
+import math
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -334,6 +361,7 @@ import numpy as np
 import torch
 
 from contrastboundary_tpu_torch import main as entry
+from contrastboundary_tpu_torch import parallel
 from contrastboundary_tpu_torch.config import load_config
 from contrastboundary_tpu_torch.data.prepare_scannet import prepare_scannet
 from contrastboundary_tpu_torch.data.synthetic import (
@@ -514,6 +542,10 @@ CONV_ENTRY = "scannet_conv_cbl"
 # phases 30-32: the point transformer on the natural layout (bucket_fps), at
 # full width, the batch cut 16 -> B as every point-transformer phase
 PT_NATURAL, PT_NATURAL_SCANNET = "s3dis_pt_cbl_paper", "scannet_pt_cbl"
+# phases 33-34: data parallel (parallel/); the seeds of the global batches
+# of the rank-vs-world-size-1 steps, and the most cards dp-nccl groups
+DP_SEEDS = {"batch": (0, 1), "stale": (0,)}
+DP_MAX_WORLD = 4
 BF16_STEP_GATHERS = {"window_gather": {"bfloat16": ATTENTION_LAYERS, "float32": 21},
                      "window_gather_bwd": {"bfloat16": ATTENTION_LAYERS, "float32": 12}}
 
@@ -2936,6 +2968,238 @@ def pt_natural_entry(root: Path, levels: int) -> None:
                         f"pt-natural-entry train ({PT_NATURAL_SCANNET}, 20 classes)", levels)
 
 
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_ranks(world: int, cmd: list, logs: Path, what: str, timeout: float = 600) -> list:
+    """``cmd`` as ``world`` processes, rank r under CBL_COORDINATOR (a free
+    localhost port), CBL_NUM_PROCESSES = world and CBL_PROCESS_ID = r, all
+    started together → each rank's output; raises unless every rank exits
+    0 within ``timeout`` seconds (the others are killed then)."""
+    logs.mkdir(parents=True, exist_ok=True)
+    coord = f"localhost:{free_port()}"
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "CBL_COORDINATOR": coord, "CBL_NUM_PROCESSES": str(world),
+               "CBL_PROCESS_ID": str(r)}
+        with open(logs / f"{what}_rank{r}.log", "w") as f:
+            procs.append(subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                          cwd=ROOT))
+    t_end = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(t_end - time.perf_counter(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = [(logs / f"{what}_rank{r}.log").read_text() for r in range(world)]
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"{what}: rank {r} of {world} exited {p.returncode}:\n"
+                                   f"{out[-6000:]}")
+    return outs
+
+
+def dp_rank(out: Path, backend: str, device: str) -> int:
+    """One rank of phase dp-gloo (or of dp-nccl's comparison): the flagship
+    train steps of DP_SEEDS on this rank's rows of the global batches in
+    ``out``, the model and its optimizer from the checkpoint, each step's
+    metrics, kernel launches, collectives, time and state saved to ``out``
+    (rank 0 also saves the state before each step)."""
+    info = parallel.maybe_initialize_distributed(device, backend=backend)
+    dev, rank, world = info["device"], info["process_index"], info["process_count"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda":
+        build.library()
+    cfg = TrainStepConfig(num_classes=NUM_CLASSES, spec=TRAIN_SPEC, contrast=ContrastConfig())
+    for mode, seeds in DP_SEEDS.items():
+        model = parallel.replicate(load_model(mode)[0].to(dev))
+        opt = make_optimizer(model.parameters(), TRAIN_LR)
+        step = make_train_step(model, cfg, opt, device=dev)
+        for i, seed in enumerate(seeds):
+            batch = parallel.local_rows(dict(np.load(out / f"batch{seed}.npz")))
+            if rank == 0:
+                torch.save(snapshot(model, opt), out / f"{mode}{i}_before.pt")
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            reset_counts()
+            parallel.reset_counts()
+            t0 = time.perf_counter()
+            m = step(batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            launches, coll = read_counts(), parallel.read_counts()
+            print(f"dp rank {rank} of {world} ({backend}, {dev}), {mode} BN step {i}: "
+                  f"{secs * 1e3:.3f} ms, loss {float(m['loss']):.7f}, launches "
+                  f"{ {k: v for k, v in launches.items() if v} }, collectives {coll}", flush=True)
+            torch.save({"metrics": {k: v.cpu() for k, v in m.items()}, "launches": launches,
+                        "collectives": coll, "secs": secs, "points": len(batch["points"]),
+                        "after": {k: v.cpu() for k, v in model.state_dict().items()}},
+                       out / f"{mode}{i}_rank{rank}.pt")
+        del model, opt, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_compare(dev, out: Path, world: int, backend: str, rank_device: str) -> None:
+    """Phase 33 (two gloo ranks on the one card) and phase 34's comparison
+    on 2-4 cards (NCCL, one card a rank): ``world`` ranks each take one
+    cloud of B = world crops of N points, for two batch-BN steps (the
+    dense CBL route) and one stale-BN step from the checkpoint; then from
+    rank 0's state before each step the world-size-1 kernel step on all
+    the clouds, in this process. Held: loss and metrics rtol 2e-4, the
+    confusion's rows exact and at most 0.1% of points elsewhere, the
+    parameters within 1e-2 of the update, the running statistics
+    elementwise to rtol 1e-5 plus 1e-5 of each statistic's RMS (the CPU
+    tests' tolerances,
+    tests/test_torch_parallel.py), every rank's state bit for bit rank
+    0's, every rank's kernel launches those of the world-size-1 step, its
+    collectives all-reduces only."""
+    out.mkdir(parents=True, exist_ok=True)
+    rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
+    for seed in sorted({s for seeds in DP_SEEDS.values() for s in seeds}):
+        np.savez(out / f"batch{seed}.npz",
+                 **train_batch(rooms, world, N, np.random.default_rng(seed)))
+    print(f"{world} ranks ({backend}, {rank_device}): one crop of {N} points each; card: "
+          f"{card_line() if dev.type == 'cuda' else 'none'}", flush=True)
+    t0 = time.perf_counter()
+    run_ranks(world, [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(out),
+                      backend, rank_device], out, f"dp_{backend}")
+    print(f"ranks done in {time.perf_counter() - t0:.3f} s", flush=True)
+    cfg = TrainStepConfig(num_classes=NUM_CLASSES, spec=TRAIN_SPEC, contrast=ContrastConfig())
+    for mode, seeds in DP_SEEDS.items():
+        model, _ = load_model(mode)
+        opt = make_optimizer(model.parameters(), TRAIN_LR)
+        step = make_train_step(model, cfg, opt, device=dev)
+        for i, seed in enumerate(seeds):
+            what = f"{mode} BN step {i}"
+            ranks = [torch.load(out / f"{mode}{i}_rank{r}.pt", map_location="cpu")
+                     for r in range(world)]
+            restore(model, opt, torch.load(out / f"{mode}{i}_before.pt", map_location=dev))
+            before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+            batch = dict(np.load(out / f"batch{seed}.npz"))
+            reset_counts()
+            m = {k: v.cpu() for k, v in step(batch).items()}
+            launches = read_counts()
+            after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+            got = ranks[0]
+            for k in m:
+                if k == "confusion":
+                    continue
+                a, b = float(got["metrics"][k]), float(m[k])
+                require(abs(a - b) <= 2e-4 * abs(b), f"{what}: {k} {a} at W={world}, {b} at W=1")
+            ca, cb = got["metrics"]["confusion"], m["confusion"]
+            moved = float((ca - cb).abs().sum())
+            require(torch.equal(ca.sum(1), cb.sum(1)) and moved <= 2e-3 * world * N,
+                    f"{what}: confusion moved by {moved}")
+            keys = sorted(before)
+            dist = float(torch.sqrt(sum(((got["after"][k].double() - after[k].double()) ** 2)
+                                        .sum() for k in keys)))
+            change = float(torch.sqrt(sum(((after[k].double() - before[k].double()) ** 2).sum()
+                                          for k in keys)))
+            stats = max(float(((got["after"][k] - v).double().abs()
+                               / (1e-5 * (v.double().abs() + v.double().square().mean().sqrt()))
+                               .clamp_min(1e-30)).max())
+                        for k, v in after.items() if k not in before)
+            same = all(torch.equal(r["after"][k], got["after"][k]) for r in ranks[1:]
+                       for k in after)
+            print(f"{what}: loss {float(got['metrics']['loss']):.7f} at W={world} vs "
+                  f"{float(m['loss']):.7f} at W=1; parameters {dist:.4g} from W=1's of an update "
+                  f"of {change:.4g} ({dist / change:.3g}); running statistics at {stats:.3g} of their "
+                  f"bound; "
+                  f"confusion moved by {moved:.0f} points; ranks' states bit for bit: {same}",
+                  flush=True)
+            require(dist <= 1e-2 * change, f"{what}: parameters {dist} from W=1's, update {change}")
+            require(stats <= 1, f"{what}: running statistics at {stats} of their bound")
+            require(same, f"{what}: the ranks' states differ")
+            for r, res in enumerate(ranks):
+                coll = res["collectives"]
+                print(f"  rank {r}: {res['points']} crop(s), {res['secs'] * 1e3:.3f} ms "
+                      f"({backend}; a check, not a figure), launches "
+                      f"{ {k: v for k, v in res['launches'].items() if v} }, all-reduce "
+                      f"{coll['all_reduce']['calls']} calls {coll['all_reduce']['bytes']} B",
+                      flush=True)
+                require(res["launches"] == launches,
+                        f"{what}: rank {r}'s launches {res['launches']}, W=1's {launches}")
+                require(coll["all_reduce"]["calls"] > 0
+                        and not any(v["calls"] for k, v in coll.items() if k != "all_reduce"),
+                        f"{what}: rank {r}'s collectives {coll}")
+            path = TRAIN_KERNELS + (("pt_attn_fwd", "pt_attn_bwd") if mode == "stale" else ())
+            require(all(launches[k] > 0 for k in path), f"{what}: launches {launches}")
+        del model, opt, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def nccl_rank() -> int:
+    """One rank of dp-nccl's check: an NCCL group on cuda:<rank> and one
+    all-reduce of rank + 1."""
+    world, rank = int(os.environ["CBL_NUM_PROCESSES"]), int(os.environ["CBL_PROCESS_ID"])
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://{os.environ['CBL_COORDINATOR']}", world_size=world,
+        rank=rank)
+    t = torch.full((1,), rank + 1.0, device=dev)
+    torch.distributed.all_reduce(t)
+    require(float(t) == world * (world + 1) / 2, f"all-reduce gave {float(t)}")
+    print(f"nccl rank {rank} of {world}: all-reduce {float(t)}", flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_nccl(dev, root: Path) -> None:
+    """Phase 34: an NCCL group over the visible cards (at most 4) and one
+    all-reduce; then main.py --mode train of s3dis_pt_cbl on phase 24's
+    rooms under the CBL_* variables, one process a card (one epoch, the
+    batch a multiple of the world size); at world size 1 its steps issue
+    no collective. On 2-4 cards, phase 33's comparison under NCCL."""
+    world = min(torch.cuda.device_count(), DP_MAX_WORLD)
+    print(f"card: {card_line()}; {world} card(s) visible", flush=True)
+    logs = root / "dp_nccl"
+    outs = run_ranks(world, [sys.executable, str(ROOT / "chip_smoke.py"), "--nccl-rank"],
+                     logs, "nccl")
+    print("".join(ln for o in outs for ln in o.splitlines(True) if ln.startswith("nccl rank")),
+          end="", flush=True)
+    bs = math.lcm(2, world)
+    loop = -(-world * bs // ENTRY_ROOMS)
+    exp = root / "exp_dp"
+    sets = (f"data.data_root:{root / 'data'};optim.batch_size:{bs};eval.batch_size:{bs};"
+            f"optim.epochs:1;data.loop:{loop};eval.num_votes:0.1;{ENTRY_LOG}")
+    print(f"main.py -c s3dis_pt_cbl --mode train --set {sets} at world size {world}", flush=True)
+    t0 = time.perf_counter()
+    run_ranks(world, [sys.executable, "-m", "contrastboundary_tpu_torch.main", "-c",
+                      "s3dis_pt_cbl", "--mode", "train", "--set", sets, "--exp_dir", str(exp)],
+              logs, "main")
+    secs = time.perf_counter() - t0
+    log = (exp / "log_train.txt").read_text()
+    coll = re.search(r"collectives over (\d+) steps: (\{.*\})", log)
+    require(coll is not None and f"(rank 0 of {world})" in log, "main.py's log")
+    n_steps, counts = int(coll.group(1)), ast.literal_eval(coll.group(2))
+    steps, losses = entry_losses(exp)
+    print(f"main.py at world size {world}: {secs:.3f} s (processes included), {n_steps} steps "
+          f"a rank, losses {losses}, collectives of the epoch's steps {counts}", flush=True)
+    require(n_steps > 0 and len(losses) == n_steps and all(np.isfinite(losses)),
+            f"losses {losses}")
+    require((exp / "checkpoints" / "best.json").exists(), "no snapshot")
+    if world == 1:
+        require(all(v == {"calls": 0, "bytes": 0} for v in counts.values()),
+                f"collectives at world size 1: {counts}")
+    else:
+        require(counts["all_reduce"]["calls"] > 0, f"collectives {counts}")
+        dp_compare(dev, root / "dp_nccl_compare", world, "nccl", "cuda")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3194,6 +3458,12 @@ def main() -> int:
         with phase("pt-natural-entry"):
             print(f"card: {card_line()}", flush=True)
             pt_natural_entry(root, levels)
+        torch.cuda.empty_cache()
+        with phase("dp-gloo"), cbl_route_env("dense"):
+            dp_compare(dev, root / "dp_gloo", 2, "gloo", "cuda:0")
+        torch.cuda.empty_cache()
+        with phase("dp-nccl"), cbl_route_env("dense"):
+            dp_nccl(dev, root)
     torch.cuda.empty_cache()
 
     summary = []
@@ -3218,4 +3488,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank(Path(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--nccl-rank"]:
+        sys.exit(nccl_rank())
     sys.exit(main())

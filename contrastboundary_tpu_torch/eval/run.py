@@ -4,7 +4,12 @@ run_eval, ::run_boundary_suite, ::analyze and ::run_enumerate_eval, with
 explicit arguments in place of a config, a mesh and a logger).
 
 Each ``predict`` closure runs the eval step on the device and copies each of
-its results to the host once per request. Defaults are the flagship's
+its results to the host once per request. Across the ranks of a process
+group each rank runs its rows of the request (parallel/mesh.py::
+local_rows, the request's size a multiple of the world size) and the rows
+of every rank are gathered back, so that every rank accumulates the same
+votes: the counterpart of the JAX package's batch-sharded eval step and
+its device_get. Defaults are the flagship's
 (s3dis_pt_cbl): voxel 0.04 m, voxel_max 80000, n_points 65536, base radius
 0.1 m, 2 votes, smoothing 0.95, 4 crops a request.
 """
@@ -16,20 +21,32 @@ import numpy as np
 import torch
 
 from ..ops.pyramid import PyramidSpec
+from ..parallel.mesh import gather_rows, local_rows
 from .boundary import BoundaryEvaluator, load_eval_h5, save_eval_h5
 from .enumerate import EnumerateEvaluator
 from .step import make_eval_step
 from .voting import VotingEvaluator
 
 
-def _host(x):
-    return x.cpu().numpy()
+def _gathered(x):
+    """Every rank's rows of ``x`` on the host, in rank order."""
+    return gather_rows(x).cpu().numpy()
 
 
 def zero_labels(batch) -> dict:
     """The eval step's inputs: a request carries no labels to score."""
     return {"points": batch["points"], "features": batch["features"],
             "labels": np.zeros(np.shape(batch["points"])[:2], np.int32)}
+
+
+def predict_request(eval_step: Callable, batch, with_features: bool = False):
+    """One request through ``eval_step`` on this rank's rows of it → the
+    step's probs (or logits) of every rank's rows on the host, and with
+    ``with_features`` the latents {name: [B, N, d]} as well."""
+    out = eval_step(zero_labels(local_rows(batch)))
+    if with_features:
+        return _gathered(out[0]), {k: _gathered(v) for k, v in out[2].items()}
+    return _gathered(out[0])
 
 
 def run_voting_eval(model: torch.nn.Module, spec: PyramidSpec, dataset, *,
@@ -54,11 +71,7 @@ def run_voting_eval(model: torch.nn.Module, spec: PyramidSpec, dataset, *,
     eval_step = ctx["eval_step"]
 
     def predict(batch):
-        out = eval_step(zero_labels(batch))
-        if with_features:
-            probs, _, feats = out
-            return _host(probs), {k: _host(v) for k, v in feats.items()}
-        return _host(out[0])
+        return predict_request(eval_step, batch, with_features)
 
     if "evaluator" not in ctx:
         ctx["evaluator"] = VotingEvaluator(
@@ -152,7 +165,7 @@ def run_enumerate_eval(model: torch.nn.Module, spec: PyramidSpec, dataset, *,
     eval_step = ctx["eval_step"]
 
     def predict(batch):
-        return _host(eval_step(zero_labels(batch))[0])
+        return predict_request(eval_step, batch)
 
     ev = ctx["evaluator"] = EnumerateEvaluator(
         dataset, predict, num_classes, n_points, batch_size=batch_size,

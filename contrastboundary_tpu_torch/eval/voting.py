@@ -5,7 +5,10 @@ Potential-driven crop coverage, smoothed probability (and per-stage
 feature) accumulation and nearest-point reprojection to the full cloud run
 on the host in numpy; each request (one batch of fixed-size crops, padded
 by repetition) goes to ``predict_fn``, which runs the eval step on the
-device.
+device. Across the ranks of a process group every rank builds the same
+requests from the same seed, and ``predict_fn`` returns every rank's rows
+of each (eval/run.py::predict_request), so every rank accumulates the same
+votes.
 """
 from __future__ import annotations
 

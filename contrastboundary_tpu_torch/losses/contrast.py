@@ -3,8 +3,10 @@ contrastboundary_tpu/losses/contrast.py).
 
 Ported: the soft sub-scene labels and the stage loss of softnn over the
 contrast neighbours, l2 or norml2 distances, argmax-equality (``cnt``) or
-KL-threshold (``kl``) positives, each stage's masked mean × weight. The
-reference's routes of ``cbl_stage_loss`` are chosen in its order:
+KL-threshold (``kl``) positives, each stage's masked mean × weight (across
+ranks, this rank's share of the mean over the global batch, as the
+reference's mean is under its batch-sharded jit). The reference's routes
+of ``cbl_stage_loss`` are chosen in its order:
 
 - with window-relative neighbours (the sorted layout) and cnt positives,
   the dense-window route (ops/cuda/cbl_dense.py), unless the environment
@@ -30,10 +32,11 @@ import torch
 import torch.nn.functional as F
 
 from ..core.gather import batch_gather
-from ..core.masking import EPS, INF, masked_mean
+from ..core.masking import EPS, INF, masked_global_mean
 from ..ops.cuda.cbl_dense import cbl_dense_loss
 from ..ops.cuda.cbl_tile2 import cbl_tile_softnn2
 from ..ops.tile_gather import tile_window_gather
+from ..parallel.mesh import global_mean
 
 IMPLS = ("xla", "auto", "pallas")
 DISTS = ("l2", "norml2")
@@ -139,7 +142,7 @@ def _gathered_loss(features, contrast_idx, label_soft, cfg, gather, shadow):
     d = torch.where(valid, d / cfg.temperature, -50.0)
     e = torch.exp(d) * validf
     loss = -torch.log((e * posmask).sum(-1) / torch.clamp_min(e.sum(-1), EPS) + EPS)
-    return masked_mean(loss, point_mask) * cfg.weight
+    return masked_global_mean(loss, point_mask) * cfg.weight
 
 
 def cbl_stage_loss(features: torch.Tensor, contrast_idx: torch.Tensor,
@@ -170,7 +173,7 @@ def cbl_stage_loss(features: torch.Tensor, contrast_idx: torch.Tensor,
             features.float(), label_soft, contrast_idx, float(cfg.temperature), tile,
             width, window,
         )
-        return loss_sum.sum() / torch.clamp_min(mask_sum.sum(), 1.0) * cfg.weight
+        return global_mean(loss_sum.sum(), mask_sum.sum()) * cfg.weight
 
     def gather(fused):
         return tile_window_gather(fused, contrast_idx, tile, width)

@@ -7,11 +7,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_mean
+
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_label: int = -1,
                   weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over points whose label != ignore_label, optionally weighted
-    per point. logits [..., C] float, labels [...] int."""
+    per point. logits [..., C] float, labels [...] int. Across ranks, this
+    rank's share of the mean over the global batch (the weight summed over
+    every rank)."""
     valid = labels != ignore_label
     safe = torch.where(valid, labels, 0).long()
     logp = F.log_softmax(logits.float(), -1)
@@ -19,4 +23,4 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_label: int 
     w = valid.float()
     if weight is not None:
         w = w * weight
-    return (nll * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    return global_mean((nll * w).sum(), w.sum())

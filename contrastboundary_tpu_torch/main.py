@@ -22,17 +22,34 @@ split and writes the predictions of every raw point (the Semantic3D and
 NPM3D benchmarks' files, ``<scene>_pred.npy`` otherwise); ``--mode
 calibrate`` measures the train rooms for the static crop size (and the
 ConvNet's neighbour caps). Everything runs on ``--device`` (``cuda`` by
-default: it raises without a card unless given ``--device cpu``), at world
-size 1.
+default: it raises without a card unless given ``--device cpu``).
+
+Data parallel over W ranks, one process a rank, the JAX package's
+multi-process semantics (parallel/):
+
+  CBL_COORDINATOR=host:port CBL_NUM_PROCESSES=W CBL_PROCESS_ID=r \
+      python -m contrastboundary_tpu_torch.main -c s3dis_pt_cbl --mode train ...
+  torchrun --nproc_per_node W -m contrastboundary_tpu_torch.main ...
+
+Each rank takes ``cuda:LOCAL_RANK`` (NCCL), or the CPU (gloo) with
+``--device cpu``; its train batches are make_batch_iterator's shard r of W
+at ``optim.batch_size`` (the global batch is W times that), its potential
+sampler is seeded with ``seed + r``, the parameters are broadcast from rank
+0 once, and the train step's statistics, losses, gradients and metrics are
+the global batch's. Each eval request is split over the ranks and gathered
+back. Both batch sizes must be multiples of W. Rank 0 alone writes the
+scalars, the log file, snapshots, NaN dumps and submission files.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import load_config
 from .data import (
@@ -44,9 +61,13 @@ from .data.datasets import NPM3DDataset, ScanNetDataset, Semantic3DDataset, raw_
 from .data.prefetch import prefetch
 from .device import resolve_device
 from .eval.metrics import AverageMeter, metrics_from_confusion
-from .eval.run import analyze, run_enumerate_eval, run_voting_eval, zero_labels
+from .eval.run import analyze, predict_request, run_enumerate_eval, run_voting_eval
 from .eval.step import make_eval_step
 from .eval.voting import VotingEvaluator
+from .parallel import (
+    broadcast_object, check_divisible, maybe_initialize_distributed, process_count,
+    process_index, read_counts, replicate, reset_counts, shard_batch,
+)
 from .train import (
     CheckpointManager, TrainStepConfig, dump_nan_state, exponential_epoch_decay,
     find_best_snapshot, make_optimizer, make_train_step, multistep_epoch_decay,
@@ -78,8 +99,11 @@ def build_dataset(cfg, split: str):
 def setup(cfg, logger, device):
     """→ (model, spec, step_cfg, optimizer, schedule, train_ds,
     steps_per_epoch). The model's fresh weights come from a generator seeded
-    with ``cfg.seed``."""
-    model = cfg.build_model(device=device, generator=torch.Generator().manual_seed(cfg.seed))
+    with ``cfg.seed`` (rank 0's, broadcast to every rank)."""
+    check_divisible(cfg.optim.batch_size, "optim.batch_size")
+    check_divisible(cfg.eval.batch_size, "eval.batch_size")
+    model = replicate(cfg.build_model(device=device,
+                                      generator=torch.Generator().manual_seed(cfg.seed)))
     spec = cfg.pyramid_spec()
     step_cfg = TrainStepConfig(num_classes=cfg.data.num_classes, spec=spec,
                                contrast=cfg.contrast, ignore_label=cfg.data.ignore_label)
@@ -96,7 +120,8 @@ def setup(cfg, logger, device):
                                grad_clip_norm=o.grad_clip_norm)
     nparams = sum(p.numel() for p in model.parameters())
     logger.info(f"model {cfg.model.arch} ({cfg.model.dtype}, {cfg.model.bn_mode} BN): "
-                f"{nparams / 1e6:.2f}M params, {steps_per_epoch} steps/epoch on {device}")
+                f"{nparams / 1e6:.2f}M params, {steps_per_epoch} steps/epoch on {device} "
+                f"(rank {process_index()} of {process_count()})")
     return model, spec, step_cfg, optimizer, schedule, train_ds, steps_per_epoch
 
 
@@ -119,13 +144,17 @@ def run_eval(cfg, model, spec, logger, device, num_votes=None, extra_ops: str = 
 
 
 def train(cfg, logger, exp_dir: str, device) -> float:
-    """Train for ``cfg.optim.epochs`` epochs → the best full-cloud mIoU."""
+    """Train for ``cfg.optim.epochs`` epochs → the best full-cloud mIoU.
+    Each rank takes (its shard's size) // batch_size batches an epoch, the
+    same count on every rank, so that the ranks' steps pair up."""
     model, spec, step_cfg, optimizer, schedule, train_ds, steps_per_epoch = setup(
         cfg, logger, device)
     train_step = make_train_step(model, step_cfg, optimizer, device=device)
     ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
     transform = default_train_transform()
-    scalars = ScalarWriter(exp_dir)
+    rank, world = process_index(), process_count()
+    rank_steps = len(train_ds) // world // cfg.optim.batch_size
+    scalars = ScalarWriter(exp_dir) if rank == 0 else None
     best_miou = -1.0
     eval_ctx: dict = {}  # keeps the eval step, val dataset and evaluator across epochs
     step = 0  # updates applied, optax's count for the schedule
@@ -134,7 +163,7 @@ def train(cfg, logger, exp_dir: str, device) -> float:
     if cfg.data.sampler == "potential":
         # persistent across epochs, so coverage potentials keep accumulating
         pot_state = PotentialSampler(train_ds, cfg.data.voxel_size, in_radius=cfg.data.in_radius,
-                                     cap=cfg.data.voxel_max, seed=cfg.seed)
+                                     cap=cfg.data.voxel_max, seed=cfg.seed + rank)
         logger.info(f"potential sampler over {len(pot_state.rooms)} rooms "
                     f"(in_radius {cfg.data.in_radius})")
 
@@ -144,18 +173,20 @@ def train(cfg, logger, exp_dir: str, device) -> float:
             meters = {}
             conf_sum = None
             it = prefetch(
-                lambda epoch=epoch: make_batch_iterator(
+                lambda epoch=epoch: itertools.islice(make_batch_iterator(
                     train_ds, cfg.optim.batch_size, cfg.data.n_points, seed=cfg.seed,
                     epoch=epoch, transform=transform, voxel_size=cfg.data.voxel_size,
                     voxel_max=cfg.data.voxel_max, crop_mode=cfg.data.crop_mode,
-                    in_radius=cfg.data.in_radius, sampler=cfg.data.sampler,
-                    potential_state=pot_state,
-                ),
+                    in_radius=cfg.data.in_radius, shard_index=rank, num_shards=world,
+                    sampler=cfg.data.sampler, potential_state=pot_state,
+                ), rank_steps),
                 depth=3,
             )
             n_steps = 0
+            reset_counts()
             for i, batch in enumerate(it):
                 batch.pop("src_idx"), batch.pop("room_idx")
+                batch = shard_batch(batch, device)
                 set_learning_rate(optimizer, schedule, step)
                 if cfg.runtime_freq and (i + 1) % cfg.runtime_freq == 0:
                     with trace(os.path.join(exp_dir, "traces")):
@@ -169,38 +200,44 @@ def train(cfg, logger, exp_dir: str, device) -> float:
                 # with a reproducer
                 if (cfg.debug_nan or (i + 1) % cfg.log_freq == 0) and not np.isfinite(
                         float(metrics["loss"])):
-                    dump_nan_state(exp_dir, model, step, batch, metrics, logger)
+                    if rank == 0:
+                        dump_nan_state(exp_dir, model, step, batch, metrics, logger)
                     raise FloatingPointError(f"NaN loss at step {step}")
                 conf = metrics.pop("confusion")
                 conf_sum = conf if conf_sum is None else conf_sum + conf
                 if (i + 1) % cfg.log_freq == 0:
                     for k, v in metrics.items():
                         meters.setdefault(k, AverageMeter()).update(float(v))
-                    scalars.write(step, {f"train/{k}": float(v) for k, v in metrics.items()})
+                    if scalars is not None:
+                        scalars.write(step, {f"train/{k}": float(v) for k, v in metrics.items()})
                     logger.info(
                         f"epoch {epoch} step {i + 1}/{steps_per_epoch}: "
                         + " ".join(f"{k}={m.avg:.4f}" for k, m in sorted(meters.items())
                                    if not k.startswith("cbl_stage")))
             tm = metrics_from_confusion(conf_sum.cpu().numpy())
             dt = time.time() - t0
-            pps = n_steps * cfg.optim.batch_size * cfg.data.n_points / max(dt, 1e-9)
+            pps = n_steps * world * cfg.optim.batch_size * cfg.data.n_points / max(dt, 1e-9)
             logger.info(f"epoch {epoch} done in {dt:.1f}s ({pps / 1e3:.0f}k pts/s): "
                         f"train mIoU {tm['mIoU']:.4f} OA {tm['OA']:.4f}")
-            scalars.write(step, {"epoch": epoch, "epoch/train_mIoU": tm["mIoU"],
-                                 "epoch/train_OA": tm["OA"], "epoch/points_per_sec": pps})
+            logger.info(f"epoch {epoch} collectives over {n_steps} steps: {read_counts()}")
+            if scalars is not None:
+                scalars.write(step, {"epoch": epoch, "epoch/train_mIoU": tm["mIoU"],
+                                     "epoch/train_OA": tm["OA"], "epoch/points_per_sec": pps})
 
             if (epoch + 1) % cfg.eval.eval_freq == 0 or epoch == cfg.optim.epochs - 1:
                 m = run_eval(cfg, model, spec, logger, device, ctx=eval_ctx)
                 miou = m["full"]["mIoU"]
                 is_best = miou > best_miou
                 best_miou = max(best_miou, miou)
-                scalars.write(step, {"epoch": epoch, "val/mIoU": miou,
-                                     "val/best_mIoU": best_miou})
+                if scalars is not None:
+                    scalars.write(step, {"epoch": epoch, "val/mIoU": miou,
+                                         "val/best_mIoU": best_miou})
                 if (epoch + 1) % cfg.save_freq == 0 or is_best:
                     ckpt.save(step, model, optimizer, best=is_best, metric=miou)
                     logger.info(f"saved snap-{step}" + (" (best)" if is_best else ""))
     finally:
-        scalars.close()
+        if scalars is not None:
+            scalars.close()
     logger.info(f"training done; best full-cloud mIoU {best_miou:.4f}")
     return best_miou
 
@@ -236,7 +273,8 @@ def validate(cfg, logger, exp_dir: str, model_path: str, device, extra_ops: str 
             n_points=d.n_points, voxel_size=d.voxel_size, voxel_max=d.voxel_max,
             batch_size=cfg.eval.batch_size, seed=cfg.seed, base_radius=cfg.model.base_radius,
             extra_ops=extra_ops, device=device, log=logger.info)
-    h5 = os.path.join(exp_dir, f"val_{step}.h5") if "save" in extra_ops else ""
+    save = "save" in extra_ops and process_index() == 0
+    h5 = os.path.join(exp_dir, f"val_{step}.h5") if save else ""
     return run_eval(cfg, model, spec, logger, device, extra_ops=extra_ops, h5_path=h5)
 
 
@@ -256,7 +294,7 @@ def run_test(cfg, logger, exp_dir: str, model_path: str, device, out_dir: str = 
     eval_step = make_eval_step(model, spec, device, num_classes=cfg.data.num_classes)
 
     def predict(batch):
-        return eval_step(zero_labels(batch))[0].cpu().numpy()
+        return predict_request(eval_step, batch)
 
     d = cfg.data
     ev = VotingEvaluator(test_ds, predict, d.num_classes, d.n_points,
@@ -277,6 +315,8 @@ def run_test(cfg, logger, exp_dir: str, model_path: str, device, out_dir: str = 
         logger.info(f"{name}: {len(pred)} point predictions")
 
     out_dir = out_dir or os.path.join(exp_dir, "submission")
+    if process_index() != 0:
+        return out_dir  # rank 0 writes the files
     if d.dataset == "semantic3d":
         zpath = Semantic3DDataset.write_submission(out_dir, predictions)
         logger.info(f"submission zip: {zpath}")
@@ -371,10 +411,19 @@ def main(argv=None):
                         help="torch device; without a card pass 'cpu'")
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
+    joined = dist.is_initialized()
+    device = maybe_initialize_distributed(resolve_device(args.device))["device"]
+    try:
+        return _run(args, device)
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device):
     cfg = load_config(args.config, args.sets, cfg_file=args.cfg_file)
-    exp_dir = args.exp_dir or os.path.join(
-        cfg.save_path, cfg.data.dataset, cfg.name, time.strftime("Log_%m%d_%H%M%S"))
+    exp_dir = args.exp_dir or broadcast_object(os.path.join(
+        cfg.save_path, cfg.data.dataset, cfg.name, time.strftime("Log_%m%d_%H%M%S")))
     if args.mode in ("val", "test") and args.exp_dir is None:
         raise SystemExit(f"--mode {args.mode} requires --exp_dir pointing at a train run")
     os.makedirs(exp_dir, exist_ok=True)

@@ -15,7 +15,9 @@ masks no slot, as the reference's does not.
 BatchNorm is flax ``nn.BatchNorm`` over the last axis (eps 1e-5, momentum
 0.9 by default, the point transformer's; the ConvNet family passes its own,
 models/convnet.py): in eval mode it normalizes with the running
-statistics; in train mode with the batch statistics. Under
+statistics; in train mode with the batch statistics, which are the global
+batch's across the ranks of a process group (parallel/mesh.py), as the
+JAX package's are under its batch-sharded jit. Under
 bn_mode='stale' every BN is a StaleBatchNorm, and each attention layer of
 the sorted layout runs the fused kernel (ops/pt_attn.py) with its BNs
 folded into the towers, as the reference does; the natural layout's runs
@@ -40,6 +42,7 @@ from torch import nn
 from ..core.gather import clamped_gather
 from ..ops.pt_attn import pt_attn
 from ..ops.tile_gather import cross_window_gather, tile_window_gather
+from ..parallel.mesh import global_means
 
 
 def dense(layer: nn.Linear, x, dtype: torch.dtype):
@@ -62,8 +65,12 @@ class BatchNorm(nn.Module):
     variance both to normalize and for the running update ra ← m·ra +
     (1 − m)·batch (m = ``momentum``, flax's 0.9 by default), done in place
     without gradient. (``F.batch_norm`` keeps the unbiased variance and the
-    other momentum convention, so it is not used.) Eval mode normalizes
-    with the running statistics."""
+    other momentum convention, and ``nn.SyncBatchNorm`` the unbiased running
+    variance, so neither is used.) Across ranks the mean and E[x²] are the
+    global batch's, from one differentiable all-reduce of the sums and the
+    row count, so the gradient flows through the global statistics as
+    flax's does through the batch's. Eval mode normalizes with the running
+    statistics."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -80,8 +87,9 @@ class BatchNorm(nn.Module):
         else:
             axes = tuple(range(x.ndim - 1))
             xf = x.float()
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            mean, mean_sq = global_means([xf.mean(axes), (xf * xf).mean(axes)],
+                                         xf.numel() // xf.shape[-1])
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -121,7 +129,8 @@ class StaleBatchNorm(BatchNorm):
         if self.training:
             axes = tuple(range(x.ndim - 1))
             xf = x.detach().float()
-            self.update(xf.mean(axes), (xf * xf).mean(axes))
+            self.update(*global_means([xf.mean(axes), (xf * xf).mean(axes)],
+                                      xf.numel() // xf.shape[-1]))
         return x.float() * scale + shift
 
 
@@ -194,7 +203,8 @@ class PointTransformerLayer(nn.Module):
         folded into the 12 tower arrays (nn.Linear's [out, in] weights
         transposed into the kernel's [in, out]); in train mode the running
         updates follow: w_bn1 and w_bn2 from the kernel's batch statistics,
-        p_bn by moment algebra over rel (its input is affine in rel). q and
+        p_bn by moment algebra over rel (its input is affine in rel), each
+        over the global batch across ranks (one all-reduce a layer). q and
         kv come in ``dtype`` and out leaves in it; the kernel computes in
         float32, and rel and the tower arrays are float32."""
         sp, hp = self.p_bn.fold()
@@ -208,15 +218,16 @@ class PointTransformerLayer(nn.Module):
         )
         out, s1, s2 = pt_attn(q, kv, rel.float(), nb_idx, tile, width, params)
         if self.training:
-            self.w_bn1.update(*s1)
-            self.w_bn2.update(*s2)
             with torch.no_grad():
                 rf = rel.float().reshape(-1, 3)
-                m2 = rf.T @ rf / rf.shape[0]
+                a1, q1, a2, q2, mean_r, m2 = global_means(
+                    [*s1, *s2, rf.mean(0), rf.T @ rf / rf.shape[0]], rf.shape[0])
                 w1, b1 = w1.detach(), b1.detach()
-                mw = rf.mean(0) @ w1
+                mw = mean_r @ w1
                 pe1_sq = torch.einsum("ij,ik,kj->j", w1, m2, w1) + 2.0 * b1 * mw + b1 * b1
-                self.p_bn.update(mw + b1, pe1_sq)
+            self.w_bn1.update(a1, q1)
+            self.w_bn2.update(a2, q2)
+            self.p_bn.update(mw + b1, pe1_sq)
         return out
 
 

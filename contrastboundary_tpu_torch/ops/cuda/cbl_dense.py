@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...core.masking import EPS, INF, masked_mean
+from ...core.masking import EPS, INF, masked_global_mean
 from ...kernels import build
 from . import tile_gather as _tg
 from .win_topk import window_start_tiles
@@ -322,7 +322,9 @@ def cbl_dense_loss(features, label_soft, li, temperature: float, tile: int,
                    width: int, window: int, weight: float = 1.0):
     """Flagship CBL stage loss (softnn, l2, cnt) from the stats: the masked
     mean of −log(Σpos / max(Σall, EPS) + EPS) over rows with a valid label,
-    at least one valid positive and at least one valid negative."""
+    at least one valid positive and at least one valid negative (this
+    rank's share of the global batch's mean, core/masking.py::
+    masked_global_mean)."""
     stats = cbl_dense_stats(
         features.float(), row_meta(label_soft), li, temperature, tile, width, window
     )
@@ -330,4 +332,4 @@ def cbl_dense_loss(features, label_soft, li, temperature: float, tile: int,
     loss = -torch.log(pos / torch.clamp_min(under, EPS) + EPS)
     center_valid = label_soft.sum(-1) > 0
     point_mask = (pos_cnt > 0) & (pos_cnt < valid_cnt) & center_valid
-    return masked_mean(loss, point_mask) * weight
+    return masked_global_mean(loss, point_mask) * weight

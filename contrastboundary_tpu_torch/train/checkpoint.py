@@ -9,7 +9,9 @@ snapshot named by ``best.json`` ({"step", "mIoU"}; the reference's
 snapshot is one ``torch.save`` file of the model's parameters and buffers
 (running and stale BN statistics), the optimizer's state and the step; it
 is read back with ``map_location='cpu'`` and copied into the live model and
-optimizer, so a snapshot written on the card loads on the CPU.
+optimizer, so a snapshot written on the card loads on the CPU. Across the
+ranks of a process group rank 0 writes (the ranks hold the same state) and
+every rank waits for it; every rank restores.
 
 The JAX package's snapshots are orbax directories, which the port does not
 read; the JAX trainer's flax ``.pkl`` checkpoints load through
@@ -25,6 +27,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..models.convert import flax_path
+from ..parallel.mesh import barrier, process_index
 from .debug import tree_finite
 
 
@@ -87,23 +90,26 @@ class CheckpointManager:
         renamed); mark it best where ``best``, with ``metric`` (the
         validation mIoU) recorded for cross-run discovery. ``check_finite``
         (default on) refuses to write a snapshot with a non-finite
-        parameter or statistic. Returns the snapshot's path."""
+        parameter or statistic. Rank 0 writes, then every rank waits for it.
+        Returns the snapshot's path."""
         if check_finite and not tree_finite(model.state_dict().values()):
             raise FloatingPointError(
                 f"refusing to save snap-{int(step)}: non-finite values in the parameters or "
                 "statistics (pass check_finite=False to override; see train.debug.nan_report)")
-        payload = {"step": int(step), "model": model.state_dict(),
-                   "optimizer": None if optimizer is None else optimizer.state_dict()}
         path = self._path(int(step))
-        torch.save(payload, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        if best:
-            marker = {"step": int(step)}
-            if metric is not None:
-                marker["mIoU"] = float(metric)
-            with open(os.path.join(self.directory, "best.json"), "w") as f:
-                json.dump(marker, f)
-        self._gc()
+        if process_index() == 0:
+            payload = {"step": int(step), "model": model.state_dict(),
+                       "optimizer": None if optimizer is None else optimizer.state_dict()}
+            torch.save(payload, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            if best:
+                marker = {"step": int(step)}
+                if metric is not None:
+                    marker["mIoU"] = float(metric)
+                with open(os.path.join(self.directory, "best.json"), "w") as f:
+                    json.dump(marker, f)
+            self._gc()
+        barrier()
         return path
 
     def best_step(self) -> Optional[int]:

@@ -18,6 +18,7 @@ from ..eval.metrics import AverageMeter, confusion_matrix, metrics_from_confusio
 from ..losses.contrast import ContrastConfig, cbl_loss
 from ..losses.segmentation import cross_entropy
 from ..ops.pyramid import PyramidSpec, build_pyramid
+from ..parallel.mesh import all_reduce_grads, all_reduce_metrics
 from .state import set_learning_rate
 
 
@@ -38,8 +39,10 @@ def make_train_step(model: torch.nn.Module, cfg: TrainStepConfig,
     puts the model in train mode and updates its parameters (through
     ``optimizer``, built over them) and its BatchNorm statistics in place.
     ``batch`` maps points [B, N, 3], features [B, N, F] and labels [B, N]
-    (arrays or tensors, any row order). metrics: ce, cbl, cbl_stage<i>, loss (0-d
-    tensors) and confusion [C, C], on the device, without gradient."""
+    (arrays or tensors, any row order): this rank's share of the global
+    batch. metrics: ce, cbl, cbl_stage<i>, loss (0-d tensors) and
+    confusion [C, C] of the global batch, on the device, without
+    gradient."""
     dev = resolve_device(device)
     model.to(dev)
 
@@ -70,13 +73,14 @@ def make_train_step(model: torch.nn.Module, cfg: TrainStepConfig,
 
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        all_reduce_grads(model.parameters())
         optimizer.step()
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["confusion"] = confusion_matrix(
                 out.logits.argmax(-1), labels, cfg.num_classes, cfg.ignore_label
             )
-        return metrics
+        return all_reduce_metrics(metrics)
 
     return step
 

@@ -175,3 +175,17 @@ def test_convnet_modules_are_checked_and_its_steps_need_cuda_unless_cpu(monkeypa
     assert np.isfinite(float(metrics["loss"])) and float(metrics["confusion"].sum()) == 512
     probs, _ = make_eval_step(model, spec, device="cpu")(batch)
     assert probs.shape == (1, 512, 13) and bool(torch.isfinite(probs).all())
+
+
+def test_parallel_modules_are_checked_and_need_no_group_alone():
+    """The data-parallel modules (parallel/) are among the files walked
+    above; without a process group the port's world size is 1 (a step's
+    collectives at world size 1 are counted in tests/test_torch_parallel.py)."""
+    from contrastboundary_tpu_torch import parallel
+
+    names = {".".join(p.relative_to(ROOT).with_suffix("").parts) for p in _port_files()}
+    expected = {f"contrastboundary_tpu_torch.{m}" for m in (
+        "parallel.__init__", "parallel.distributed", "parallel.mesh")}
+    assert expected <= names, sorted(expected - names)
+    assert not torch.distributed.is_initialized()
+    assert (parallel.process_index(), parallel.process_count()) == (0, 1)
