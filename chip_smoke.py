@@ -323,6 +323,48 @@ is not 0:
            written, and at world size 1 no collective in its steps (the
            log's count); on 2-4 cards the comparison of phase 33 under
            NCCL, a crop a card.
+35. pt-base-train the point-transformer baseline without CBL, s3dis_pt (the
+           sorted layout, the plain mlp head: cls_tower, cls), at full width
+           (planes 32-512, blocks 2-3-4-6-3) from random_flax_tree (seed 0),
+           the preset's SGD (lr 0.5, momentum 0.9, decay 1e-4), on B = 2
+           (cut from 16) x N = 65536 synthetic train crops: one batch-BN
+           step with the counts reset just before and read just after
+           (window_topk, window_gather and window_gather_bwd launched, every
+           CBL kernel, pt_attn and fps 0) and one stale-BN step (pt_attn_fwd
+           and pt_attn_bwd 18 each, the gathers 18 fewer), each against the
+           plain versions' step from the same weights and batch at phase
+           8's limits (loss rel 1e-4, gradient norm 1e-3, running
+           statistics 1e-4); before those, the batch-BN median of 3 warm
+           steps, points/s and peak memory, and 3 stale steps and their
+           peak, every timed step from the same weights (losses finite);
+           then every kernel
+           call of both steps against its plain version (as phase 9 holds
+           it) and timed (3 runs each), summed into the JSON line's
+           "s3dis_pt/<kernel>" entries.
+36. pt-base-serve the eval step of that model on phase serve's crops:
+           window_topk and window_gather launched and nothing else, the
+           median of 3 requests and the peak memory, the probs against the
+           plain versions' (1e-3, argmax >= 99.9%); then one train step of
+           s3dis_pt with the plain head 'mlp-1-xen-dp.5' from the same
+           weights: its dropout mask, drawn on the card from the trainer's
+           step-0 key (utils/threefry.py), equal bit for bit to the mask the
+           CPU draws from that key.
+37. randla-train the RandLA-style ConvNet+CBL s3dis_randla_cbl (the random
+           sampler: each level the first rows of a fixed threefry
+           permutation) at full width from fresh weights (seed 0), the
+           preset's SGD (lr 0.02, momentum 0.98, clip 100), B = 8 (the
+           preset's; halved while it does not fit, as phase 27's) x N =
+           65536: its natural pyramid on the card against
+           the CPU's on phase 27's grid crop (the random picks and every
+           search equal), a warm-up step, three steps that lower the loss
+           (median, peak memory), one request; no kernel of the port
+           launched.
+38. pt-base-entry main.py -c s3dis_pt --mode train on phase 24's rooms with
+           its cuts (batch 16 -> 2, epochs 1, loop 2: 4 steps, num_votes 1),
+           each step's launches phase 35's batch-BN step's, losses finite;
+           then --mode val on the run (window_topk and window_gather only).
+39. randla-entry the same for s3dis_randla_cbl (batch 8 -> 2), no kernel
+           of the port launched.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -334,7 +376,9 @@ no path runs, have the launches read from phase 13's step, which must be
 the bfloat16 instances as entries of their own, per train step (the
 gathers of phase 17's step, the attention of phase 18's), and the FPS
 kernel per natural train step (phase 30's; its exact call under "exact"),
-and as its last
+the s3dis_pt step's kernels per s3dis_pt train step (phase 35's: the
+gathers and the top-k of its batch-BN step, the attention of its stale
+step) as entries named "s3dis_pt/<kernel>", and as its last
 line {"ok": true, "device": {...}}. Without CUDA it exits with 2 before
 doing anything.
 """
@@ -376,6 +420,7 @@ from contrastboundary_tpu_torch.kernels import build
 from contrastboundary_tpu_torch.models import (
     PointTransformerSeg, load_checkpoint, load_jax_variables,
 )
+from contrastboundary_tpu_torch.models import blocks as model_blocks
 from contrastboundary_tpu_torch.losses import ContrastConfig
 from contrastboundary_tpu_torch.losses import contrast as cbl_losses
 from contrastboundary_tpu_torch.ops import PyramidSpec, build_pyramid, knn, sampling
@@ -389,6 +434,7 @@ from contrastboundary_tpu_torch.ops.cuda import tile_gather as tg
 from contrastboundary_tpu_torch.ops.cuda import win_topk as wt
 from contrastboundary_tpu_torch.ops.tile_gather import window_starts
 from contrastboundary_tpu_torch.train import TrainStepConfig, make_optimizer, make_train_step
+from contrastboundary_tpu_torch.train.trainer import dropout_key
 from contrastboundary_tpu_torch.utils import StepTimer, read_scalars
 
 # main.py's own prefetch, setup and eval step, which phases 24-26 wrap
@@ -542,6 +588,10 @@ CONV_ENTRY = "scannet_conv_cbl"
 # phases 30-32: the point transformer on the natural layout (bucket_fps), at
 # full width, the batch cut 16 -> B as every point-transformer phase
 PT_NATURAL, PT_NATURAL_SCANNET = "s3dis_pt_cbl_paper", "scannet_pt_cbl"
+# phases 35-39: the point-transformer baseline without CBL (the plain mlp
+# head; one step of it with dropout) and the RandLA-style ConvNet+CBL (the
+# random sampler)
+PT_BASE, PT_BASE_DROPOUT, RANDLA = "s3dis_pt", "arch_out:mlp-1-xen-dp.5", "s3dis_randla_cbl"
 # phases 33-34: data parallel (parallel/); the seeds of the global batches
 # of the rank-vs-world-size-1 steps, and the most cards dp-nccl groups
 DP_SEEDS = {"batch": (0, 1), "stale": (0,)}
@@ -1423,6 +1473,18 @@ def run_train(dev, bn_mode="batch", route="dense", dtype=torch.float32) -> dict:
         t = time_ms(lambda: wide_fn(*args, **kw), reps=3)
         print(f"  wide-window search k={args[2]} M={args[0].shape[1]} "
               f"W={kw['width'] * kw['tile']}: {t:.4f} ms", flush=True)
+    loss_k, gn_k = step_against_plain(model, opt, step, batch, snap0, m, bf16)
+    return dict(calls=calls, launches=launches, model=model, step=step, peak=peak, med=med,
+                metrics=metrics, stage_inputs=stage_inputs, no_path=no_path, loss=loss_k,
+                grad_norm=gn_k, busy_ms=busy_ms, by_dtype=by_dtype)
+
+
+def step_against_plain(model, opt, step, batch, snap0, m, bf16=False) -> tuple:
+    """The kernel step whose metrics are ``m``, just taken from ``snap0``,
+    against the plain versions' step from the same weights and batch:
+    loss rel <= 1e-4, global gradient norm rel <= 1e-3, running statistics
+    rel <= 1e-4 (bfloat16: 1e-3, 1e-2, 1e-2). → the kernel step's (loss,
+    gradient norm)."""
     loss_k, gn_k, stats_k = float(m["loss"]), grad_norm(model), buffers(model)
     require(np.isfinite(loss_k) and np.isfinite(gn_k), f"loss {loss_k}, grad norm {gn_k}")
     restore(model, opt, snap0)
@@ -1439,9 +1501,7 @@ def run_train(dev, bn_mode="batch", route="dense", dtype=torch.float32) -> dict:
     require(abs(loss_k - loss_p) <= tol_loss * abs(loss_p), "train losses disagree")
     require(abs(gn_k - gn_p) <= tol_gn * gn_p, "gradient norms disagree")
     require(stats_rel <= tol_stats, "running statistics disagree")
-    return dict(calls=calls, launches=launches, model=model, step=step, peak=peak, med=med,
-                metrics=metrics, stage_inputs=stage_inputs, no_path=no_path, loss=loss_k,
-                grad_norm=gn_k, busy_ms=busy_ms, by_dtype=by_dtype)
+    return loss_k, gn_k
 
 
 def check_train_kernels(dev, train) -> list:
@@ -2530,17 +2590,23 @@ def conv_setup(name: str, dev, seed: int = 0):
     optimizer (the preset's) and train step on ``dev``."""
     cfg = load_config(name)
     model = cfg.build_model(device=dev, generator=torch.Generator().manual_seed(seed))
-    opt, step = conv_step(cfg, model, dev)
+    opt, step = preset_step(cfg, model, dev)
     return cfg, model, opt, step
 
 
-def conv_step(cfg, model, dev):
-    """The preset's optimizer over ``model`` and its train step on ``dev``."""
+def preset_step(cfg, model, dev):
+    """The preset's optimizer over ``model`` and its train step on ``dev``,
+    configured as main.py's setup configures it (the plain mlp head's loss,
+    weight and dropout; no class weights)."""
     o = cfg.optim
     opt = make_optimizer(model.parameters(), o.base_lr, momentum=o.momentum,
                          weight_decay=o.weight_decay, grad_clip_norm=o.grad_clip_norm)
+    mlp = cfg.heads.get("mlp", {})
     step_cfg = TrainStepConfig(num_classes=cfg.data.num_classes, spec=cfg.pyramid_spec(),
-                               contrast=cfg.contrast, ignore_label=cfg.data.ignore_label)
+                               contrast=cfg.contrast, ignore_label=cfg.data.ignore_label,
+                               main_loss=mlp.get("loss", "xen"),
+                               main_weight=mlp.get("weight", 1.0),
+                               has_dropout=bool(mlp.get("drop")))
     return opt, make_train_step(model, step_cfg, opt, device=dev)
 
 
@@ -2581,6 +2647,25 @@ def compare_pyramids(spec, points: np.ndarray, dev) -> None:
     require(w <= 1e-6 and rel <= 1e-6, "up_w or the relative positions")
 
 
+def fitting_batch(model, opt, step, snap0, b: int) -> tuple:
+    """A warm-up step on b synthetic train crops of N points, b halved while
+    the step does not fit in the card's memory → (the batch, b)."""
+    while True:
+        batch = preset_batch(b)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            step(batch)  # warm-up: library handles, allocator
+            torch.cuda.synchronize()
+            return batch, b
+        except torch.cuda.OutOfMemoryError:
+            del batch
+            restore(model, opt, snap0)
+            torch.cuda.empty_cache()
+            print(f"batch {b} x {N} does not fit in the card's memory; halved", flush=True)
+            require(b > 1, "one crop does not fit")
+            b //= 2
+
+
 def conv_train(dev) -> dict:
     """Phase 27."""
     cfg, model, opt, step = conv_setup(CONV_PRESETS[0], dev)
@@ -2592,7 +2677,7 @@ def conv_train(dev) -> dict:
     crop = grid_crop(CONV_GRID_N)
     compare_pyramids(spec, crop["points"], dev)
     cpu_model = copy.deepcopy(model).cpu()
-    cpu_opt, cpu_step = conv_step(cfg, cpu_model, "cpu")
+    cpu_opt, cpu_step = preset_step(cfg, cpu_model, "cpu")
     snap0 = snapshot(model, opt)
     m_card = step(crop)
     loss_c, gn_c = float(m_card["loss"]), grad_norm(model)
@@ -2608,21 +2693,7 @@ def conv_train(dev) -> dict:
     del cpu_model, cpu_opt, cpu_step
     restore(model, opt, snap0)
 
-    rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
-    b = CONV_B
-    while True:
-        batch = train_batch(rooms, b, N, np.random.default_rng(0))
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            step(batch)  # warm-up: library handles, allocator
-            torch.cuda.synchronize()
-            break
-        except torch.cuda.OutOfMemoryError:
-            restore(model, opt, snap0)
-            torch.cuda.empty_cache()
-            print(f"batch {b} x {N} does not fit in the card's memory; halved", flush=True)
-            require(b > 1, "one crop does not fit")
-            b //= 2
+    batch, b = fitting_batch(model, opt, step, snap0, CONV_B)
     print(f"batch {b} x {N} (the preset's {cfg.optim.batch_size})", flush=True)
     restore(model, opt, snap0)
     torch.cuda.reset_peak_memory_stats()
@@ -3200,6 +3271,235 @@ def dp_nccl(dev, root: Path) -> None:
         dp_compare(dev, root / "dp_nccl_compare", world, "nccl", "cuda")
 
 
+def preset_batch(b: int, seed: int = 0) -> dict:
+    """b synthetic train crops of N points (the train phases' rooms)."""
+    rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
+    return train_batch(rooms, b, N, np.random.default_rng(seed))
+
+
+def timed_steps(step, batch, n: int, reset=None) -> tuple:
+    """n train steps on ``batch``, each ended by a synchronize, and each
+    after ``reset()`` (outside the time) where given → (losses,
+    seconds)."""
+    losses, secs = [], []
+    for _ in range(n):
+        if reset is not None:
+            reset()
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    return losses, secs
+
+
+def pt_base_launches(counts: dict, stale: bool) -> dict:
+    """The launches of an s3dis_pt step (no CBL): the path's kernels, and
+    under stale BN the attention's 18 a direction; no CBL kernel, no kernel
+    of no path and no FPS."""
+    names = PATH_KERNELS + (("pt_attn_fwd", "pt_attn_bwd") if stale else ())
+    launches = {k: counts[k] for k in names}
+    others = {k: v for k, v in counts.items() if k not in names and v}
+    require(all(v > 0 for v in launches.values()) and not others,
+            f"{PT_BASE} launches {launches}, others {others}")
+    return launches
+
+
+def pt_base_train(dev) -> dict:
+    """Phase 35."""
+    cfg = load_config(PT_BASE)
+    spec = cfg.pyramid_spec()
+    model = cfg.build_model(device=dev)
+    load_jax_variables(model, random_flax_tree(model, 0))
+    opt, step = preset_step(cfg, model, dev)
+    o = cfg.optim
+    print(f"{PT_BASE}: planes {cfg.model.planes}, blocks {cfg.model.blocks}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters from random_flax_tree "
+          f"(seed 0), the plain head {cfg.heads or 'xen, depth 1'}; spec {spec}; cut: batch "
+          f"{o.batch_size} -> {B}; the preset's SGD (lr {o.base_lr}, momentum {o.momentum}, "
+          f"decay {o.weight_decay})", flush=True)
+    batch = preset_batch(B)
+    snap0 = snapshot(model, opt)
+    step(batch)  # warm-up: library handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # every timed step from the same weights: at the preset's rate 0.5 random
+    # weights need not train, and the time is the step's, not the run's
+    losses, secs = timed_steps(step, batch, 4, lambda: restore(model, opt, snap0))
+    med, peak = statistics.median(secs[1:]), torch.cuda.max_memory_allocated()
+    print(f"{PT_BASE} train step (batch BN, B={B}) median of 3 warm steps {med * 1e3:.3f} ms "
+          f"over {[round(x * 1e3, 3) for x in secs]}, {B * N / med:.1f} points/s, "
+          f"max_memory_allocated {peak} B; losses {losses} (each from the same weights); "
+          f"card: {card_line()}", flush=True)
+    require(all(np.isfinite(losses)), f"losses {losses}")
+    restore(model, opt, snap0)
+    reset_counts()
+    with recording() as calls:
+        m = step(batch)
+        torch.cuda.synchronize()
+    launches = pt_base_launches(read_counts(), stale=False)
+    print(f"launches in one batch-BN train step: {launches}; wide-window searches (plain "
+          f"PyTorch): {knn.wide_calls}; CBL kernels 0", flush=True)
+    step_against_plain(model, opt, step, batch, snap0, m)
+
+    stale_cfg = load_config(PT_BASE, "model.bn_mode:stale")
+    stale = stale_cfg.build_model(device=dev)
+    stale.load_state_dict(snap0[0])
+    stale_opt, stale_step = preset_step(stale_cfg, stale, dev)
+    stale_snap = snapshot(stale, stale_opt)
+    stale_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stale_losses, stale_secs = timed_steps(stale_step, batch, 3,
+                                           lambda: restore(stale, stale_opt, stale_snap))
+    print(f"{PT_BASE} train step (stale BN) median of 3 {statistics.median(stale_secs) * 1e3:.3f}"
+          f" ms over {[round(x * 1e3, 3) for x in stale_secs]}, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; losses {stale_losses}", flush=True)
+    require(all(np.isfinite(stale_losses)), f"stale losses {stale_losses}")
+    restore(stale, stale_opt, stale_snap)
+    reset_counts()
+    with recording() as stale_calls:
+        ms = stale_step(batch)
+        torch.cuda.synchronize()
+    stale_launches = pt_base_launches(read_counts(), stale=True)
+    print(f"launches in one stale-BN train step: {stale_launches}", flush=True)
+    for name in ("pt_attn_fwd", "pt_attn_bwd"):
+        require(stale_launches[name] == ATTENTION_LAYERS, f"{name}: {stale_launches[name]}")
+    for name in ("window_gather", "window_gather_bwd"):
+        require(stale_launches[name] == launches[name] - ATTENTION_LAYERS,
+                f"{name}: {stale_launches[name]} under stale BN vs {launches[name]}")
+    step_against_plain(stale, stale_opt, stale_step, batch, stale_snap, ms)
+    del stale, stale_opt, stale_step, stale_snap
+
+    max_err = {name: 0.0 for name in WRAPPERS}
+    summary = time_calls(calls, dev, launches, max_err, PATH_KERNELS, reps=3)
+    summary += time_calls(stale_calls, dev, stale_launches, max_err,
+                          ("pt_attn_fwd", "pt_attn_bwd"), reps=3)
+    for entry_ in summary:  # the s3dis_pt step's numbers, beside the flagship's entries
+        entry_["name"] = f"{PT_BASE}/{entry_['name']}"
+    del calls, stale_calls, opt, step
+    torch.cuda.empty_cache()
+    return dict(model=model, cfg=cfg, spec=spec, batch=batch, launches=launches,
+                summary=summary)
+
+
+def pt_base_serve(dev, trained: dict, batch) -> None:
+    """Phase 36: the eval step of phase 35's model on phase serve's crops,
+    then one train step of the plain head with dropout."""
+    model, cfg, spec = trained["model"], trained["cfg"], trained["spec"]
+    step = make_eval_step(model, spec, dev, num_classes=cfg.data.num_classes)
+    reset_counts()
+    probs, _ = step(batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    others = {k: v for k, v in counts.items() if k not in SERVE_KERNELS and v}
+    require(all(counts[k] > 0 for k in SERVE_KERNELS) and not others,
+            f"request launches {counts}")
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        probs, _ = step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    med, peak = statistics.median(secs), torch.cuda.max_memory_allocated()
+    with plain_kernels():
+        plain, _ = step(batch)
+    d = float((probs - plain).abs().max())
+    agree = float((probs.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"{PT_BASE} request (B={probs.shape[0]} x {N}): launches "
+          f"{ {k: counts[k] for k in SERVE_KERNELS} }, median of 3 {med * 1e3:.3f} ms over "
+          f"{[round(x * 1e3, 3) for x in secs]}, {probs.shape[0] * N / med:.1f} points/s, "
+          f"max_memory_allocated {peak} B; kernels vs plain probs max|d| {d:.3g}, argmax "
+          f"agreement {agree:.6f}; card: {card_line()}", flush=True)
+    require(bool(torch.isfinite(probs).all()) and d <= 1e-3 and agree >= 0.999,
+            "s3dis_pt request: kernels and plain versions disagree")
+
+    drop_cfg = load_config(PT_BASE, PT_BASE_DROPOUT)
+    drop = drop_cfg.build_model(device=dev)
+    drop.load_state_dict(model.state_dict())
+    _, drop_step = preset_step(drop_cfg, drop, dev)
+    masks, draw = [], model_blocks.dropout_mask
+
+    def recorded_mask(key, name, rate, shape, device):
+        keep = draw(key, name, rate, shape, device)
+        masks.append((key, name, rate, tuple(shape), keep))
+        return keep
+
+    with mock.patch.object(model_blocks, "dropout_mask", recorded_mask):
+        m = drop_step(trained["batch"])
+        torch.cuda.synchronize()
+    (key, name, rate, shape, keep), = masks
+    on_cpu = draw(key, name, rate, shape, "cpu")
+    print(f"{PT_BASE_DROPOUT}: one train step, loss {float(m['loss']):.6f}; its dropout mask "
+          f"{name} {list(shape)} on the card (key {key}, the trainer's step-0 key "
+          f"{dropout_key(0)}), keep share {float(keep.float().mean()):.6f}, equal to the CPU's "
+          f"bit for bit: {torch.equal(keep.cpu(), on_cpu)}", flush=True)
+    require(keep.is_cuda and key == dropout_key(0) and torch.equal(keep.cpu(), on_cpu),
+            "the card's dropout mask is not the CPU's")
+    require(np.isfinite(float(m["loss"])), "dropout step loss")
+
+
+def randla_train(dev) -> None:
+    """Phase 37."""
+    cfg, model, opt, step = conv_setup(RANDLA, dev)
+    spec = cfg.pyramid_spec()
+    print(f"{RANDLA}: {sum(p.numel() for p in model.parameters())} parameters, fresh weights "
+          f"(seed 0), spec {spec}; the preset's SGD (lr {cfg.optim.base_lr}, momentum "
+          f"{cfg.optim.momentum}, clip {cfg.optim.grad_clip_norm})", flush=True)
+    require(spec.sampler == "random", f"sampler {spec.sampler}")
+    reset_counts()
+    compare_pyramids(spec, grid_crop(CONV_GRID_N)["points"], dev)
+    snap0 = snapshot(model, opt)
+    batch, b = fitting_batch(model, opt, step, snap0, CONV_B)
+    restore(model, opt, snap0)
+    losses, secs = timed_steps(step, batch, 3)
+    med, peak = statistics.median(secs), torch.cuda.max_memory_allocated()
+    print(f"{RANDLA} train step (B={b}; the preset's {cfg.optim.batch_size}) median of 3 "
+          f"{med * 1e3:.3f} ms over {[round(x * 1e3, 3) for x in secs]}, {b * N / med:.1f} "
+          f"points/s, max_memory_allocated {peak} B; losses {losses}; card: {card_line()}",
+          flush=True)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"3 steps on one batch did not lower the loss: {losses}")
+    eval_step = make_eval_step(model, spec, dev, num_classes=cfg.data.num_classes)
+    t0 = time.perf_counter()
+    probs, _ = eval_step(batch)
+    torch.cuda.synchronize()
+    print(f"{RANDLA} request (B={b}): {(time.perf_counter() - t0) * 1e3:.3f} ms (cold), "
+          f"probs finite: {bool(torch.isfinite(probs).all())}", flush=True)
+    require(bool(torch.isfinite(probs).all()), "RandLA request probs not finite")
+    require_no_launches("the RandLA steps and request")
+
+
+def preset_entry(root: Path, name: str, step_launches=None) -> None:
+    """Phases 38-39: ``name`` through main.py on phase 24's rooms with its
+    cuts, --mode train, then --mode val on the run: losses finite, each
+    step's launches ``step_launches`` (no kernel where None)."""
+    exp = root / f"exp_{name}"
+    sets = f"data.data_root:{root / 'data'};{ENTRY_SETS}"
+    print(f"main.py -c {name} --set {sets}: full width; cuts: batch "
+          f"{load_config(name).optim.batch_size} -> 2, epochs 1, loop 2, num_votes 1", flush=True)
+    probe = StepProbe()
+    _, _, secs, total = run_entry(["-c", name, "--mode", "train", "--set",
+                                   f"{sets};{ENTRY_LOG}", "--exp_dir", str(exp)], probe)
+    print_probe(f"{name} train", probe)
+    steps, losses = entry_losses(exp)
+    print(f"--mode train: {secs:.3f} s; losses {losses} at steps {steps}; launches of the run "
+          f"{ {k: v for k, v in total.items() if v} }", flush=True)
+    require(len(steps) == len(probe.steps) > 0 and all(np.isfinite(losses)), f"losses {losses}")
+    for i, launches in enumerate(probe.launches):
+        got = {k: v for k, v in launches.items() if v}
+        require(got == (step_launches or {}), f"step {i}: launches {got}, not {step_launches}")
+    m, _, secs, total = run_entry(["-c", name, "--mode", "val", "--model_path", "auto",
+                                   "--extra_ops", "", "--set", sets, "--exp_dir", str(exp)])
+    print(f"--mode val: {secs:.3f} s, full mIoU {m['full']['mIoU']:.4f} OA {m['full']['OA']:.4f}; "
+          f"launches {total}; card: {card_line()}", flush=True)
+    require(np.isfinite(m["full"]["OA"]), "val OA")
+    served = {k: v for k, v in total.items() if v}
+    require(set(served) == (set(SERVE_KERNELS) if step_launches else set()),
+            f"val launches {served}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3464,6 +3764,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         with phase("dp-nccl"), cbl_route_env("dense"):
             dp_nccl(dev, root)
+        torch.cuda.empty_cache()
+        with phase("pt-base-train"):
+            print(f"card: {card_line()}", flush=True)
+            pt_base = pt_base_train(dev)
+        with phase("pt-base-serve"):
+            pt_base_serve(dev, pt_base, batch)
+        pt_base_summary, pt_base_step = pt_base["summary"], pt_base["launches"]
+        del pt_base
+        torch.cuda.empty_cache()
+        with phase("randla-train"):
+            print(f"card: {card_line()}", flush=True)
+            randla_train(dev)
+        torch.cuda.empty_cache()
+        with phase("pt-base-entry"):
+            preset_entry(root, PT_BASE, pt_base_step)
+        torch.cuda.empty_cache()
+        with phase("randla-entry"):
+            preset_entry(root, RANDLA)
     torch.cuda.empty_cache()
 
     summary = []
@@ -3478,6 +3796,7 @@ def main() -> int:
                 "library_ms")}})
     summary += bf16_summary  # per bfloat16 train step
     summary.append(fps_summary)  # per natural train step
+    summary += pt_base_summary  # per s3dis_pt train step (batch BN; the attention's stale)
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

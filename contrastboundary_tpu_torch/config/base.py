@@ -5,15 +5,16 @@ defaults, presets and override grammar).
 ``pyramid_spec()`` and ``build_model()`` build the port's objects for the
 option points the port has: the point transformer on the Morton-sorted
 layout (``layout='sorted'``; float32 or bfloat16) or the natural one
-(float32), with the strided (sorted only), serialized, fps or bucket_fps
-sampler, batch or stale BN; the ConvNet family (every aggregation) in
-float32 on the natural layout with the voxel sampler; the flagship
-MultiHead and the softnn CBL with cnt or kl positives (config/dsl.py).
-Every other option raises NotImplementedError naming the ROADMAP Queue A
-item that ports it (item 7): the random sampler, approximate or windowed
-KNN settings the port's exact searches cannot hold, the tile contrast
-search and bfloat16 on the natural layout, other heads and CBL options,
-remat.
+(float32), with the strided (sorted only), serialized, fps, bucket_fps or
+random sampler, batch or stale BN; the ConvNet family (every aggregation)
+in float32 on the natural layout with the voxel or random sampler; the
+flagship MultiHead or the plain mlp head (its latent tower, dropout,
+losses and class weights), and the softnn CBL with cnt or kl positives
+(config/dsl.py). Every other option raises NotImplementedError naming the
+ROADMAP Queue A item that ports it (item 7): approximate or windowed KNN
+settings the port's exact searches cannot hold, the tile contrast search
+and bfloat16 on the natural layout, other heads (and the plain head with
+a contrast head) and CBL options, remat.
 """
 from __future__ import annotations
 
@@ -165,13 +166,14 @@ class Config:
             raise ValueError(
                 "model.layout='sorted' is the point-transformer fast path; "
                 "convnet needs global shadow-index neighbors (layout='natural')")
-        unported = {"sampler": m.sampler != "voxel", "knn_window": m.knn_window != 0}
+        unported = {"sampler": m.sampler not in ("voxel", "random"),
+                    "knn_window": m.knn_window != 0}
         for key, bad in unported.items():
             if bad:
                 raise NotImplementedError(
                     f"model.{key}={getattr(m, key)!r} is not ported for the ConvNet "
                     f"({OPTIONS_ITEM}); the port builds the natural layout with the voxel "
-                    "sampler and dense exact searches")
+                    "or random sampler and dense exact searches")
         nl = len(m.strides)
         radii = tuple(m.base_radius * 2**i for i in range(nl))
         limits = tuple(m.neighborhood_limits[:nl])
@@ -200,7 +202,6 @@ class Config:
         if m.layout not in ("sorted", "natural"):
             raise ValueError(f"unknown model.layout {m.layout!r}")
         unported = {
-            "sampler": m.sampler == "random",
             "knn_window": m.knn_window != 0,
             "knn_recall": float(m.knn_recall) not in EXACT_RECALLS,
             "contrast_window": not natural and m.contrast_window != m.self_window,
@@ -212,8 +213,9 @@ class Config:
                     f"model.{key}={getattr(m, key)!r} is not ported ({OPTIONS_ITEM}); the port "
                     "builds the sorted layout with exact tile-window searches (the contrast "
                     "search on the self search's window) and the natural layout with dense "
-                    "exact searches, with the strided, serialized, fps and bucket_fps samplers")
-        if m.sampler not in ("strided", "serialized", "fps", "bucket_fps"):
+                    "exact searches, with the strided, serialized, fps, bucket_fps and random "
+                    "samplers")
+        if m.sampler not in ("strided", "serialized", "fps", "bucket_fps", "random"):
             raise ValueError(f"model.sampler {m.sampler!r} for the point transformer")
         contrast = self.contrast
         return PyramidSpec(
@@ -231,15 +233,25 @@ class Config:
     def build_model(self, device="cuda", generator: Optional[torch.Generator] = None):
         """The port's PointTransformerSeg or ConvNetSeg of this config on
         ``device``, its fresh weights flax's (models/init.py) drawn from
-        ``generator``."""
+        ``generator``: with the MultiHead where ``arch_out`` has a 'multi'
+        segment, else the plain mlp head (its 'mlp' segment's depth and
+        dropout, or the defaults)."""
         from ..models import ConvNetSeg, PointTransformerSeg
 
         self.pyramid_spec()  # the model runs on the port's pyramid only
         m = self.model
-        if "multi" not in self.heads:
+        heads = self.heads
+        multi, mlp = "multi" in heads, heads.get("mlp", {})
+        if multi and mlp:
+            raise ValueError(
+                "arch_out selects both a 'multi' and a plain 'mlp' head; the model builds "
+                "exactly one prediction path — pick one")
+        if not multi and self.contrast is not None:
             raise NotImplementedError(
-                f"arch_out {self.arch_out!r}: a model without the multi head (the plain mlp "
-                f"head) is not ported ({OPTIONS_ITEM})")
+                f"arch_out {self.arch_out!r}: the plain mlp head with a contrast head is not "
+                f"ported ({OPTIONS_ITEM})")
+        head_kw = dict(use_multihead=multi, mlp_depth=mlp.get("depth", 1),
+                       mlp_drop=mlp.get("drop"))
         if m.dtype not in DTYPES:
             raise ValueError(f"model.dtype {m.dtype!r} is not one of {sorted(DTYPES)}")
         if m.arch == "convnet":
@@ -260,6 +272,7 @@ class Config:
                 in_features=m.in_features,
                 fea_dim=self.data.fea_dim,
                 generator=generator,
+                **head_kw,
             )
             return model.to(resolve_device(device))
         if m.save_memory:
@@ -278,6 +291,7 @@ class Config:
             bn_mode=m.bn_mode,
             dtype=DTYPES[m.dtype],
             generator=generator,
+            **head_kw,
         )
         return model.to(dev)
 

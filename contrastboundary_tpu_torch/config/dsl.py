@@ -10,7 +10,8 @@ parsed option that the port's ContrastConfig (losses/contrast.py) or model
 does not have raises NotImplementedError naming the ROADMAP Queue A item
 that ports it; an option left at the reference's default is not one. The
 flagship's 'multi-Ua-concat-latent|contrast-Ua-softnn-latent-label-l2-w.1'
-parses to the port's ``ContrastConfig()`` and the flagship MultiHead.
+parses to the port's ``ContrastConfig()`` and the flagship MultiHead; the
+plain head's 'mlp-<depth>-<loss>...' to the JAX package's dict.
 """
 from __future__ import annotations
 
@@ -142,10 +143,11 @@ _DROP_RE = re.compile(r"^dp(\d*\.?\d+|\.\d+)$")
 
 def parse_mlp_ops(ops: str) -> dict:
     """Parse the plain-head op-string '<depth>-<loss>[-dp<p>][-w<f>]' as the
-    reference does (depth of the latent tower, loss xen | sigmoid | none,
-    dropout, float loss weight, 'class' weights; 'center' raises, 'pred'
-    is ignored). The port's model has no plain head, so a string that
-    parses raises NotImplementedError."""
+    reference does → {'depth', 'loss', 'drop', 'weight', 'class_weight'}:
+    the depth of the latent tower, the loss xen | sigmoid | none, dropout
+    on the latent, a float loss weight and 'class' (inverse-frequency class
+    weights from the train split, losses/segmentation.py::
+    inverse_frequency_weights); 'center' raises, 'pred' is ignored."""
     tokens = ops.split("-")
     if tokens and tokens[0] == "mlp":
         tokens = tokens[1:]
@@ -173,7 +175,7 @@ def parse_mlp_ops(ops: str) -> dict:
             pass
         else:
             raise ValueError(f"unknown mlp-head token {t!r} in {ops!r}")
-    raise NotImplementedError(f"the plain mlp head {out} is not ported ({OPTIONS_ITEM})")
+    return out
 
 
 _BRANCH_LOSS_RE = re.compile(r"^(loss(?:Sub)?)((?:\d*\.)?\d+)?$")

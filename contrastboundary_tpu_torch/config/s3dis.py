@@ -10,17 +10,15 @@ Reference sources:
   tensorflow/config/s3dis.py:16-96 — ConvNet recipe (600 epochs, SGD m=0.98,
   lr 0.01 × 0.9885531^epoch, grad clip 100).
 
-The port builds the point-transformer presets on the sorted layout
-(s3dis_pt_cbl, s3dis_pt_cbl_kl, s3dis_pt_cbl_bf16) and on the natural one
-with bucketed FPS (s3dis_pt_cbl_paper, scannet_pt_cbl, synthetic_tiny,
-synthetic_full, default), and the ConvNet presets on the natural layout
-with the voxel sampler (s3dis_conv_cbl, s3dis_conv_cbl_kl,
-s3dis_pospool_cbl, s3dis_pseudogrid_cbl, scannet_conv_cbl,
-semantic3d_conv_cbl, npm3d_conv_cbl, s3dis_conv_cbl_paper,
-synthetic_conv_tiny); the others load, and building their model or
-pyramid raises NotImplementedError naming the ROADMAP item that ports what
-they need (config/base.py): s3dis_pt (the plain mlp head) and
-s3dis_randla_cbl (the random sampler).
+The port builds every preset: the point transformer on the sorted layout
+(s3dis_pt_cbl, s3dis_pt_cbl_kl, s3dis_pt_cbl_bf16, and s3dis_pt with the
+plain mlp head) and on the natural one with bucketed FPS
+(s3dis_pt_cbl_paper, scannet_pt_cbl, synthetic_tiny, synthetic_full,
+default), and the ConvNet on the natural layout with the voxel sampler
+(s3dis_conv_cbl, s3dis_conv_cbl_kl, s3dis_pospool_cbl,
+s3dis_pseudogrid_cbl, scannet_conv_cbl, semantic3d_conv_cbl,
+npm3d_conv_cbl, s3dis_conv_cbl_paper, synthetic_conv_tiny) or the random
+one (s3dis_randla_cbl).
 """
 from .base import register_config
 

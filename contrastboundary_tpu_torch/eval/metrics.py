@@ -12,8 +12,10 @@ import torch
 def confusion_matrix(pred: torch.Tensor, label: torch.Tensor, num_classes: int,
                      ignore_label: int = -1) -> torch.Tensor:
     """[C, C] float32 confusion, rows = true label, cols = prediction;
-    ignored labels excluded, predictions clipped into [0, C)."""
-    valid = label != ignore_label
+    ignored labels and labels outside [0, C) excluded (as the JAX one-hot
+    contraction drops them: the binary labels of a one-class sigmoid head),
+    predictions clipped into [0, C)."""
+    valid = (label != ignore_label) & (label >= 0) & (label < num_classes)
     p = pred.long().clamp(0, num_classes - 1)
     flat = label.long()[valid] * num_classes + p[valid]
     counts = torch.bincount(flat, minlength=num_classes * num_classes)

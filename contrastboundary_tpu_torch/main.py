@@ -64,6 +64,7 @@ from .eval.metrics import AverageMeter, metrics_from_confusion
 from .eval.run import analyze, predict_request, run_enumerate_eval, run_voting_eval
 from .eval.step import make_eval_step
 from .eval.voting import VotingEvaluator
+from .losses import inverse_frequency_weights
 from .parallel import (
     broadcast_object, check_divisible, maybe_initialize_distributed, process_count,
     process_index, read_counts, replicate, reset_counts, shard_batch,
@@ -96,19 +97,44 @@ def build_dataset(cfg, split: str):
     raise ValueError(f"unknown dataset {d.dataset!r}")
 
 
+CLASS_WEIGHT_ROOMS = 64  # the train rooms whose labels estimate the class weights
+
+
+def class_weights(cfg, train_ds, logger) -> tuple:
+    """The plain head's 'class' weights: inverse-frequency weights
+    (losses/segmentation.py) of the label histogram over the train split's
+    first min(num_rooms, 64) rooms, the same rooms on every rank."""
+    counts = np.zeros(cfg.data.num_classes, np.int64)
+    for i in range(min(train_ds.num_rooms, CLASS_WEIGHT_ROOMS)):
+        lab = train_ds.room(i)[2]
+        counts += np.bincount(lab[lab >= 0].astype(np.int64), minlength=cfg.data.num_classes)
+    weights = inverse_frequency_weights(counts)
+    logger.info("class weights (inv-sqrt-freq): " + " ".join(f"{w:.3f}" for w in weights))
+    return weights
+
+
 def setup(cfg, logger, device):
     """→ (model, spec, step_cfg, optimizer, schedule, train_ds,
     steps_per_epoch). The model's fresh weights come from a generator seeded
-    with ``cfg.seed`` (rank 0's, broadcast to every rank)."""
+    with ``cfg.seed`` (rank 0's, broadcast to every rank). The plain mlp
+    head's loss, weight, class weights and dropout come from ``arch_out``'s
+    'mlp' segment, as the JAX package's. ``steps_per_epoch`` is the steps a
+    rank takes in an epoch, (the train split's size) // W // batch_size,
+    and sizes the schedule."""
     check_divisible(cfg.optim.batch_size, "optim.batch_size")
     check_divisible(cfg.eval.batch_size, "eval.batch_size")
     model = replicate(cfg.build_model(device=device,
                                       generator=torch.Generator().manual_seed(cfg.seed)))
     spec = cfg.pyramid_spec()
-    step_cfg = TrainStepConfig(num_classes=cfg.data.num_classes, spec=spec,
-                               contrast=cfg.contrast, ignore_label=cfg.data.ignore_label)
     train_ds = build_dataset(cfg, "train")
-    steps_per_epoch = max(len(train_ds) // cfg.optim.batch_size, 1)
+    mlp = cfg.heads.get("mlp", {})
+    step_cfg = TrainStepConfig(
+        num_classes=cfg.data.num_classes, spec=spec, contrast=cfg.contrast,
+        ignore_label=cfg.data.ignore_label, main_loss=mlp.get("loss", "xen"),
+        main_weight=mlp.get("weight", 1.0), has_dropout=bool(mlp.get("drop")),
+        class_weights=(class_weights(cfg, train_ds, logger) if mlp.get("class_weight")
+                       else None))
+    steps_per_epoch = max(len(train_ds) // process_count() // cfg.optim.batch_size, 1)
     o = cfg.optim
     if o.schedule == "multistep":
         schedule = multistep_epoch_decay(
@@ -120,8 +146,8 @@ def setup(cfg, logger, device):
                                grad_clip_norm=o.grad_clip_norm)
     nparams = sum(p.numel() for p in model.parameters())
     logger.info(f"model {cfg.model.arch} ({cfg.model.dtype}, {cfg.model.bn_mode} BN): "
-                f"{nparams / 1e6:.2f}M params, {steps_per_epoch} steps/epoch on {device} "
-                f"(rank {process_index()} of {process_count()})")
+                f"{nparams / 1e6:.2f}M params, {steps_per_epoch} steps/epoch a rank on "
+                f"{device} (rank {process_index()} of {process_count()})")
     return model, spec, step_cfg, optimizer, schedule, train_ds, steps_per_epoch
 
 

@@ -33,8 +33,9 @@ activations are ``dtype`` after a Dense and float32 after a BN.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,6 +44,7 @@ from ..core.gather import clamped_gather
 from ..ops.pt_attn import pt_attn
 from ..ops.tile_gather import cross_window_gather, tile_window_gather
 from ..parallel.mesh import global_means
+from ..utils import threefry
 
 
 def dense(layer: nn.Linear, x, dtype: torch.dtype):
@@ -342,3 +344,36 @@ class MLPTower(nn.Module):
         for i in range(self.depth):
             x = F.relu(getattr(self, f"bn{i}")(dense(getattr(self, f"fc{i}"), x, self.dtype)))
         return x
+
+
+def dropout_mask(key: threefry.Key, name: str, rate: float, shape, device) -> torch.Tensor:
+    """The keep mask of flax's ``nn.Dropout(rate, name=name)``, a direct
+    child of the model, under ``rngs={'dropout': key}``: a bernoulli draw of
+    1 − rate from the key flax derives for the module's first rng call
+    (``flax_fold(key, name, 1)``), drawn on ``device``."""
+    return threefry.bernoulli(threefry.flax_fold(key, name, 1), 1.0 - rate, shape, device)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)`` named ``name`` (a direct child of the
+    model): in train mode each element is kept where ``dropout_mask`` of
+    the step's dropout key says so, and scaled by 1 / (1 − rate); zero
+    elsewhere. The identity in eval mode. The key is the JAX trainer's
+    ``fold_in(PRNGKey(17), step)`` (train/trainer.py), passed in by the
+    caller; the mask is drawn on the tensor's device with the same bits on
+    every device."""
+
+    def __init__(self, rate: float, name: str):
+        super().__init__()
+        self.rate, self.name = float(rate), name
+
+    def forward(self, x, key: Optional[threefry.Key]):
+        if not self.training or self.rate == 0.0:
+            return x
+        if key is None:
+            raise ValueError(f"{self.name}: a train-mode dropout needs the step's dropout key")
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = dropout_mask(key, self.name, self.rate, x.shape, x.device)
+        scale = torch.tensor(np.float32(1.0 - self.rate), device=x.device)
+        return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))

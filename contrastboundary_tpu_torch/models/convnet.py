@@ -10,6 +10,11 @@ takes the deeper level's features at its nearest up neighbour, concatenates
 its own and applies a 1×1. It runs on the natural-layout pyramid
 (ops/pyramid.py): global neighbour rows with the shadow index N.
 
+The head is the flagship MultiHead, or with ``use_multihead=False`` the
+plain mlp head: ``mlp_depth`` 1×1s ``seg_head``, ``seg_head1``, … of
+base_fdim on level 0, dropout ``cls_drop`` where ``mlp_drop`` is set, and
+the linear ``cls`` (no latents).
+
 Submodule names are the flax names (``input_conv_fc``, ``res2_strided_agg``,
 ``up_conv0_bn``, ``multihead``, …), so a flax tree maps onto the state_dict
 (models/convert.py). Every 1×1 is a Dense without bias + BN(momentum 0.99,
@@ -29,7 +34,7 @@ from ..ops.pyramid import Pyramid
 from .blocks import make_bn
 from .init import init_like_flax
 from .local_aggregation import AGGREGATORS
-from .pointtransformer import ModelOutput, MultiHead
+from .pointtransformer import ModelOutput, MultiHead, apply_plain_head, plain_head
 
 _NEG = -65535.0
 
@@ -70,7 +75,8 @@ class ConvNetSeg(nn.Module):
                  density_parameter: float = 5.0, bn_momentum: float = 0.99,
                  bn_eps: float = 1e-6, bn_mode: str = "batch",
                  in_features: str = "1-rgb-Z", fea_dim: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, use_multihead: bool = True,
+                 mlp_depth: int = 1, mlp_drop: Optional[float] = None):
         super().__init__()
         if aggregation not in AGGREGATORS:
             raise ValueError(f"unknown aggregation {aggregation!r}")
@@ -106,9 +112,19 @@ class ConvNetSeg(nn.Module):
         for l in range(num_layers - 2, -1, -1):
             d = self._conv(f"up_conv{l}", d + dims[l], 2 ** l * fdim if l > 0 else fdim)
             up_dims[l] = d
-        self.multihead = MultiHead(up_dims, num_classes, base_fdim)
+        self.use_multihead, self.mlp_depth = use_multihead, mlp_depth
+        if use_multihead:
+            self.multihead = MultiHead(up_dims, num_classes, base_fdim)
+        else:
+            for i in range(mlp_depth):
+                d = self._conv(self._seg_head(i), d, fdim)
+            plain_head(self, d, num_classes, mlp_drop)
         init_like_flax(self, generator if generator is not None
                        else torch.Generator().manual_seed(0))
+
+    @staticmethod
+    def _seg_head(i: int) -> str:
+        return f"seg_head{i if i else ''}"
 
     def _conv(self, name, d_in, d_out):
         """Registers the 1×1 ``name``: Dense ``<name>_fc`` (no bias) + BN
@@ -165,10 +181,12 @@ class ConvNetSeg(nn.Module):
         sc = torch.where(valid[..., None], nb, _NEG).amax(2)
         return F.relu(y + self._shortcut(name, sc, out))
 
-    def forward(self, features: torch.Tensor, pyramid: Pyramid, with_latents: bool = False):
+    def forward(self, features: torch.Tensor, pyramid: Pyramid, with_latents: bool = False,
+                dropout_key=None):
         """features [B, N0, fea_dim] (colours) in the pyramid's row order →
         in eval mode logits [B, N0, num_classes]; in train mode, or with
-        ``with_latents``, a ModelOutput with the per-stage latents too."""
+        ``with_latents``, a ModelOutput with the per-stage latents too.
+        ``dropout_key`` as PointTransformerSeg's."""
         if pyramid.order0 is not None:
             raise ValueError("ConvNetSeg needs the natural-layout pyramid")
         radius = self.base_radius
@@ -193,7 +211,12 @@ class ConvNetSeg(nn.Module):
             up = batch_gather(x, pyramid.up_idx[l + 1][..., 0])
             x = self._apply_conv(f"up_conv{l}", torch.cat([up, down_feats[l]], -1))
             up_feats[l] = x
-        logits, latents = self.multihead(up_feats, pyramid)
+        if self.use_multihead:
+            logits, latents = self.multihead(up_feats, pyramid)
+        else:
+            for i in range(self.mlp_depth):
+                x = self._apply_conv(self._seg_head(i), x)
+            logits, latents = apply_plain_head(self, x, dropout_key), ()
         if not (self.training or with_latents):
             return logits
         return ModelOutput(logits=logits, latents=latents)

@@ -1,11 +1,15 @@
-"""Point-transformer segmentation backbone with the flagship MultiHead
-(counterpart of contrastboundary_tpu/models/pointtransformer.py:30-411).
+"""Point-transformer segmentation backbone with the flagship MultiHead or
+the plain mlp head (counterpart of
+contrastboundary_tpu/models/pointtransformer.py:30-411).
 
-Only the flagship head is ported: ``multi-Ua-concat-latent`` (a latent tower
-per up stage, each stage's latent taken to level 0 by its nearest point,
-concatenated, one linear classifier). Submodule names are the flax names.
-``dtype`` (float32, or bfloat16 as the reference's bf16 presets) is every
-block's compute dtype (models/blocks.py); the classifier stays float32.
+Two heads are ported: the flagship's ``multi-Ua-concat-latent`` (a latent
+tower per up stage, each stage's latent taken to level 0 by its nearest
+point, concatenated, one linear classifier) and the plain head of the
+baseline without CBL (``use_multihead=False``: a latent tower of
+``mlp_depth`` layers on level 0, dropout ``mlp_drop``, a linear classifier;
+no latents). Submodule names are the flax names. ``dtype`` (float32, or
+bfloat16 as the reference's bf16 presets) is every block's compute dtype
+(models/blocks.py); the classifier stays float32.
 """
 from __future__ import annotations
 
@@ -18,15 +22,16 @@ from torch import nn
 from ..core.gather import batch_gather
 from ..ops.pyramid import Pyramid
 from ..ops.tile_gather import cross_window_gather
-from .blocks import MLPTower, PointTransformerBlock, TransitionDown, TransitionUp
+from ..utils.threefry import Key
+from .blocks import Dropout, MLPTower, PointTransformerBlock, TransitionDown, TransitionUp
 from .init import init_like_flax
 
 
 @dataclasses.dataclass
 class ModelOutput:
-    """The two JAX ModelOutput fields that the flagship's training and the
-    feature eval step read: logits [B, N0, classes] and the per-stage
-    latents [B, N_i, base_fdim], on which the CBL runs."""
+    """The two JAX ModelOutput fields that training and the feature eval
+    step read: logits [B, N0, classes] and the per-stage latents [B, N_i,
+    base_fdim], on which the CBL runs (empty under the plain head)."""
 
     logits: torch.Tensor
     latents: Tuple
@@ -65,20 +70,40 @@ class MultiHead(nn.Module):
         return self.cls(torch.cat(collected, -1)), tuple(latents)
 
 
+def plain_head(model: nn.Module, d: int, num_classes: int, drop: Optional[float]) -> None:
+    """Register the plain mlp head's dropout ``cls_drop`` (where ``drop``
+    is set) and its float32 linear classifier ``cls`` (d → num_classes) on
+    ``model``, after its latent tower, at the model's top level as flax
+    names them in both architectures."""
+    if drop:
+        model.cls_drop = Dropout(drop, "cls_drop")
+    model.cls = nn.Linear(d, num_classes)
+
+
+def apply_plain_head(model: nn.Module, y, dropout_key: Optional[Key]):
+    """``cls_drop`` (where registered) and ``cls`` on the tower's output."""
+    if hasattr(model, "cls_drop"):
+        y = model.cls_drop(y, dropout_key)
+    return model.cls(y.float())
+
+
 class PointTransformerSeg(nn.Module):
     """U-shaped point transformer: encoder stage l is TransitionDown plus
     blocks[l] − 1 PointTransformerBlocks, the decoder a TransitionUp and one
-    block per level, then the MultiHead. Input features are rgb; xyz is
-    concatenated in front (in_channels 6). Fresh weights are flax's
-    (models/init.py), drawn from ``generator`` (a generator seeded 0 where
-    none is given)."""
+    block per level, then the MultiHead (``use_multihead``) or the plain
+    head (``cls_tower``: ``mlp_depth`` Dense+BN+ReLU layers of planes[0]
+    on level 0, ``cls_drop`` where ``mlp_drop`` is set, ``cls``). Input
+    features are rgb; xyz is concatenated in front (in_channels 6). Fresh
+    weights are flax's (models/init.py), drawn from ``generator`` (a
+    generator seeded 0 where none is given)."""
 
     def __init__(self, num_classes: int = 13,
                  planes: Sequence[int] = (32, 64, 128, 256, 512),
                  blocks: Sequence[int] = (2, 3, 4, 6, 3),
                  share_planes: int = 8, base_fdim: int = 32, in_features: int = 3,
                  bn_mode: str = "batch", dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, use_multihead: bool = True,
+                 mlp_depth: int = 1, mlp_drop: Optional[float] = None):
         super().__init__()
         self.planes, self.blocks = tuple(planes), tuple(blocks)
         self.dtype = dtype
@@ -105,16 +130,24 @@ class PointTransformerSeg(nn.Module):
                             TransitionUp(planes[l + 1], planes[l], False, bn_mode, dtype))
             self.add_module(f"dec{l}_blk",
                             PointTransformerBlock(planes[l], share_planes, bn_mode, dtype))
-        self.multihead = MultiHead(planes, num_classes, base_fdim, bn_mode, dtype)
+        self.use_multihead = use_multihead
+        if use_multihead:
+            self.multihead = MultiHead(planes, num_classes, base_fdim, bn_mode, dtype)
+        else:
+            self.cls_tower = MLPTower(planes[0], (planes[0],) * mlp_depth, bn_mode, dtype)
+            plain_head(self, planes[0], num_classes, mlp_drop)
         init_like_flax(self, generator if generator is not None
                        else torch.Generator().manual_seed(0))
 
-    def forward(self, features: torch.Tensor, pyramid: Pyramid, with_latents: bool = False):
+    def forward(self, features: torch.Tensor, pyramid: Pyramid, with_latents: bool = False,
+                dropout_key: Optional[Key] = None):
         """features [B, N0, in_features] in the pyramid's row order (Morton
         order on the sorted layout, the caller's on the natural one) →
         in eval mode logits [B, N0, num_classes]; in train mode (batch
         statistics in BatchNorm), or with ``with_latents``, a ModelOutput
-        with the latents too."""
+        with the latents too. ``dropout_key`` is the step's dropout key
+        (flax's ``rngs={'dropout': key}``), needed in train mode where the
+        plain head has dropout."""
         nl = len(self.planes)
         pts = pyramid.points
 
@@ -152,7 +185,11 @@ class PointTransformerSeg(nn.Module):
             )
             x = block(f"dec{l}_blk", l, x)
             up_feats[l] = x
-        logits, latents = self.multihead(up_feats, pyramid)
+        if self.use_multihead:
+            logits, latents = self.multihead(up_feats, pyramid)
+        else:
+            logits = apply_plain_head(self, self.cls_tower(up_feats[0]), dropout_key)
+            latents = ()
         if not (self.training or with_latents):
             return logits
         return ModelOutput(logits=logits, latents=latents)

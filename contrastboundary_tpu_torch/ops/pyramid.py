@@ -6,15 +6,15 @@ stored Morton-sorted (``order0`` maps the caller's level-0 rows to sorted
 rows) and every search is a tile-window search (ops/knn.py), so each
 neighbour index has a window-relative twin for the tile gathers
 (ops/tile_gather.py). With ``sampler='strided'`` each level is a strided
-row pick of the previous one; with ``fps``, ``bucket_fps`` or
-``serialized`` it is that sampler's pick, sorted by row (a subset of a
+row pick of the previous one; with ``fps``, ``bucket_fps``,
+``serialized`` or ``random`` it is that sampler's pick, sorted by row (a subset of a
 sorted level, in row order, is sorted). With ``k_contrast`` the self and
 contrast searches are one merged search; with ``with_subscene`` the
 kr = 4^l searches over level 0 are added.
 
-``layout='natural'`` (the ConvNet family with ``sampler='voxel'``, the
-point transformer with ``fps``, ``bucket_fps`` or ``serialized``, which
-``strided`` means there): the levels keep the caller's row order
+``layout='natural'`` (the ConvNet family with ``sampler='voxel'`` or
+``random``, the point transformer with ``fps``, ``bucket_fps``,
+``serialized``, which ``strided`` means there, or ``random``): the levels keep the caller's row order
 (``order0`` None), each level is the sampler's pick of the previous one
 (ops/sampling.py), and every search is the dense exact ops/knn.py::knn over
 global rows with the shadow index N: the pooling search within
@@ -35,8 +35,8 @@ import torch
 from ..core.gather import batch_gather, clamped_gather
 from .interpolate import interpolation_weights
 from .knn import cross_width, knn as _knn, tile_cross_knn, tile_self_knn
-from .sampling import (bucket_fps, fps, serialized_order, serialized_sample, strided_pick,
-                       voxel_sample)
+from .sampling import (bucket_fps, fps, random_sample, serialized_order, serialized_sample,
+                       strided_pick, voxel_sample)
 from .tile_gather import cross_window_gather, cross_window_starts, tile_window_gather
 
 
@@ -49,8 +49,9 @@ class PyramidSpec:
     and window) and natural; the samplers are strided (the sorted
     layout's inherited order; serialized on the natural one), serialized,
     fps, bucket_fps (``num_buckets`` Morton buckets, halved until they
-    divide both level sizes, exact fps at one) and voxel (with
-    ``voxel_sizes``). ``radii[l]`` bounds the level-l self search,
+    divide both level sizes, exact fps at one), voxel (with
+    ``voxel_sizes``) and random (the first rows of a fixed threefry
+    permutation of the level, ops/sampling.py::random_sample). ``radii[l]`` bounds the level-l self search,
     ``down_radii[l]`` the level-(l−1) → l pooling search (natural layout;
     None: unbounded); ``voxel_sizes[l]`` is the voxel sampler's cell at
     level l (level 0 unused). ``knn_recall`` only sets the natural layout's
@@ -118,7 +119,7 @@ class Pyramid:
     subscene_idx: Tuple
 
 
-SAMPLERS = ("strided", "serialized", "fps", "bucket_fps", "voxel")
+SAMPLERS = ("strided", "serialized", "fps", "bucket_fps", "voxel", "random")
 
 
 def _check_spec(spec: PyramidSpec):
@@ -138,7 +139,9 @@ def _sample(points: torch.Tensor, m: int, spec: PyramidSpec, level: int) -> torc
     """The sampler's m rows of ``points`` [B, N, 3] → [B, m] int32 (JAX
     ``_sample``): bucket_fps halves its buckets while they do not divide N
     and m, and is exact fps at one bucket; strided is serialized here (the
-    sorted layout's strided pick never comes here)."""
+    sorted layout's strided pick never comes here); random is the level's
+    fixed permutation (sorted by row on the sorted layout, by the
+    caller)."""
     if spec.sampler == "fps":
         return fps(points, m)
     if spec.sampler == "bucket_fps":
@@ -148,6 +151,8 @@ def _sample(points: torch.Tensor, m: int, spec: PyramidSpec, level: int) -> torc
         return fps(points, m) if g <= 1 else bucket_fps(points, m, g)
     if spec.sampler in ("serialized", "strided"):
         return serialized_sample(points, m)
+    if spec.sampler == "random":
+        return random_sample(points, m, level)
     return voxel_sample(points, m, spec.voxel_sizes[level])
 
 

@@ -1,17 +1,21 @@
 """Morton (Z-order) serialization and the samplers (counterpart of
 contrastboundary_tpu/ops/sampling.py:22-148): ``serialized_order``, exact
-``fps``, ``bucket_fps``, ``serialized_sample`` and ``voxel_sample``.
+``fps``, ``bucket_fps``, ``serialized_sample``, ``voxel_sample`` and the
+pyramid's ``random_sample`` (contrastboundary_tpu/ops/pyramid.py:178-186).
 
 The FPS chains run in ops/cuda/fps.py (the CUDA kernel for CUDA tensors,
-the plain version for CPU tensors). The reference's ``random_sample`` (its
-bits are threefry's) is not ported.
+the plain version for CPU tensors).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..utils import threefry
 from .cuda import fps as fps_cuda
+
+# (level, n, m, device) → the random sampler's picks on that device
+_RANDOM_PICKS: dict = {}
 
 
 def _part1by2(x: torch.Tensor) -> torch.Tensor:
@@ -118,3 +122,17 @@ def voxel_sample(points: torch.Tensor, m: int, voxel_size: float) -> torch.Tenso
     first_pos.scatter_(1, slot, pos)
     j = (torch.arange(m, device=points.device)[None] * count[:, None]) // m
     return torch.gather(order, 1, torch.gather(first_pos, 1, j)).to(torch.int32)
+
+
+def random_sample(points: torch.Tensor, m: int, level: int) -> torch.Tensor:
+    """RandLA-style uniform decimation, as the reference's pyramid draws it:
+    the first m rows of ``jax.random.permutation(PRNGKey(level), N)``, the
+    same for every cloud of the batch. points [B, N, 3] → idx [B, m] int32.
+    The picks are a constant of (level, N, m): computed once on the host
+    (utils/threefry.py) and copied once to each device."""
+    b, n, _ = points.shape
+    key = (level, n, m, points.device)
+    if key not in _RANDOM_PICKS:
+        pick = threefry.permutation(threefry.prng_key(level), n)[:m].astype(np.int32)
+        _RANDOM_PICKS[key] = torch.as_tensor(pick, device=points.device)
+    return _RANDOM_PICKS[key][None].expand(b, m)

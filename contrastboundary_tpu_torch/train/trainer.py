@@ -1,9 +1,11 @@
 """The train step (counterpart of contrastboundary_tpu/train/trainer.py::
 make_train_step): pyramid, features and labels into its row order (Morton
 order on the sorted layout, the caller's on the natural one), the model in
-train mode, cross-entropy plus the 5-stage CBL, backward, the optimizer's
-update, and the confusion of the step's predictions; and ``Trainer``, the
-minimal epoch loop over it (::Trainer)."""
+train mode, the main loss (cross-entropy, optionally class-weighted, the
+binary sigmoid cross-entropy or none, times its weight) plus the 5-stage
+CBL, backward, the optimizer's update, and the confusion of the step's
+predictions; and ``Trainer``, the minimal epoch loop over it
+(::Trainer)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,25 +18,59 @@ from ..core.gather import batch_gather
 from ..device import resolve_device
 from ..eval.metrics import AverageMeter, confusion_matrix, metrics_from_confusion
 from ..losses.contrast import ContrastConfig, cbl_loss
-from ..losses.segmentation import cross_entropy
+from ..losses.segmentation import cross_entropy, sigmoid_cross_entropy
 from ..ops.pyramid import PyramidSpec, build_pyramid
 from ..parallel.mesh import all_reduce_grads, all_reduce_metrics
+from ..utils import threefry
 from .state import set_learning_rate
+
+MAIN_LOSSES = ("xen", "sigmoid", "none")
+DROPOUT_SEED = 17  # the JAX trainer's: rngs={'dropout': fold_in(PRNGKey(17), step)}
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
-    """The fields of the JAX TrainStepConfig that the flagship uses (main
-    loss 'xen' with weight 1 and no class weights, no branch loss)."""
+    """The fields of the JAX TrainStepConfig that the port's heads use (no
+    branch loss): the main loss ``main_loss`` (xen | sigmoid | none) times
+    ``main_weight``, the xen's per-class weights ``class_weights`` (a
+    tuple, indexed by the label clipped to the classes), and
+    ``has_dropout``, which threads the dropout key into the model."""
 
     num_classes: int
     spec: PyramidSpec
     contrast: Optional[ContrastConfig] = None
     ignore_label: int = -1
+    main_loss: str = "xen"
+    main_weight: float = 1.0
+    class_weights: Optional[tuple] = None
+    has_dropout: bool = False
+
+
+def dropout_key(step: int) -> threefry.Key:
+    """The dropout key of the update ``step`` (updates applied before it),
+    the JAX trainer's ``fold_in(PRNGKey(17), state.step)``."""
+    return threefry.fold_in(threefry.prng_key(DROPOUT_SEED), step)
+
+
+def main_loss(cfg: TrainStepConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The unweighted main loss of ``cfg`` (JAX train_step's): sigmoid,
+    none (0), or xen with the class weights where given."""
+    if cfg.main_loss == "sigmoid":
+        return sigmoid_cross_entropy(logits, labels, cfg.ignore_label)
+    if cfg.main_loss == "none":
+        return torch.zeros((), device=logits.device)
+    if cfg.main_loss != "xen":
+        raise ValueError(f"main_loss {cfg.main_loss!r} is not one of {MAIN_LOSSES}")
+    pw = None
+    if cfg.class_weights is not None:
+        table = torch.tensor(cfg.class_weights, dtype=torch.float32, device=logits.device)
+        pw = table[labels.clamp(0, len(cfg.class_weights) - 1)]
+    return cross_entropy(logits, labels, cfg.ignore_label, weight=pw)
 
 
 def make_train_step(model: torch.nn.Module, cfg: TrainStepConfig,
-                    optimizer: torch.optim.Optimizer, device="cuda") -> Callable:
+                    optimizer: torch.optim.Optimizer, device="cuda",
+                    start_step: int = 0) -> Callable:
     """Move ``model`` to ``device`` and return step(batch) → metrics, which
     puts the model in train mode and updates its parameters (through
     ``optimizer``, built over them) and its BatchNorm statistics in place.
@@ -42,7 +78,8 @@ def make_train_step(model: torch.nn.Module, cfg: TrainStepConfig,
     (arrays or tensors, any row order): this rank's share of the global
     batch. metrics: ce, cbl, cbl_stage<i>, loss (0-d tensors) and
     confusion [C, C] of the global batch, on the device, without
-    gradient."""
+    gradient. The step counts the updates it applies from ``start_step``
+    (``step.count``, JAX's ``state.step``), which keys the dropout."""
     dev = resolve_device(device)
     model.to(dev)
 
@@ -58,9 +95,10 @@ def make_train_step(model: torch.nn.Module, cfg: TrainStepConfig,
             features = batch_gather(features, pyramid.order0)
             labels = batch_gather(labels, pyramid.order0)
 
-        out = model(features, pyramid)
-        ce = cross_entropy(out.logits, labels, cfg.ignore_label)
-        total = ce
+        key = dropout_key(step.count) if cfg.has_dropout else None
+        out = model(features, pyramid, dropout_key=key)
+        ce = main_loss(cfg, out.logits, labels)
+        total = cfg.main_weight * ce
         metrics = {"ce": ce}
         if cfg.contrast is not None:
             cb, per_stage = cbl_loss(
@@ -72,9 +110,14 @@ def make_train_step(model: torch.nn.Module, cfg: TrainStepConfig,
         metrics["loss"] = total
 
         optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        if total.requires_grad:
+            total.backward()
+        else:  # main loss 'none' and no CBL: JAX's gradient is zero, decay still applies
+            for p in model.parameters():
+                p.grad = torch.zeros_like(p)
         all_reduce_grads(model.parameters())
         optimizer.step()
+        step.count += 1
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["confusion"] = confusion_matrix(
@@ -82,6 +125,7 @@ def make_train_step(model: torch.nn.Module, cfg: TrainStepConfig,
             )
         return all_reduce_metrics(metrics)
 
+    step.count = int(start_step)
     return step
 
 
@@ -98,7 +142,7 @@ class Trainer:
         self.model, self.optimizer, self.cfg = model, optimizer, cfg
         self.schedule = schedule
         self.step = step
-        self.train_step = make_train_step(model, cfg, optimizer, device)
+        self.train_step = make_train_step(model, cfg, optimizer, device, start_step=step)
         self.log = log_fn
 
     def train_epoch(self, batches: Iterable, log_freq: int = 10) -> Dict[str, float]:

@@ -6,6 +6,7 @@ tests/test_heads_dsl.py wherever the port has the option, and raising
 NotImplementedError (naming its ROADMAP item) where it does not; the
 flagship's PyramidSpec and models. No tolerance: every field equal."""
 import dataclasses
+import importlib
 
 import pytest
 import torch
@@ -58,6 +59,21 @@ DSL_CASES = PUBLISHED_OP_STRINGS + [
     "multi-Ua-concat-latent-loss|contrast-Ua-softnn-latent-label-l2-w.1",
 ]
 PORT_CONTRAST = {f.name for f in dataclasses.fields(ContrastConfig)}
+# the 19 presets of each package, registered when their module is imported
+for _presets in ("contrastboundary_tpu.config.s3dis", "contrastboundary_tpu_torch.config.s3dis"):
+    importlib.import_module(_presets)
+PRESETS = sorted(CONFIGS)
+assert len(PRESETS) == 19
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_per_worker():
+    """The models built here draw their fresh weights with one torch thread:
+    under the suite's workers a thread a core oversubscribes the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def test_presets_equal_jax():
@@ -105,9 +121,8 @@ def test_yaml_files_equal_jax(tmp_path):
 
 
 def _port_has(heads: dict) -> bool:
-    """Whether the port has every option of JAX's parsed heads."""
-    if "mlp" in heads:
-        return False
+    """Whether the port has every option of JAX's parsed heads (the plain
+    mlp head's every option among them)."""
     multi = heads.get("multi")
     if multi is not None:
         flagship = dsl.flagship_multi()
@@ -188,16 +203,16 @@ def test_build_model(name, dtype):
 
 
 @pytest.mark.parametrize("name,sets,item", [
-    ("s3dis_randla_cbl", None, "item 7"),
+    ("s3dis_conv_cbl", "model.dtype:bfloat16", "item 7"),
     ("synthetic_conv_tiny", "model.knn_window:4", "item 7"),
     ("s3dis_pt_cbl_paper", "model.contrast_mode:tile", "item 7"),
     ("s3dis_pt_cbl_paper", "model.dtype:bfloat16", "item 7"),
-    ("s3dis_pt_cbl_paper", "model.sampler:random", "item 7"),
+    ("s3dis_pt_cbl", 'arch_out:"multi-Ua-sum-latent"', "item 7"),
     ("s3dis_pt_cbl", "model.knn_recall:0.9", "item 7"),
     ("s3dis_pt_cbl", "model.contrast_window:2", "item 7"),
     ("s3dis_pt_cbl", "model.knn_window:4", "item 7"),
     ("s3dis_pt_cbl", "model.save_memory:true", "item 7"),
-    ("s3dis_pt", None, "item 7"),
+    ("s3dis_pt", 'arch_out:"mlp-1-xen|contrast-Ua-softnn-latent-label-l2-w.1"', "item 7"),
     ("s3dis_pt_cbl", 'arch_out:"multi-Ua-concat-latent|contrast-Ua-nce-latent-label-l2-w.1"',
      "item 7"),
 ])
@@ -205,3 +220,43 @@ def test_unported_options_raise(name, sets, item):
     cfg = load_config(name, sets)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
         cfg.build_model(device="cpu")
+
+
+def _spec_equals_jax(name, sets=None):
+    """The port's spec of the preset equals JAX's on every field both have."""
+    spec, ref = load_config(name, sets).pyramid_spec(), jax_load_config(name, sets).pyramid_spec()
+    shared = {f.name for f in dataclasses.fields(ref)} & {f.name for f in dataclasses.fields(spec)}
+    for f in sorted(shared):
+        assert getattr(spec, f) == getattr(ref, f), (name, f)
+    return spec
+
+
+@pytest.mark.parametrize("name,sets,sampler,head", [
+    ("s3dis_randla_cbl", None, "random", "multihead"),
+    ("s3dis_pt_cbl_paper", "model.sampler:random", "random", "multihead"),
+    ("s3dis_pt", None, "strided", "cls_tower"),
+])
+def test_formerly_unported_presets_build(name, sets, sampler, head):
+    """The three cases this test's list once held as raising: each builds
+    its model, with the head its arch_out names, and its spec is JAX's."""
+    spec = _spec_equals_jax(name, sets)
+    assert spec.sampler == sampler
+    model = load_config(name, sets).build_model(device="cpu")
+    assert hasattr(model, head)
+    assert hasattr(model, "cls") == (head == "cls_tower")
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_every_preset_builds_with_the_jax_spec(name):
+    _spec_equals_jax(name)
+    model = load_config(name).build_model(device="cpu")
+    assert sum(p.numel() for p in model.parameters()) > 0
+
+
+def test_both_heads_or_a_plain_head_with_cbl():
+    with pytest.raises(ValueError, match="exactly one prediction path"):
+        load_config("s3dis_pt", 'arch_out:"multi-Ua-concat-latent|mlp-2-xen"').build_model(
+            device="cpu")
+    with pytest.raises(ValueError, match="1 channel"):
+        from contrastboundary_tpu_torch.losses import sigmoid_cross_entropy
+        sigmoid_cross_entropy(torch.zeros(2, 3, 2), torch.zeros(2, 3, dtype=torch.long))

@@ -2,8 +2,9 @@
 does: its PyramidSpec equal to JAX's field by field; for one preset of
 each aggregation and the narrow synthetic one, its model's state_dict the
 shapes of JAX's flax tree (traced by jax.eval_shape, no compile); s3dis_pt_cbl_kl (the kl positives) builds too, and
-s3dis_randla_cbl (the random sampler) raises NotImplementedError naming
-its ROADMAP item."""
+s3dis_randla_cbl (the random sampler) builds (tests/test_torch_randla.py
+holds it against JAX), while its options the port lacks raise
+NotImplementedError naming their ROADMAP item."""
 import dataclasses
 from collections.abc import Mapping
 
@@ -75,8 +76,12 @@ def test_preset_builds_its_model_and_spec_as_jax(name):
 
 
 def test_randla_preset_raises_naming_the_roadmap_item():
+    """The preset builds with the random sampler; the windowed KNN and a
+    bfloat16 ConvNet, which the port lacks, still raise naming the item."""
     cfg = load_config("s3dis_randla_cbl")
+    assert cfg.pyramid_spec().sampler == "random"
+    cfg.build_model(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        cfg.pyramid_spec()
+        load_config("s3dis_randla_cbl", "model.knn_window:4").pyramid_spec()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        cfg.build_model(device="cpu")
+        load_config("s3dis_randla_cbl", "model.dtype:bfloat16").build_model(device="cpu")

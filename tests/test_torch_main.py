@@ -15,9 +15,9 @@ torch thread (the suite runs six workers at once on the machine's cores).
 - A NaN in a room's colours raises FloatingPointError and writes
   ``nan_dump.pkl``; ``--mode check`` logs its histograms; without CUDA and
   without ``--device cpu`` the entry raises (modes check, calibrate and
-  test), and the one ConvNet preset the port cannot build,
-  s3dis_randla_cbl (the random sampler), raises NotImplementedError naming
-  ROADMAP item 7 at ``--mode train``.
+  test), and a ConvNet preset with an option the port lacks
+  (s3dis_randla_cbl in bfloat16) raises NotImplementedError naming ROADMAP
+  item 7 at ``--mode train``.
 """
 import os
 import pickle
@@ -181,4 +181,4 @@ def test_entry_needs_cuda_unless_cpu_and_raises_for_a_convnet_preset(tmp_path, m
             entry.main(["-c", "s3dis_pt_cbl", "--mode", mode, "--exp_dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 7"):
         entry.main(["-c", "s3dis_randla_cbl", "--mode", "train", "--device", "cpu",
-                    "--exp_dir", str(tmp_path)])
+                    "--set", "model.dtype:bfloat16", "--exp_dir", str(tmp_path)])

@@ -177,8 +177,8 @@ def test_eval_pyramid_skips_contrast_and_subscene(crops):
 
 
 @pytest.mark.parametrize("kw,msg", [
-    (dict(layout="natural", sampler="random"), "ported samplers"),
-    (dict(layout="sorted", sampler="random"), "ported samplers"),
+    (dict(layout="natural", sampler="uniform"), "ported samplers"),
+    (dict(layout="sorted", sampler="uniform"), "ported samplers"),
     (dict(layout="natural", sampler="voxel"), "voxel_sizes"),
     (dict(radii=(0.1,) * 5), "radius"),
 ])

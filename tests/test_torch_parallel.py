@@ -6,7 +6,7 @@ make_train_step on a 2-device mesh with the batch sharded (the JAX
 package's data parallelism: XLA's all-reduces under its sharded jit).
 
 Tolerances, each with its reason:
-- BatchNorm, StaleBatchNorm, the four loss means, voting (the ranks' rows
+- BatchNorm, StaleBatchNorm, the loss means, voting (the ranks' rows
   stacked or their shares summed, against world size 1): 1e-6 of scale;
   only float32 sums over other row groupings differ.
 - ConvNet step (W = 2 against W = 1): metrics rtol 1e-6; parameters and
@@ -48,7 +48,8 @@ from test_torch_main import write_rooms
 
 ROOT = Path(__file__).resolve().parent.parent
 WORLD = 2
-LOSSES = ("ce", "cbl_global_cnt", "cbl_global_kl", "cbl_tile", "cbl_v2", "cbl_dense")
+LOSSES = ("ce", "ce_class", "sigmoid", "cbl_global_cnt", "cbl_global_kl", "cbl_tile", "cbl_v2",
+          "cbl_dense")
 
 
 def _free_port():
@@ -139,6 +140,7 @@ def runs(tmp_path_factory):
         with ThreadPoolExecutor(len(first)) as pool:
             steppers = _jax_steppers(first, pool)
             single = cases.run_all(trees)
+            single["main"] = cases.main_case(out, exp="exp_w1", val=False)
             jax_runs = {mode: [step(first[mode])] for mode, step in steppers.items()}
         ranks = []
         for r, p in enumerate(procs):
@@ -363,12 +365,51 @@ def test_main_trains_and_restores_across_ranks(runs):
     assert a["val"]["full"]["mIoU"] == b["val"]["full"]["mIoU"] == a["best_miou"]
     log = (exp / "log_train.txt").read_text()
     assert "(rank 0 of 2)" in log and "(rank 1 of 2)" not in log
-    # 2 train rooms, loop 2, batch 2 a rank: one step an epoch on each rank
-    assert len(read_scalars(str(exp / "scalars.jsonl"))["train/loss"][0]) == 1
-    assert sorted(os.listdir(exp / "checkpoints")) == ["best.json", "snap-1"]
-    assert "collectives over 1 steps: {'all_reduce': {'calls': " in log
+    # 2 train rooms, loop 4, batch 2 a rank: two steps an epoch on each rank
+    assert len(read_scalars(str(exp / "scalars.jsonl"))["train/loss"][0]) == 2
+    assert sorted(os.listdir(exp / "checkpoints")) == ["best.json", "snap-2"]
+    assert "collectives over 2 steps: {'all_reduce': {'calls': " in log
+    assert "2 steps/epoch a rank" in log
     rank_logs = [(runs["out"] / f"rank{r}.log").read_text() for r in range(WORLD)]
     assert all("(rank 1 of 2)" in t for t in rank_logs[1:])
+
+
+def _first_drop(lrs):
+    """The fraction of the run's steps before the learning rate first
+    drops."""
+    drops = [i for i, lr in enumerate(lrs) if lr < lrs[0]]
+    assert drops, lrs
+    return drops[0] / len(lrs)
+
+
+def test_learning_rate_drops_at_the_same_fraction_at_w2(runs):
+    """The multistep schedule (one milestone at half of the one epoch)
+    sized by the steps a rank takes: each rank of the W = 2 run (2 steps)
+    takes the drop at the same fraction of its steps as the W = 1 run (4
+    steps) of the same config, global batch and rooms."""
+    ref = runs["single"]["main"]["lrs"]
+    assert len(ref) == 4 and _first_drop(ref) == 0.5
+    for r in runs["ranks"]:
+        lrs = r["main"]["lrs"]
+        assert len(lrs) == 2
+        assert _first_drop(lrs) == _first_drop(ref)
+        assert lrs[-1] == ref[-1]
+
+
+def test_exponential_schedule_counts_a_rank_s_steps(monkeypatch):
+    """main.py's setup sizes the exponential schedule with the steps a rank
+    takes an epoch: at W = 2 the rate decays once after that many steps."""
+    import contrastboundary_tpu_torch.main as entry
+
+    monkeypatch.setattr(entry, "process_count", lambda: 2)
+    cfg = load_config("synthetic_conv_tiny", "data.num_rooms:2;data.points_per_room:3000;"
+                      "data.loop:4;optim.batch_size:2;model.base_fdim:12;model.strides:[1,4]")
+    assert cfg.optim.schedule == "exponential"
+    *_, schedule, train_ds, steps = entry.setup(cfg, entry.setup_logger(), "cpu")
+    assert (len(train_ds), steps) == (8, 2)
+    base = np.float32(cfg.optim.base_lr)
+    assert schedule(steps - 1) == base
+    assert schedule(steps) == float(np.float32(base * np.float32(cfg.optim.decay_rate)))
 
 
 def test_batches_must_split_over_the_ranks(runs):

@@ -30,7 +30,10 @@ from contrastboundary_tpu_torch import parallel  # noqa: E402
 from contrastboundary_tpu_torch.losses.contrast import (  # noqa: E402
     ContrastConfig, cbl_stage_loss, subscene_labels,
 )
-from contrastboundary_tpu_torch.losses.segmentation import cross_entropy  # noqa: E402
+from contrastboundary_tpu_torch.losses.segmentation import (  # noqa: E402
+    cross_entropy, sigmoid_cross_entropy,
+)
+from contrastboundary_tpu_torch.train.trainer import TrainStepConfig, main_loss  # noqa: E402
 from contrastboundary_tpu_torch.models import (  # noqa: E402
     PointTransformerSeg, load_jax_variables, to_jax_variables,
 )
@@ -52,8 +55,10 @@ LR = 0.05
 BN_SHAPES = ((4, 64, 6), (4, 16, 8, 5))
 CONV_SETS = "model.base_fdim:12;model.strides:[1,4,4]"
 ROOM_POINTS = 3000
-MAIN_SETS = ("optim.batch_size:2;optim.epochs:1;data.loop:2;eval.num_votes:0.3;"
-             "eval.batch_size:2;data.n_points:2048;data.voxel_max:3000;"
+# loop 4: 8 crops an epoch, so 2 steps a rank at W = 2 and 4 at W = 1; the
+# learning rate's one milestone at half the epoch falls inside the run
+MAIN_SETS = ("optim.batch_size:2;optim.epochs:1;data.loop:4;optim.milestones:[0.5];"
+             "eval.num_votes:0.3;eval.batch_size:2;data.n_points:2048;data.voxel_max:3000;"
              "model.planes:[16,32,64,128,256];model.blocks:[1,1,1,1,1];log_freq:1")
 
 
@@ -178,9 +183,10 @@ def loss_inputs():
 
 
 def loss_cases():
-    """Each of the four loss means (cross-entropy; the CBL tile and global
-    routes, cnt and kl; the v2 route; the dense route) → this rank's share
-    of the global loss and the gradient of its input rows."""
+    """Each of the loss means (cross-entropy, with class weights too; the
+    plain head's sigmoid cross-entropy on binary labels; the CBL tile and
+    global routes, cnt and kl; the v2 route; the dense route) → this rank's
+    share of the global loss and the gradient of its input rows."""
     inp = loss_inputs()
     out = {}
 
@@ -192,6 +198,11 @@ def loss_cases():
 
     labels = mine(inp["labels"])
     run("ce", lambda x: cross_entropy(x, labels), inp["logits"])
+    weighted = TrainStepConfig(num_classes=13, spec=TINY_SPEC,
+                               class_weights=tuple(np.linspace(0.5, 2.0, 13)))
+    run("ce_class", lambda x: main_loss(weighted, x, labels), inp["logits"])
+    binary = torch.where(labels >= 0, labels % 2, labels)
+    run("sigmoid", lambda x: sigmoid_cross_entropy(x, binary), inp["logits"][..., :1])
     soft, cidx = mine(inp["label_soft"]), mine(inp["contrast_idx"])
     gsoft, gidx = mine(inp["global_soft"]), mine(inp["global_idx"])
     for pos in ("cnt", "kl"):
@@ -286,27 +297,35 @@ def voting_case():
             "requests": ctx["evaluator"].requests, "mIoU": m["full"]["mIoU"]}
 
 
-def main_case(out: Path):
-    """main.py --mode train, then --mode val, on the rooms of ``out/data``
-    into ``out/exp``: the models main.py built, their states after each."""
+def main_case(out: Path, exp: str = "exp", val: bool = True):
+    """main.py --mode train, then (with ``val``) --mode val, on the rooms
+    of ``out/data`` into ``out/<exp>``: the models main.py built, their
+    states after each, and the learning rate of each train step."""
     import contrastboundary_tpu_torch.main as entry
 
-    built = []
-    setup = entry.setup
+    built, lrs = [], []
+    setup, set_lr = entry.setup, entry.set_learning_rate
 
     def recording_setup(*args, **kw):
         res = setup(*args, **kw)
         built.append(res[0])
         return res
 
+    def recording_set_lr(optimizer, schedule, step):
+        lrs.append(schedule(step))
+        return set_lr(optimizer, schedule, step)
+
     sets = f"data.data_root:{out / 'data'};{MAIN_SETS}"
-    argv = ["-c", "s3dis_pt_cbl", "--device", "cpu", "--set", sets, "--exp_dir", str(out / "exp")]
+    argv = ["-c", "s3dis_pt_cbl", "--device", "cpu", "--set", sets, "--exp_dir", str(out / exp)]
     res = {}
-    with mock.patch.object(entry, "setup", recording_setup):
+    with mock.patch.object(entry, "setup", recording_setup), \
+            mock.patch.object(entry, "set_learning_rate", recording_set_lr):
         res["best_miou"] = entry.main(argv + ["--mode", "train"])
         res["trained"] = {k: host(v) for k, v in built[-1].state_dict().items()}
-        res["val"] = entry.main(argv + ["--mode", "val", "--extra_ops", ""])
-        res["restored"] = {k: host(v) for k, v in built[-1].state_dict().items()}
+        res["lrs"] = list(lrs)
+        if val:
+            res["val"] = entry.main(argv + ["--mode", "val", "--extra_ops", ""])
+            res["restored"] = {k: host(v) for k, v in built[-1].state_dict().items()}
     return res
 
 
