@@ -365,6 +365,45 @@ is not 0:
            then --mode val on the run (window_topk and window_gather only).
 39. randla-entry the same for s3dis_randla_cbl (batch 8 -> 2), no kernel
            of the port launched.
+40. windowed-kernels ops/knn.py::windowed_knn (knn_window 3, tiles of 256)
+           at the level shapes of s3dis_pt_cbl_paper's training pyramid
+           and s3dis_conv_cbl's radius searches, B = 2 x 65536 crops on the
+           1/64 m grid: self (ensure_self), contrast (exclude_self), down,
+           up, near0 under both top-1 tie rules, sub-scene; the ConvNet's
+           self and down searches within their radii. Each with the kernel
+           and with the plain version: indices and d2 equal bit for bit, its
+           window_topk launch exact; the launch alone, the whole windowed
+           search and the dense knn of the same query timed (L2 flushed,
+           mean of 5) beside the launch's bound.
+41. pt-natural-windowed-train s3dis_pt_cbl_paper with model.knn_window:3
+           and model.contrast_mode:tile from the checkpoint, B = 2 x 65536 on
+           phase 30's crops: the natural pyramid on the card against the
+           CPU's on a grid crop (every index and the tile contrast search's
+           Morton orders equal), one step card vs CPU; 5 steps that lower
+           the loss (median, peak, the pyramid's device time beside phase
+           30's), one profiled; one step with the counts reset: exactly
+           window_topk 26, cbl_stats_fwd 5, cbl_stats_bwd 5, fps 4 and no
+           wide search; kernel vs plain step at phase 8's limits; each
+           call against its plain version and timed (3 runs).
+42. pt-natural-windowed-serve its eval step at the preset's B = 4:
+           window_topk 17 and fps 4 a request, the median of 3 beside phase
+           31's, probs within 1e-4 of the plain versions'; then main.py -c
+           s3dis_pt_cbl_paper --mode train with both --sets on phase 24's
+           rooms (loop 1: 2 steps, no epoch-end eval), each step's launches
+           those of phase 41.
+43. conv-windowed-train s3dis_conv_cbl with model.knn_window:3, fresh
+           weights: its pyramid on the card against the CPU's on phase 27's
+           grid crop, one step card vs CPU at phase 27's limits; B = 8
+           (halved while it does not fit): 5 steps that lower the loss,
+           median, peak and the pyramid's device time beside phase 27's;
+           exactly 26 window_topk launches a step and no other kernel; each
+           call against its plain version and timed (3 runs).
+44. contrast-window-train the sorted flagship s3dis_pt_cbl with
+           model.contrast_window:2 as phase 8 runs it (the self search and
+           a contrast search of 5 tiles, 1,280 rows, apart): window_topk 23
+           a step (18 + 5), the CBL kernels at width 5; kernel vs plain step;
+           the window top-k and CBL calls against their plain versions and
+           timed (5 runs).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -378,7 +417,9 @@ gathers of phase 17's step, the attention of phase 18's), and the FPS
 kernel per natural train step (phase 30's; its exact call under "exact"),
 the s3dis_pt step's kernels per s3dis_pt train step (phase 35's: the
 gathers and the top-k of its batch-BN step, the attention of its stale
-step) as entries named "s3dis_pt/<kernel>", and as its last
+step) as entries named "s3dis_pt/<kernel>", the kernels of the option
+paths per step of phases 41, 43 and 44 as "pt_natural_windowed/<kernel>",
+"conv_windowed/<kernel>" and "contrast_window/<kernel>", and as its last
 line {"ok": true, "device": {...}}. Without CUDA it exits with 2 before
 doing anything.
 """
@@ -387,6 +428,7 @@ from __future__ import annotations
 import ast
 import copy
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -592,6 +634,21 @@ PT_NATURAL, PT_NATURAL_SCANNET = "s3dis_pt_cbl_paper", "scannet_pt_cbl"
 # head; one step of it with dropout) and the RandLA-style ConvNet+CBL (the
 # random sampler)
 PT_BASE, PT_BASE_DROPOUT, RANDLA = "s3dis_pt", "arch_out:mlp-1-xen-dp.5", "s3dis_randla_cbl"
+# phases 40-44: the pyramid options. The natural point transformer with the
+# windowed KNN and the tile contrast search (and the launches predicted for
+# its step and its request at B x N: levels of 65536 .. 256 rows, each a
+# multiple of the tile of 256, so every search is a window search: 5 self, 4
+# down, 4 up, 4 near0, 4 sub-scene and 5 tile contrast searches a step, the
+# CBL's 5 stages on the dense-window kernels, fps on the 4 sampled levels);
+# the ConvNet with the windowed KNN (the same 26 searches, the contrast ones
+# windowed global searches); the sorted flagship with a contrast window of
+# its own (its 18 searches and 5 contrast searches of width 5 tiles)
+PT_WINDOWED = "model.knn_window:3;model.contrast_mode:tile"
+PT_WINDOWED_STEP = {"window_topk": 26, "cbl_stats_fwd": 5, "cbl_stats_bwd": 5, "fps": 4}
+PT_WINDOWED_REQUEST = {"window_topk": 17, "fps": 4}
+CONV_WINDOWED = "model.knn_window:3"
+CONV_WINDOWED_STEP = {"window_topk": 26}
+PT_FLAGSHIP, CONTRAST_WINDOW, CONTRAST_WINDOW_TOPK = "s3dis_pt_cbl", "model.contrast_window:2", 23
 # phases 33-34: data parallel (parallel/); the seeds of the global batches
 # of the rank-vs-world-size-1 steps, and the most cards dp-nccl groups
 DP_SEEDS = {"batch": (0, 1), "stale": (0,)}
@@ -1002,24 +1059,38 @@ def check_kernels(dev, points_sets) -> float:
 
 
 def check_topk_modes(dev, pts) -> float:
-    """window_topk where no eval or train geometry takes it (the train and
-    serve paths use the plain and ensure_self modes with k <= W): k > W in
-    the self and cross geometries, and exclude_self with k <= W and k > W,
-    on an integer-grid cloud, held to exact equality."""
+    """window_topk where no eval or train geometry of the sorted layout
+    takes it (its train and serve paths use the plain and ensure_self modes
+    with k <= W): k > W in the self and cross geometries, and exclude_self
+    with k <= W and k > W; and the top-1 tie bit of the natural layout's
+    windowed searches (last_ties, k = 1) in each mode at each window size
+    class of the kernel (32 · 8, 16, 24, 32, 48, 64 rows a lane), with
+    exclude_self where the excluded self is the last of the tied rows; on
+    an integer-grid cloud with duplicated rows, held to exact equality."""
     p = torch.as_tensor(pts, device=dev)
     small = p[:, :2048].contiguous()
+    cross = p[:, ::4].contiguous()
     cases = (
         ("exclude_self", p, p, 16, dict(tile=256, width=3, window=1)),
         ("plain", small, small, 12, dict(tile=8, width=1, window=0)),
         ("exclude_self", small, small, 12, dict(tile=8, width=1, window=0)),
-        ("plain", p[:, ::4].contiguous(), p, 300, dict(tile=256, width=1, window=0)),
+        ("plain", cross, p, 300, dict(tile=256, width=1, window=0)),
+        ("plain", cross, p, 1, dict(tile=256, width=1, window=0, last_ties=True)),
+        ("exclude_self", p, p, 1, dict(tile=256, width=2, window=1, last_ties=True)),
+        ("ensure_self", p, p, 1, dict(tile=256, width=3, window=1, last_ties=True)),
+        ("plain", cross, p, 1, dict(tile=256, width=4, window=1, last_ties=True)),
+        ("exclude_self", p, p, 1, dict(tile=256, width=6, window=3, last_ties=True)),
+        ("plain", p, cross, 1, dict(tile=256, width=8, window=3, last_ties=True)),
+        ("exclude_self", small, small, 1, dict(tile=8, width=1, window=0, last_ties=True)),
     )
     for mode, query, support, k, geo in cases:
         kw = dict(geo, mode=mode)
         out = wt.window_topk(query, support, k, **kw)
         compare_topk(((query, support, k), kw, out), exact=True)
         print(f"  window_topk mode={mode} k={k} W={geo['tile'] * geo['width']} "
-              f"M={query.shape[1]} Ns={support.shape[1]}: equal to the plain version", flush=True)
+              f"M={query.shape[1]} Ns={support.shape[1]} ties "
+              f"{'last' if geo.get('last_ties') else 'first'}: equal to the plain version",
+              flush=True)
     return 0.0
 
 
@@ -1119,7 +1190,8 @@ def bound_ms(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops), t_bytes, t_ops
 
 
-def topk_library_call(query, support, k, *, tile, width, window, mode="plain"):
+def topk_library_call(query, support, k, *, tile, width, window, mode="plain",
+                      last_ties=False):
     """torch.topk over the window distance tensor (built outside the timed
     call): the library yardstick, which leaves out the distances."""
     b, m, _ = query.shape
@@ -1232,7 +1304,8 @@ def call_costs(name, call):
         w_sz = kw["width"] * kw["tile"]
         n_bytes = 4 * (query.numel() + support.numel()) + 8 * b * m * k
         n_ops = 10.0 * b * m * w_sz  # 9 FLOPs of distance + 1 compare a pair
-        shape = dict(k=k, B=b, M=m, Ns=support.shape[1], W=w_sz, mode=kw.get("mode", "plain"))
+        shape = dict(k=k, B=b, M=m, Ns=support.shape[1], W=w_sz, mode=kw.get("mode", "plain"),
+                     ties="last" if kw.get("last_ties") else "first")
         return kern, plain, topk_library_call(query, support, k, **kw), n_bytes, n_ops, shape
     size = lambda t: t.element_size() * t.numel()  # bytes, at the tensor's dtype
     if name == "window_gather":
@@ -1385,10 +1458,12 @@ def buffers(model) -> dict:
     return {k: v.detach().clone() for k, v in model.named_buffers()}
 
 
-def run_train(dev, bn_mode="batch", route="dense", dtype=torch.float32) -> dict:
-    """Phases 8, 10, 12, 13, 17 and 18: the flagship train step at B x N from
-    the checkpoint, with flax batch BN or stale BN, on one of the CBL routes
-    (the caller selects it with cbl_route_env), float32 or bfloat16. The
+def run_train(dev, bn_mode="batch", route="dense", dtype=torch.float32,
+              spec=TRAIN_SPEC) -> dict:
+    """Phases 8, 10, 12, 13, 17, 18 and 44: the flagship train step at B x N
+    from the checkpoint, with flax batch BN or stale BN, on one of the CBL
+    routes (the caller selects it with cbl_route_env), float32 or bfloat16,
+    on the flagship's pyramid or ``spec``. The
     kernel-vs-plain step tolerances of a bfloat16 step (loss 1e-3, gradient
     norm and running statistics 1e-2) allow for the values that the
     kernels' and the plain versions' float32 sums, in their different
@@ -1404,8 +1479,7 @@ def run_train(dev, bn_mode="batch", route="dense", dtype=torch.float32) -> dict:
         ", bfloat16" if bf16 else "")
     model, trained = load_model(bn_mode, dtype)
     opt = make_optimizer(model.parameters(), TRAIN_LR)
-    cfg = TrainStepConfig(num_classes=NUM_CLASSES, spec=TRAIN_SPEC,
-                          contrast=ContrastConfig(impl=impl))
+    cfg = TrainStepConfig(num_classes=NUM_CLASSES, spec=spec, contrast=ContrastConfig(impl=impl))
     step = make_train_step(model, cfg, opt, device=dev)
     rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
     batch = train_batch(rooms, B, N, np.random.default_rng(0))
@@ -1436,7 +1510,7 @@ def run_train(dev, bn_mode="batch", route="dense", dtype=torch.float32) -> dict:
           f"{med * 1e3:.3f} ms: busy share {busy_ms / (med * 1e3):.3f}", flush=True)
     if route == "dense":  # the pyramid is the same on every route
         pts_dev = torch.as_tensor(batch["points"], device=dev)
-        pyr_ms = time_ms(lambda: build_pyramid(pts_dev, TRAIN_SPEC), reps=3)
+        pyr_ms = time_ms(lambda: build_pyramid(pts_dev, spec), reps=3)
         print(f"device time of the training pyramid alone {pyr_ms:.3f} ms", flush=True)
 
     restore(model, opt, snap0)
@@ -1787,7 +1861,8 @@ def bare_entry(name, args, kw):
         idx = torch.empty((b, m, k), dtype=torch.int32, device=query.device)
         val = torch.empty((b, m, k), dtype=torch.float32, device=query.device)
         return call(lib.cbl_win_topk, (query, support, idx, val), b, m, ns, k, tile,
-                    kw["width"], kw["window"], ns // tile, wt.MODES[kw.get("mode", "plain")])
+                    kw["width"], kw["window"], ns // tile, wt.MODES[kw.get("mode", "plain")],
+                    int(kw.get("last_ties", False)))
     if name == "window_gather":
         x, li, starts, tile, width = args
         b, ns, c = x.shape
@@ -2573,16 +2648,22 @@ def prepare_test(root: Path, serve_launches: dict, train_launches: dict) -> None
                 and pred.min() >= 0 and pred.max() < SCANNET_CLASSES, f"{name}: predictions")
 
 
-def require_no_launches(what: str, fps_launches: int = 0) -> dict:
-    """No launch of a kernel of the port and no wide-window search, but
-    ``fps_launches`` of the FPS kernel (the natural point transformer's, one
-    a sampled level; the ConvNet's voxel sampler launches none)."""
+def require_launches(what: str, expect: dict) -> dict:
+    """The launches read since the last reset are exactly ``expect`` (every
+    other kernel 0), and no search went to the wide plain search → the
+    counts of ``expect``'s kernels."""
     counts = read_counts()
-    others = {k: v for k, v in counts.items() if k != "fps" and v}
-    require(counts["fps"] == fps_launches and not others and knn.wide_calls == 0,
-            f"{what}: fps {counts['fps']} launches (not {fps_launches}), others {others}, "
-            f"wide {knn.wide_calls}")
-    return counts
+    got = {k: v for k, v in counts.items() if v}
+    require(got == expect and knn.wide_calls == 0,
+            f"{what}: launches {got}, not {expect}; wide-window searches {knn.wide_calls}")
+    return {k: counts[k] for k in expect}
+
+
+def prefixed(summary: list, prefix: str) -> list:
+    """Kernel entries of a path, named "<prefix>/<kernel>" in the JSON line."""
+    for entry_ in summary:
+        entry_["name"] = f"{prefix}/{entry_['name']}"
+    return summary
 
 
 def conv_setup(name: str, dev, seed: int = 0):
@@ -2621,15 +2702,18 @@ def grid_crop(n: int, seed: int = 3) -> dict:
 
 def compare_pyramids(spec, points: np.ndarray, dev) -> None:
     """The natural pyramid on the card against the CPU's: every index
-    tensor equal, the IDW weights and the relative positions within 1e-6."""
+    tensor equal (the tile contrast search's Morton orders too) and the
+    tile geometry the same, the IDW weights and the relative positions
+    within 1e-6."""
     cpu = build_pyramid(torch.as_tensor(points), spec)
     t0 = time.perf_counter()
     card = build_pyramid(torch.as_tensor(points, device=dev), spec)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     n = 0
+    require(card.contrast_local == cpu.contrast_local, f"contrast_local {card.contrast_local}")
     for field in ("sample_idx", "self_idx", "down_idx", "up_idx", "near0_idx", "contrast_idx",
-                  "subscene_idx"):
+                  "subscene_idx", "contrast_order"):
         for level, (a, b) in enumerate(zip(getattr(cpu, field), getattr(card, field))):
             if a is None:
                 require(b is None, f"{field}[{level}]")
@@ -2645,6 +2729,25 @@ def compare_pyramids(spec, points: np.ndarray, dev) -> None:
           f"max|d up_w| {w:.3g}, max|d self_rel, down_rel| {rel:.3g} (card {secs * 1e3:.3f} ms)",
           flush=True)
     require(w <= 1e-6 and rel <= 1e-6, "up_w or the relative positions")
+
+
+def card_vs_cpu_step(model, step, cpu_step_of, crop) -> None:
+    """One train step on the grid crop on the card and, from the same
+    weights, on a CPU copy of the model (``cpu_step_of(copy)`` its step):
+    loss rel <= 1e-4, gradient norm rel <= 1e-3."""
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_step = cpu_step_of(cpu_model)
+    m_card = step(crop)
+    loss_c, gn_c = float(m_card["loss"]), grad_norm(model)
+    m_cpu = cpu_step(crop)
+    loss_p, gn_p = float(m_cpu["loss"]), grad_norm(cpu_model)
+    print(f"one step on the grid crop, card vs CPU from the same weights: loss {loss_c:.7f} vs "
+          f"{loss_p:.7f} (rel {abs(loss_c - loss_p) / abs(loss_p):.3g}), gradient norm "
+          f"{gn_c:.7f} vs {gn_p:.7f} (rel {abs(gn_c - gn_p) / gn_p:.3g}); stages "
+          + ", ".join(f"{k} {float(m_card[k]):.6f}/{float(m_cpu[k]):.6f}" for k in m_card
+                      if k.startswith("cbl_stage")), flush=True)
+    require(abs(loss_c - loss_p) <= 1e-4 * abs(loss_p), "card and CPU losses disagree")
+    require(abs(gn_c - gn_p) <= 1e-3 * gn_p, "card and CPU gradient norms disagree")
 
 
 def fitting_batch(model, opt, step, snap0, b: int) -> tuple:
@@ -2676,21 +2779,8 @@ def conv_train(dev) -> dict:
 
     crop = grid_crop(CONV_GRID_N)
     compare_pyramids(spec, crop["points"], dev)
-    cpu_model = copy.deepcopy(model).cpu()
-    cpu_opt, cpu_step = preset_step(cfg, cpu_model, "cpu")
     snap0 = snapshot(model, opt)
-    m_card = step(crop)
-    loss_c, gn_c = float(m_card["loss"]), grad_norm(model)
-    m_cpu = cpu_step(crop)
-    loss_p, gn_p = float(m_cpu["loss"]), grad_norm(cpu_model)
-    print(f"one step on the grid crop, card vs CPU from the same weights: loss {loss_c:.7f} vs "
-          f"{loss_p:.7f} (rel {abs(loss_c - loss_p) / abs(loss_p):.3g}), gradient norm "
-          f"{gn_c:.7f} vs {gn_p:.7f} (rel {abs(gn_c - gn_p) / gn_p:.3g}); stages "
-          + ", ".join(f"{k} {float(m_card[k]):.6f}/{float(m_cpu[k]):.6f}" for k in m_card
-                      if k.startswith("cbl_stage")), flush=True)
-    require(abs(loss_c - loss_p) <= 1e-4 * abs(loss_p), "card and CPU losses disagree")
-    require(abs(gn_c - gn_p) <= 1e-3 * gn_p, "card and CPU gradient norms disagree")
-    del cpu_model, cpu_opt, cpu_step
+    card_vs_cpu_step(model, step, lambda cpu: preset_step(cfg, cpu, "cpu")[1], crop)
     restore(model, opt, snap0)
 
     batch, b = fitting_batch(model, opt, step, snap0, CONV_B)
@@ -2719,7 +2809,7 @@ def conv_train(dev) -> dict:
     pts_dev = torch.as_tensor(batch["points"], device=dev)
     pyr_ms = time_ms(lambda: build_pyramid(pts_dev, spec), reps=1)
     print(f"device time of the training pyramid alone {pyr_ms:.3f} ms", flush=True)
-    require_no_launches("the ConvNet train steps")
+    require_launches("the ConvNet train steps", {})
     del opt, step
     torch.cuda.empty_cache()
 
@@ -2736,10 +2826,11 @@ def conv_train(dev) -> dict:
               + f", max_memory_allocated {torch.cuda.max_memory_allocated()} B", flush=True)
         require(np.isfinite(loss) and all(np.isfinite(float(v)) for k, v in m.items()
                                           if k != "confusion"), f"{name}: loss {loss}")
-        require_no_launches(name)
+        require_launches(name, {})
         del other, other_opt, other_step, m
         torch.cuda.empty_cache()
-    return dict(model=model, cfg=cfg, batch=batch, crop=crop, med=med, peak=peak, b=b)
+    return dict(model=model, cfg=cfg, batch=batch, crop=crop, med=med, peak=peak, b=b,
+                pyr_ms=pyr_ms)
 
 
 def conv_serve(dev, trained: dict) -> None:
@@ -2775,7 +2866,7 @@ def conv_serve(dev, trained: dict) -> None:
     print(f"grid crop of {CONV_GRID_N} points, card vs CPU probs: max|d| {d:.3g}, argmax "
           f"agreement {agree:.6f}", flush=True)
     require(d <= 1e-4 and agree >= 0.999, "card and CPU probs disagree")
-    require_no_launches("the ConvNet requests")
+    require_launches("the ConvNet requests", {})
 
 
 def conv_entry(root: Path) -> None:
@@ -2884,18 +2975,7 @@ def pt_natural_train(dev) -> dict:
     with recording() as grid_calls:
         compare_pyramids(spec, crop["points"], dev)
     grid_fps = [c for c in grid_calls["fps"] if c[0][0].is_cuda]
-    cpu_model = copy.deepcopy(model).cpu()
-    _, cpu_step = pt_natural_step(cfg, cpu_model, "cpu")
-    loss_c = float(step(crop)["loss"])
-    gn_c = grad_norm(model)
-    loss_p = float(cpu_step(crop)["loss"])
-    gn_p = grad_norm(cpu_model)
-    print(f"one step on the grid crop, card vs CPU from the same weights: loss {loss_c:.7f} vs "
-          f"{loss_p:.7f} (rel {abs(loss_c - loss_p) / abs(loss_p):.3g}), gradient norm "
-          f"{gn_c:.7f} vs {gn_p:.7f} (rel {abs(gn_c - gn_p) / gn_p:.3g})", flush=True)
-    require(abs(loss_c - loss_p) <= 1e-4 * abs(loss_p), "card and CPU losses disagree")
-    require(abs(gn_c - gn_p) <= 1e-3 * gn_p, "card and CPU gradient norms disagree")
-    del cpu_model, cpu_step
+    card_vs_cpu_step(model, step, lambda cpu: pt_natural_step(cfg, cpu, "cpu")[1], crop)
     restore(model, opt, snap0)
 
     rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
@@ -2905,7 +2985,7 @@ def pt_natural_train(dev) -> dict:
     with recording() as calls:
         step(batch)
         torch.cuda.synchronize()
-    counts = require_no_launches("a batch-BN train step", levels)
+    counts = require_launches("a batch-BN train step", {"fps": levels})
     print(f"launches in one batch-BN train step: fps {counts['fps']} (the {levels} sampled "
           f"levels), every other kernel 0", flush=True)
     restore(model, opt, snap0)
@@ -2940,7 +3020,7 @@ def pt_natural_train(dev) -> dict:
     t0 = time.perf_counter()
     ms = stale_step(batch)
     torch.cuda.synchronize()
-    require_no_launches("a stale-BN train step", levels)
+    require_launches("a stale-BN train step", {"fps": levels})
     print(f"one stale-BN step (the unfused attention, StaleBatchNorm): "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms (cold), loss {float(ms['loss']):.6f}; "
           f"launches: fps {levels}, every other kernel 0", flush=True)
@@ -2950,11 +3030,12 @@ def pt_natural_train(dev) -> dict:
     summary = check_fps(dev, calls["fps"], counts["fps"], grid_fps, batch["points"])
     del calls, grid_calls, opt, step
     torch.cuda.empty_cache()
-    return dict(model=model, cfg=cfg, spec=spec, crop=crop, levels=levels, summary=summary)
+    return dict(model=model, cfg=cfg, spec=spec, crop=crop, levels=levels, summary=summary,
+                batch=batch, med=med, peak=peak, pyr_ms=pyr_ms)
 
 
-def pt_natural_serve(dev, trained: dict) -> None:
-    """Phase 31."""
+def pt_natural_serve(dev, trained: dict) -> float:
+    """Phase 31 → the median request's seconds."""
     model, cfg, spec, crop = (trained[k] for k in ("model", "cfg", "spec", "crop"))
     b = cfg.eval.batch_size
     rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
@@ -2963,7 +3044,7 @@ def pt_natural_serve(dev, trained: dict) -> None:
     reset_counts()
     probs, _ = step(batch)
     torch.cuda.synchronize()
-    require_no_launches("a request", trained["levels"])
+    require_launches("a request", {"fps": trained["levels"]})
     torch.cuda.reset_peak_memory_stats()
     secs = []
     for _ in range(3):
@@ -2990,12 +3071,14 @@ def pt_natural_serve(dev, trained: dict) -> None:
     print(f"grid crop of {CONV_GRID_N} points, card vs CPU probs: max|d| {d:.3g}, argmax "
           f"agreement {agree:.6f}", flush=True)
     require(d <= 1e-4 and agree >= 0.999, "card and CPU probs disagree")
+    return med
 
 
-def natural_entry_train(argv, what, levels) -> StepProbe:
+def natural_entry_train(argv, what, levels, expect=None) -> StepProbe:
     """One --mode train run of a natural point-transformer preset through
     main.py: the natural spec built, every step's loss finite, each step's
-    launches the sampled levels' fps and nothing else."""
+    launches ``expect`` (default: the sampled levels' fps) and nothing
+    else."""
     probe = StepProbe()
     _, built, secs, total = run_entry(argv, probe)
     (_, spec, *_), = built
@@ -3006,11 +3089,11 @@ def natural_entry_train(argv, what, levels) -> StepProbe:
     print(f"--mode train: {secs:.3f} s; losses {losses} at steps {steps}; launches of the run "
           f"{ {k: v for k, v in total.items() if v} }", flush=True)
     require(len(steps) == len(probe.steps) > 0 and all(np.isfinite(losses)), f"losses {losses}")
+    expect = expect or {"fps": levels}
     for i, launches in enumerate(probe.launches):
-        others = {k: v for k, v in launches.items() if k != "fps" and v}
-        require(launches["fps"] == levels and not others,
-                f"step {i}: fps {launches['fps']} (not {levels}), others {others}")
-    require(not {k: v for k, v in total.items() if k != "fps" and v}, f"launches {total}")
+        got = {k: v for k, v in launches.items() if v}
+        require(got == expect, f"step {i}: launches {got}, not {expect}")
+    require(not {k: v for k, v in total.items() if k not in expect and v}, f"launches {total}")
     return probe
 
 
@@ -3375,12 +3458,11 @@ def pt_base_train(dev) -> dict:
     summary = time_calls(calls, dev, launches, max_err, PATH_KERNELS, reps=3)
     summary += time_calls(stale_calls, dev, stale_launches, max_err,
                           ("pt_attn_fwd", "pt_attn_bwd"), reps=3)
-    for entry_ in summary:  # the s3dis_pt step's numbers, beside the flagship's entries
-        entry_["name"] = f"{PT_BASE}/{entry_['name']}"
     del calls, stale_calls, opt, step
     torch.cuda.empty_cache()
+    # the s3dis_pt step's numbers, beside the flagship's entries
     return dict(model=model, cfg=cfg, spec=spec, batch=batch, launches=launches,
-                summary=summary)
+                summary=prefixed(summary, PT_BASE))
 
 
 def pt_base_serve(dev, trained: dict, batch) -> None:
@@ -3468,7 +3550,7 @@ def randla_train(dev) -> None:
     print(f"{RANDLA} request (B={b}): {(time.perf_counter() - t0) * 1e3:.3f} ms (cold), "
           f"probs finite: {bool(torch.isfinite(probs).all())}", flush=True)
     require(bool(torch.isfinite(probs).all()), "RandLA request probs not finite")
-    require_no_launches("the RandLA steps and request")
+    require_launches("the RandLA steps and request", {})
 
 
 def preset_entry(root: Path, name: str, step_launches=None) -> None:
@@ -3498,6 +3580,232 @@ def preset_entry(root: Path, name: str, step_launches=None) -> None:
     served = {k: v for k, v in total.items() if v}
     require(set(served) == (set(SERVE_KERNELS) if step_launches else set()),
             f"val launches {served}")
+
+
+def windowed_searches(levels, spec, conv_levels, conv_spec) -> list:
+    """(what, query, support, k, keywords) of each windowed search of the
+    natural point transformer's training pyramid on ``levels`` (self,
+    contrast, down, up, near0 under both top-1 tie rules, sub-scene) and of
+    the ConvNet's radius searches on ``conv_levels`` (self, down)."""
+    out = []
+    rec = dict(recall=spec.knn_recall)
+    for l, p in enumerate(levels):
+        out.append((f"self L{l}", p, p, spec.k_self[l], dict(rec, ensure_self=True)))
+        out.append((f"contrast L{l}", p, p, spec.k_contrast[l] - 1, dict(rec, exclude_self=True)))
+        if not l:
+            continue
+        prev = levels[l - 1]
+        out += [(f"down L{l}", p, prev, spec.k_down[l], rec),
+                (f"up L{l}", prev, p, spec.k_up, rec),
+                (f"near0 L{l} (last tie)", levels[0], p, 1, rec),
+                (f"near0 L{l} (first tie)", levels[0], p, 1, dict(recall=None)),
+                (f"sub-scene L{l}", p, levels[0], spec.subscene_k(l), rec)]
+    rec = dict(recall=conv_spec.knn_recall)
+    for l, p in enumerate(conv_levels):
+        out.append((f"conv self L{l}", p, p, conv_spec.k_self[l],
+                    dict(rec, ensure_self=True, radius=conv_spec.radii[l])))
+        if l:
+            out.append((f"conv down L{l}", p, conv_levels[l - 1], conv_spec.k_down[l],
+                        dict(rec, radius=conv_spec.down_radii[l])))
+    return out
+
+
+def grid_levels(dev, spec, b: int, seed: int) -> list:
+    """The level points of ``spec``'s pyramid (without its contrast and
+    sub-scene searches) on b synthetic train crops of N points snapped to
+    the 1/64 m grid (every distance exact), on the card."""
+    batch = preset_batch(b, seed)
+    pts = torch.as_tensor(np.round(batch["points"] * 64) / 64, dtype=torch.float32, device=dev)
+    eval_spec = dataclasses.replace(spec, k_contrast=None, with_subscene=False)
+    return list(build_pyramid(pts, eval_spec).points)
+
+
+@torch.no_grad()
+def windowed_kernels(dev) -> None:
+    """Phase 40."""
+    spec = load_config(PT_NATURAL, PT_WINDOWED).pyramid_spec()
+    conv_spec = load_config(CONV_PRESETS[0], CONV_WINDOWED).pyramid_spec()
+    searches = windowed_searches(grid_levels(dev, spec, B, 0), spec,
+                                 grid_levels(dev, conv_spec, B, 1), conv_spec)
+    win = dict(tile=spec.knn_tile, window=spec.knn_window)
+    print(f"{len(searches)} windowed searches, B={B}, tile {win['tile']}, window "
+          f"{win['window']} ({PT_NATURAL} and {CONV_PRESETS[0]} level shapes, 1/64 m grid); "
+          f"card: {card_line()}", flush=True)
+    flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
+    totals = dict(kernel=0.0, windowed=0.0, dense=0.0, bound=0.0)
+    for what, q, sup, k, kw in searches:
+        with recording() as calls:
+            idx, d2 = knn.windowed_knn(q, sup, k, **win, **kw)
+        with plain_kernels():
+            p_idx, p_d2 = knn.windowed_knn(q, sup, k, **win, **kw)
+        call, = calls["window_topk"]
+        compare_call("window_topk", call, exact_topk=True)
+        require(torch.equal(idx, p_idx) and torch.equal(bits(d2), bits(p_d2)),
+                f"{what}: windowed_knn with the kernel != with the plain version")
+        kern, _, _, n_bytes, n_ops, shape = call_costs("window_topk", call)
+        t_k = time_ms(kern, flush_buf, reps=5)
+        t_w = time_ms(lambda: knn.windowed_knn(q, sup, k, **win, **kw), flush_buf, reps=5)
+        t_d = time_ms(lambda: knn.knn(q, sup, k, **kw), flush_buf, reps=5)
+        bnd = bound_ms(n_bytes, n_ops)[0]
+        for key, v in zip(totals, (t_k, t_w, t_d, bnd)):
+            totals[key] += v
+        print(f"  {what} {shape}: window_topk {t_k:.4f} ms (bound {bnd:.5f}), windowed_knn "
+              f"{t_w:.4f} ms, dense knn {t_d:.4f} ms; indices and d2 equal bit for bit",
+              flush=True)
+    print(f"sums over the {len(searches)} searches: window_topk {totals['kernel']:.4f} ms, bound "
+          f"{totals['bound']:.5f} ms, windowed_knn {totals['windowed']:.4f} ms, dense knn "
+          f"{totals['dense']:.4f} ms", flush=True)
+
+
+def pt_natural_windowed_train(dev, natural: dict) -> dict:
+    """Phase 41."""
+    cfg = load_config(PT_NATURAL, PT_WINDOWED)
+    spec = cfg.pyramid_spec()
+    require((spec.knn_window, spec.contrast_mode) == (3, "tile"), f"spec {spec}")
+    model = pt_natural_model(cfg, dev)
+    opt, step = pt_natural_step(cfg, model, dev)
+    print(f"{PT_NATURAL} with {PT_WINDOWED}: spec {spec}; cut: batch {cfg.optim.batch_size} -> "
+          f"{B}; SGD lr {TRAIN_LR}; card: {card_line()}", flush=True)
+    snap0 = snapshot(model, opt)
+    crop = grid_crop(CONV_GRID_N)
+    compare_pyramids(spec, crop["points"], dev)
+    card_vs_cpu_step(model, step, lambda cpu: pt_natural_step(cfg, cpu, "cpu")[1], crop)
+    restore(model, opt, snap0)
+
+    batch = natural["batch"]
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    restore(model, opt, snap0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = timed_steps(step, batch, 5)
+    med, peak = statistics.median(secs[2:]), torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(losses)), f"losses {losses}")
+    require(losses[-1] < losses[0], f"5 steps on one batch did not lower the loss: {losses}")
+    pts_dev = torch.as_tensor(batch["points"], device=dev)
+    pyr_ms = time_ms(lambda: build_pyramid(pts_dev, spec), reps=1)
+    print(f"natural windowed train step (B={B}) median of 3 warm steps {med * 1e3:.3f} ms over "
+          f"{[round(x * 1e3, 3) for x in secs]}, {B * N / med:.1f} points/s, "
+          f"max_memory_allocated {peak} B, pyramid {pyr_ms:.3f} ms; losses {losses}; phase "
+          f"pt-natural-train's: {natural['med'] * 1e3:.3f} ms, {natural['peak']} B, pyramid "
+          f"{natural['pyr_ms']:.3f} ms", flush=True)
+    busy_ms = profile_request(step, batch, top=15, what="natural windowed train step")
+    print(f"device busy {busy_ms:.3f} ms of the unprofiled median step {med * 1e3:.3f} ms: "
+          f"busy share {busy_ms / (med * 1e3):.3f}", flush=True)
+
+    restore(model, opt, snap0)
+    reset_counts()
+    with recording() as calls:
+        m = step(batch)
+        torch.cuda.synchronize()
+    launches = require_launches("a natural windowed train step", PT_WINDOWED_STEP)
+    print(f"launches in one natural windowed train step: {launches}", flush=True)
+    step_against_plain(model, opt, step, batch, snap0, m)
+    max_err = {name: 0.0 for name in WRAPPERS}
+    summary = time_calls(calls, dev, launches, max_err, tuple(PT_WINDOWED_STEP), reps=3)
+    del calls, opt, step
+    torch.cuda.empty_cache()
+    return dict(model=model, cfg=cfg, spec=spec, summary=prefixed(summary, "pt_natural_windowed"))
+
+
+def pt_natural_windowed_serve(dev, trained: dict, root: Path, served_med: float) -> None:
+    """Phase 42."""
+    model, cfg, spec = trained["model"], trained["cfg"], trained["spec"]
+    b = cfg.eval.batch_size
+    batch = preset_batch(b, 1)
+    step = make_eval_step(model, spec, dev, num_classes=cfg.data.num_classes)
+    reset_counts()
+    probs, _ = step(batch)
+    torch.cuda.synchronize()
+    launches = require_launches("a natural windowed request", PT_WINDOWED_REQUEST)
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        probs, _ = step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    med, peak = statistics.median(secs), torch.cuda.max_memory_allocated()
+    with plain_kernels():
+        plain, _ = step(batch)
+    d = float((probs - plain).abs().max())
+    print(f"natural windowed request (B={b} x {N}): launches {launches}, median of 3 "
+          f"{med * 1e3:.3f} ms over {[round(x * 1e3, 3) for x in secs]} (phase "
+          f"pt-natural-serve's {served_med * 1e3:.3f} ms), max_memory_allocated {peak} B; "
+          f"kernels vs plain probs max|d| {d:.3g}", flush=True)
+    require(bool(torch.isfinite(probs).all()) and d <= 1e-4, "kernels and plain versions disagree")
+    sets = (f"data.data_root:{root / 'data'};{ENTRY_SETS};data.loop:1;eval.num_votes:0;"
+            f"{PT_WINDOWED};{ENTRY_LOG}")
+    print(f"main.py -c {PT_NATURAL} --set {sets}: cuts batch 16 -> 2, epochs 200 -> 1, loop "
+          f"30 -> 1, no epoch-end eval", flush=True)
+    natural_entry_train(["-c", PT_NATURAL, "--mode", "train", "--set", sets, "--exp_dir",
+                         str(root / "exp_pt_windowed")],
+                        f"pt-natural-windowed entry train ({PT_NATURAL})",
+                        PT_WINDOWED_STEP["fps"], PT_WINDOWED_STEP)
+
+
+def conv_windowed_train(dev, conv: dict) -> dict:
+    """Phase 43."""
+    cfg = load_config(CONV_PRESETS[0], CONV_WINDOWED)
+    model = cfg.build_model(device=dev, generator=torch.Generator().manual_seed(0))
+    opt, step = preset_step(cfg, model, dev)
+    spec = cfg.pyramid_spec()
+    require(spec.knn_window == 3, f"spec {spec}")
+    print(f"{CONV_PRESETS[0]} with {CONV_WINDOWED}: fresh weights (seed 0), spec {spec}; card: "
+          f"{card_line()}", flush=True)
+    reset_counts()
+    crop = grid_crop(CONV_GRID_N)
+    compare_pyramids(spec, crop["points"], dev)
+    snap0 = snapshot(model, opt)
+    card_vs_cpu_step(model, step, lambda cpu: preset_step(cfg, cpu, "cpu")[1], crop)
+    restore(model, opt, snap0)
+    batch, b = fitting_batch(model, opt, step, snap0, CONV_B)
+    restore(model, opt, snap0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = timed_steps(step, batch, 5)
+    med, peak = statistics.median(secs[2:]), torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(losses)), f"losses {losses}")
+    require(losses[-1] < losses[0], f"5 steps on one batch did not lower the loss: {losses}")
+    pts_dev = torch.as_tensor(batch["points"], device=dev)
+    pyr_ms = time_ms(lambda: build_pyramid(pts_dev, spec), reps=1)
+    print(f"ConvNet windowed train step (B={b}; the preset's {cfg.optim.batch_size}) median of 3 "
+          f"warm steps {med * 1e3:.3f} ms over {[round(x * 1e3, 3) for x in secs]}, "
+          f"{b * N / med:.1f} points/s, max_memory_allocated {peak} B, pyramid {pyr_ms:.3f} ms; "
+          f"losses {losses}; phase conv-train's (B={conv['b']}): {conv['med'] * 1e3:.3f} ms, "
+          f"{conv['peak']} B, pyramid {conv['pyr_ms']:.3f} ms", flush=True)
+    restore(model, opt, snap0)
+    reset_counts()
+    with recording() as calls:
+        step(batch)
+        torch.cuda.synchronize()
+    launches = require_launches("a ConvNet windowed train step", CONV_WINDOWED_STEP)
+    print(f"launches in one ConvNet windowed train step: {launches}", flush=True)
+    del opt, step, model
+    torch.cuda.empty_cache()
+    max_err = {name: 0.0 for name in WRAPPERS}
+    summary = time_calls(calls, dev, launches, max_err, ("window_topk",), reps=3)
+    return prefixed(summary, "conv_windowed")
+
+
+def contrast_window_train(dev, dense_med: float, batch_peak: int) -> list:
+    """Phase 44."""
+    spec = load_config(PT_FLAGSHIP, CONTRAST_WINDOW).pyramid_spec()
+    require(spec == dataclasses.replace(TRAIN_SPEC, contrast_window=2), f"spec {spec}")
+    print(f"{PT_FLAGSHIP} with {CONTRAST_WINDOW}: spec {spec}; card: {card_line()}", flush=True)
+    train = run_train(dev, spec=spec)
+    launches = train["launches"]
+    require(launches["window_topk"] == CONTRAST_WINDOW_TOPK,
+            f"window_topk {launches['window_topk']}, not {CONTRAST_WINDOW_TOPK}")
+    widths = sorted({c[0][-2] for c in train["calls"]["cbl_stats_fwd"]})
+    print(f"contrast-window step median {train['med'] * 1e3:.3f} ms, peak {train['peak']} B "
+          f"beside phase train's {dense_med * 1e3:.3f} ms, {batch_peak} B; CBL window widths "
+          f"(tiles) {widths}", flush=True)
+    require(max(widths) == 5, f"CBL widths {widths}")
+    max_err = {name: 0.0 for name in WRAPPERS}
+    summary = time_calls(train["calls"], dev, launches, max_err,
+                         ("window_topk", "cbl_stats_fwd", "cbl_stats_bwd"), reps=5)
+    del train
+    torch.cuda.empty_cache()
+    return prefixed(summary, "contrast_window")
 
 
 def main() -> int:
@@ -3741,6 +4049,7 @@ def main() -> int:
             conv = conv_train(dev)
         with phase("conv-serve"):
             conv_serve(dev, conv)
+        conv_ref = {k: conv[k] for k in ("med", "peak", "pyr_ms", "b")}
         del conv
         torch.cuda.empty_cache()
         with phase("conv-entry"):
@@ -3751,7 +4060,8 @@ def main() -> int:
             print(f"card: {card_line()}", flush=True)
             natural = pt_natural_train(dev)
         with phase("pt-natural-serve"):
-            pt_natural_serve(dev, natural)
+            natural_ref = {k: natural[k] for k in ("batch", "med", "peak", "pyr_ms")}
+            natural_ref["serve_med"] = pt_natural_serve(dev, natural)
         fps_summary, levels = natural["summary"], natural["levels"]
         del natural
         torch.cuda.empty_cache()
@@ -3782,6 +4092,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         with phase("randla-entry"):
             preset_entry(root, RANDLA)
+        torch.cuda.empty_cache()
+        with phase("windowed-kernels"):
+            windowed_kernels(dev)
+        torch.cuda.empty_cache()
+        with phase("pt-natural-windowed-train"), cbl_route_env("dense"):
+            windowed = pt_natural_windowed_train(dev, natural_ref)
+        with phase("pt-natural-windowed-serve"), cbl_route_env("dense"):
+            pt_natural_windowed_serve(dev, windowed, root, natural_ref["serve_med"])
+        windowed_summary = windowed["summary"]
+        del windowed, natural_ref
+        torch.cuda.empty_cache()
+        with phase("conv-windowed-train"):
+            windowed_summary += conv_windowed_train(dev, conv_ref)
+        torch.cuda.empty_cache()
+        with phase("contrast-window-train"), cbl_route_env("dense"):
+            windowed_summary += contrast_window_train(dev, dense_med, batch_peak)
     torch.cuda.empty_cache()
 
     summary = []
@@ -3797,6 +4123,7 @@ def main() -> int:
     summary += bf16_summary  # per bfloat16 train step
     summary.append(fps_summary)  # per natural train step
     summary += pt_base_summary  # per s3dis_pt train step (batch BN; the attention's stale)
+    summary += windowed_summary  # per step of phases 41, 43 and 44
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -8,13 +8,16 @@ layout (``layout='sorted'``; float32 or bfloat16) or the natural one
 (float32), with the strided (sorted only), serialized, fps, bucket_fps or
 random sampler, batch or stale BN; the ConvNet family (every aggregation)
 in float32 on the natural layout with the voxel or random sampler; the
-flagship MultiHead or the plain mlp head (its latent tower, dropout,
+pyramid options (the windowed KNN ``knn_window``, the natural layout's
+tile contrast search ``contrast_mode='tile'``, a ``contrast_window`` of
+its own, any ``knn_recall``: every search of the port is exact, and the
+recall only selects the reference's CPU tie rule of the top-1 searches);
+the flagship MultiHead or the plain mlp head (its latent tower, dropout,
 losses and class weights), and the softnn CBL with cnt or kl positives
 (config/dsl.py). Every other option raises NotImplementedError naming the
-ROADMAP Queue A item that ports it (item 7): approximate or windowed KNN
-settings the port's exact searches cannot hold, the tile contrast search
-and bfloat16 on the natural layout, other heads (and the plain head with
-a contrast head) and CBL options, remat.
+ROADMAP Queue A item that ports it (item 7): bfloat16 on the natural
+layout, other heads (and the plain head with a contrast head) and CBL
+options, remat.
 """
 from __future__ import annotations
 
@@ -30,9 +33,6 @@ from ..ops.pyramid import PyramidSpec
 from .dsl import OPTIONS_ITEM, parse_arch_out
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# knn_recall values whose searches are the port's exact ones: 0 (exact) and
-# the presets' 0.95, an approximate top-k only on the TPU (exact on the CPU)
-EXACT_RECALLS = (0.0, 0.95)
 
 
 @dataclasses.dataclass
@@ -166,14 +166,10 @@ class Config:
             raise ValueError(
                 "model.layout='sorted' is the point-transformer fast path; "
                 "convnet needs global shadow-index neighbors (layout='natural')")
-        unported = {"sampler": m.sampler not in ("voxel", "random"),
-                    "knn_window": m.knn_window != 0}
-        for key, bad in unported.items():
-            if bad:
-                raise NotImplementedError(
-                    f"model.{key}={getattr(m, key)!r} is not ported for the ConvNet "
-                    f"({OPTIONS_ITEM}); the port builds the natural layout with the voxel "
-                    "or random sampler and dense exact searches")
+        if m.sampler not in ("voxel", "random"):
+            raise NotImplementedError(
+                f"model.sampler={m.sampler!r} is not ported for the ConvNet ({OPTIONS_ITEM}); "
+                "the port builds the natural layout with the voxel or random sampler")
         nl = len(m.strides)
         radii = tuple(m.base_radius * 2**i for i in range(nl))
         limits = tuple(m.neighborhood_limits[:nl])
@@ -185,6 +181,7 @@ class Config:
             with_subscene=self.contrast is not None,
             sampler=m.sampler,
             layout=m.layout,
+            knn_window=m.knn_window,
             radii=radii,
             down_radii=(radii[0],) + radii[:-1],
             voxel_sizes=tuple(self.data.voxel_size * 2**i for i in range(nl)),
@@ -198,23 +195,10 @@ class Config:
             return self._convnet_spec()
         if m.arch != "pointtransformer":
             raise ValueError(f"unknown arch {m.arch!r}")
-        natural = m.layout == "natural"
         if m.layout not in ("sorted", "natural"):
             raise ValueError(f"unknown model.layout {m.layout!r}")
-        unported = {
-            "knn_window": m.knn_window != 0,
-            "knn_recall": float(m.knn_recall) not in EXACT_RECALLS,
-            "contrast_window": not natural and m.contrast_window != m.self_window,
-            "contrast_mode": natural and m.contrast_mode != "dense",
-        }
-        for key, bad in unported.items():
-            if bad:
-                raise NotImplementedError(
-                    f"model.{key}={getattr(m, key)!r} is not ported ({OPTIONS_ITEM}); the port "
-                    "builds the sorted layout with exact tile-window searches (the contrast "
-                    "search on the self search's window) and the natural layout with dense "
-                    "exact searches, with the strided, serialized, fps, bucket_fps and random "
-                    "samplers")
+        if m.contrast_mode not in ("dense", "tile"):
+            raise ValueError(f"unknown model.contrast_mode {m.contrast_mode!r}")
         if m.sampler not in ("strided", "serialized", "fps", "bucket_fps", "random"):
             raise ValueError(f"model.sampler {m.sampler!r} for the point transformer")
         contrast = self.contrast
@@ -228,6 +212,9 @@ class Config:
             layout=m.layout,
             self_window=m.self_window,
             knn_recall=m.knn_recall if m.knn_recall > 0 else None,
+            knn_window=m.knn_window,
+            contrast_mode=m.contrast_mode,
+            contrast_window=m.contrast_window,
         )
 
     def build_model(self, device="cuda", generator: Optional[torch.Generator] = None):

@@ -10,8 +10,10 @@
 //   rounded in this order (no FMA contraction), so the plain PyTorch version,
 //   which runs the same elementwise operations, gives the same bits.
 //   Out: idx [B, M, k] int32 window-relative, val [B, M, k] f32 = -d2,
-//   descending, ties to the lower window index; a slot with no candidate left
-//   (k > W, or only the excluded self remains) gets (W, -inf).
+//   descending, ties to the lower window index (to the higher one with
+//   last_ties, which only k = 1 takes: the top-1 of the reference's
+//   lax.approx_max_k on the CPU); a slot with no candidate left (k > W, or
+//   only the excluded self remains) gets (W, -inf).
 //   mode 0 plain, 1 exclude_self (own window row scored -inf),
 //   2 ensure_self (slot 0 overwritten with (own window row, 0)).
 //
@@ -35,7 +37,10 @@
 //     round: the warp takes the minimum key over the lanes' heads and then
 //     the minimum window index among the lanes that hold it, with
 //     __reduce_min_sync (exact; the result does not depend on which lane
-//     found what), and the winning lane pops its head. The rounds pop in
+//     found what), and the winning lane pops its head. With last_ties
+//     (k = 1, R = 1) the order is (key, -index): each lane keeps its last
+//     candidate of the least key and the warp takes the maximum index among
+//     the lanes that hold the minimum key (__reduce_max_sync). The rounds pop in
 //     (key, index) order, so when a lane that may hold more candidates runs
 //     empty, every lane refills its list with its best R strictly after the
 //     pair just popped, from its own CPL registers, in one warp-wide pass.
@@ -71,10 +76,12 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
                    __fmul_rn(az, bz));
 }
 
-// The lane's best R candidates, ascending by (key, i), among those strictly
-// after (tk, ti) in that order (all of them when kAfter is false). Equal keys
-// keep the lower i first because i ascends.
-template <int CPL, int R, bool kAfter>
+// The lane's best R candidates, ascending by (key, i) (by (key, -i) when
+// kLast), among those strictly after (tk, ti) in that order (all of them when
+// kAfter is false). Equal keys keep the lower i first because i ascends and
+// a candidate goes before a strictly greater key only; with kLast it goes
+// before an equal key too, so the higher i comes first.
+template <int CPL, int R, bool kAfter, bool kLast>
 __device__ __forceinline__ void best_r(const unsigned (&key)[CPL], unsigned tk,
                                        int ti, unsigned (&hk)[R],
                                        int (&hi)[R]) {
@@ -86,10 +93,11 @@ __device__ __forceinline__ void best_r(const unsigned (&key)[CPL], unsigned tk,
 #pragma unroll
   for (int i = 0; i < CPL; ++i) {
     const unsigned kk = key[i];
-    const bool ok = !kAfter || kk > tk || (kk == tk && i > ti);
+    const bool ok =
+        !kAfter || kk > tk || (kk == tk && (kLast ? i < ti : i > ti));
     bool c[R];
 #pragma unroll
-    for (int p = 0; p < R; ++p) c[p] = ok && kk < hk[p];
+    for (int p = 0; p < R; ++p) c[p] = ok && (kLast ? kk <= hk[p] : kk < hk[p]);
 #pragma unroll
     for (int p = R - 1; p > 0; --p) {
       if (c[p - 1]) {
@@ -107,7 +115,7 @@ __device__ __forceinline__ void best_r(const unsigned (&key)[CPL], unsigned tk,
   }
 }
 
-template <int CPL, int R>
+template <int CPL, int R, bool kLast>
 __global__ void __launch_bounds__(kWarps * 32)
     win_topk_kernel(const float* __restrict__ query,
                     const float* __restrict__ support,
@@ -155,7 +163,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     unsigned hk[R];
     int hi[R];
-    best_r<CPL, R, false>(key, 0u, 0, hk, hi);
+    best_r<CPL, R, false, kLast>(key, 0u, 0, hk, hi);
     bool more = hk[R - 1] != kEmpty;  // the lane may hold more than its list
 
     int32_t* idx_row = idx_out + row * k;
@@ -167,9 +175,13 @@ __global__ void __launch_bounds__(kWarps * 32)
       int j = w_sz;
       float v = -INFINITY;
       if (m1 < kEmpty) {
-        const unsigned mine =
-            hk[0] == m1 ? (unsigned)(lane + 32 * hi[0]) : kFull;
-        j = (int)__reduce_min_sync(kFull, mine);
+        if (kLast) {  // a lane without the minimum offers 0, below any holder
+          j = (int)__reduce_max_sync(
+              kFull, hk[0] == m1 ? (unsigned)(lane + 32 * hi[0]) : 0u);
+        } else {
+          j = (int)__reduce_min_sync(
+              kFull, hk[0] == m1 ? (unsigned)(lane + 32 * hi[0]) : kFull);
+        }
         const bool skip = mode == 1 && j == self_pos;  // the excluded self
         const bool popped = lane == (j & 31);
 #pragma unroll
@@ -181,8 +193,11 @@ __global__ void __launch_bounds__(kWarps * 32)
         // Rounds pop in (key, index) order, so the candidates popped so far
         // are exactly those up to (m1, j): when a lane that may hold more
         // runs empty, every lane takes its best R after (m1, j) at once.
+        // This lane's candidates after j are i > floor((j - lane) / 32), or
+        // with kLast (indices descending) i < ceil((j - lane) / 32).
         if (__any_sync(kFull, hk[0] == kEmpty && more) && (p + 1 < k || skip)) {
-          best_r<CPL, R, true>(key, m1, (j - lane) >> 5, hk, hi);
+          const int ti = kLast ? (j - lane + 31) >> 5 : (j - lane) >> 5;
+          best_r<CPL, R, true, kLast>(key, m1, ti, hk, hi);
           more = hk[R - 1] != kEmpty;
         }
         if (skip) continue;
@@ -210,18 +225,22 @@ template <int CPL>
 cudaError_t launch_cpl(dim3 grid, cudaStream_t stream, const float* query,
                        const float* support, int32_t* idx, float* val, int m,
                        int ns, int k, int tile, int width, int window, int gq,
-                       int gs, int mode, int rows_per_block) {
+                       int gs, int mode, int last_ties, int rows_per_block) {
   const size_t smem = sizeof(float4) * 32 * CPL;
-  if (k == 1) {
-    win_topk_kernel<CPL, 1><<<grid, kWarps * 32, smem, stream>>>(
+  if (k == 1 && last_ties) {
+    win_topk_kernel<CPL, 1, true><<<grid, kWarps * 32, smem, stream>>>(
+        query, support, idx, val, m, ns, k, tile, width, window, gq, gs, mode,
+        rows_per_block);
+  } else if (k == 1) {
+    win_topk_kernel<CPL, 1, false><<<grid, kWarps * 32, smem, stream>>>(
         query, support, idx, val, m, ns, k, tile, width, window, gq, gs, mode,
         rows_per_block);
   } else if (k <= 8) {
-    win_topk_kernel<CPL, 2><<<grid, kWarps * 32, smem, stream>>>(
+    win_topk_kernel<CPL, 2, false><<<grid, kWarps * 32, smem, stream>>>(
         query, support, idx, val, m, ns, k, tile, width, window, gq, gs, mode,
         rows_per_block);
   } else {
-    win_topk_kernel<CPL, 3><<<grid, kWarps * 32, smem, stream>>>(
+    win_topk_kernel<CPL, 3, false><<<grid, kWarps * 32, smem, stream>>>(
         query, support, idx, val, m, ns, k, tile, width, window, gq, gs, mode,
         rows_per_block);
   }
@@ -231,15 +250,16 @@ cudaError_t launch_cpl(dim3 grid, cudaStream_t stream, const float* query,
 }  // namespace
 
 // Window sizes up to 32 * kMaxCpl = 2048 rows (the wrapper raises on wider)
-// and a non-empty output (the wrapper launches nothing for an empty one).
+// and a non-empty output (the wrapper launches nothing for an empty one);
+// last_ties only with k = 1.
 extern "C" int cbl_win_topk(const float* query, const float* support,
                             int32_t* idx, float* val, int b, int m, int ns,
                             int k, int tile, int width, int window, int gs,
-                            int mode, void* stream) {
+                            int mode, int last_ties, void* stream) {
   const int gq = m / tile;
   const int w_sz = width * tile;
   const int cpl = (w_sz + 31) / 32;
-  if (cpl > kMaxCpl) return (int)cudaErrorInvalidValue;
+  if (cpl > kMaxCpl || (last_ties && k != 1)) return (int)cudaErrorInvalidValue;
   // rows a block takes: a divisor of the tile, 4..64, aiming at >= 4 blocks
   // an SM (132 SMs) where the rows allow it
   const long long target_ll = (long long)b * m / (4 * 132);
@@ -253,7 +273,7 @@ extern "C" int cbl_win_topk(const float* query, const float* support,
   cudaError_t e;
 #define CBL_TOPK_CASE(C)                                                     \
   e = launch_cpl<C>(grid, s, query, support, idx, val, m, ns, k, tile, width, \
-                    window, gq, gs, mode, rows_per_block)
+                    window, gq, gs, mode, last_ties, rows_per_block)
   if (cpl <= 8) {
     CBL_TOPK_CASE(8);
   } else if (cpl <= 16) {

@@ -45,8 +45,9 @@ BUILD_TIMEOUT_S = 600
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes; every entry returns cudaGetLastError() as an int
 SIGNATURES = {
-    # query, support, idx, val, b, m, ns, k, tile, width, window, gs, mode, stream
-    "cbl_win_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # query, support, idx, val, b, m, ns, k, tile, width, window, gs, mode,
+    # last_ties, stream
+    "cbl_win_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, li, starts, out, b, ns, m, k, c, tile, width, lanes a row, pieces a
     # lane, rows a warp, bytes an element, stream
     "cbl_window_gather": (_P, _P, _P, _P) + (_I,) * 11 + (_P,),

@@ -8,7 +8,9 @@ ranks, this rank's share of the mean over the global batch, as the
 reference's mean is under its batch-sharded jit). The reference's routes
 of ``cbl_stage_loss`` are chosen in its order:
 
-- with window-relative neighbours (the sorted layout) and cnt positives,
+- with window-relative neighbours (the sorted layout, or the natural one's
+  tile contrast search, whose stages are first taken in the level's Morton
+  order) and cnt positives,
   the dense-window route (ops/cuda/cbl_dense.py), unless the environment
   has CBL_DENSE=off (the reference's switch, ops/pallas/cbl_dense.py:384);
 - then, on the same option point, the fused v2 kernel
@@ -183,7 +185,11 @@ def cbl_stage_loss(features: torch.Tensor, contrast_idx: torch.Tensor,
 
 def cbl_loss(latents, pyramid, labels0: torch.Tensor, num_classes: int,
              cfg: ContrastConfig, ignore_label: int = -1):
-    """Σ over the configured stages → (total, {"cbl_stage<i>": loss})."""
+    """Σ over the configured stages → (total, {"cbl_stage<i>": loss}).
+    Where the natural layout's contrast search ran in tile mode
+    (``pyramid.contrast_order[i]`` set) the stage's latents and labels are
+    first taken in that order, the rows its window-relative indices name;
+    the loss is a masked mean, so nothing is put back."""
     losses = {}
     total = 0.0
     stages = [i for i in cfg.stages if i < len(latents) and latents[i] is not None]
@@ -191,9 +197,11 @@ def cbl_loss(latents, pyramid, labels0: torch.Tensor, num_classes: int,
         label_soft = subscene_labels(
             labels0, pyramid.subscene_idx[i], num_classes, ignore_label
         )
+        feats, order = latents[i], pyramid.contrast_order[i]
+        if order is not None:
+            feats, label_soft = batch_gather(feats, order), batch_gather(label_soft, order)
         li = cbl_stage_loss(
-            latents[i], pyramid.contrast_idx[i], label_soft, cfg,
-            pyramid.contrast_local[i],
+            feats, pyramid.contrast_idx[i], label_soft, cfg, pyramid.contrast_local[i],
         )
         losses[f"cbl_stage{i}"] = li
         total = total + li

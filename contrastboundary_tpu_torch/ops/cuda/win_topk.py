@@ -16,7 +16,9 @@ Contract (both versions):
   gs = Ns/T (the self geometry is gs == gq: ``_self_start`` and
   ``_cross_start`` of the TPU kernel are one formula).
   Returns (idx [B, M, k] int32 window-relative, neg_d2 [B, M, k] f32)
-  descending with first-index ties. Unlike the TPU kernel, a slot left
+  descending with first-index ties, or with ``last_ties`` (k = 1 only)
+  last-index ties: the rule of the reference's ``lax.approx_max_k`` top-1 on
+  the CPU, which its windowed searches take. Unlike the TPU kernel, a slot left
   without a candidate (k > W, or only the excluded self left) is returned as
   (W, −inf) directly — the TPU callers map every −inf slot to that shadow.
   mode: "plain" | "exclude_self" (own row scored −inf) | "ensure_self" (slot
@@ -85,11 +87,17 @@ def window_neg_d2(query, support, *, tile: int, width: int, window: int,
     return neg, self_pos
 
 
+def check_last_ties(k: int, last_ties: bool):
+    if last_ties and k != 1:
+        raise ValueError(f"last_ties is the top-1 tie rule; k={k}")
+
+
 def window_topk_plain(query, support, k: int, *, tile: int, width: int,
-                      window: int, mode: str = "plain"):
+                      window: int, mode: str = "plain", last_ties: bool = False):
     """Plain PyTorch version: the same elementwise arithmetic in the same
-    order as the kernel, then k passes of (max, first index of the max,
-    mask)."""
+    order as the kernel, then k passes of (max, first index of the max, or
+    the last with ``last_ties``, mask)."""
+    check_last_ties(k, last_ties)
     b, m, _ = query.shape
     w_sz = width * tile
     neg, self_pos = window_neg_d2(
@@ -99,7 +107,10 @@ def window_topk_plain(query, support, k: int, *, tile: int, width: int,
     vals, idxs = [], []
     for _ in range(k):
         v = neg.amax(-1, keepdim=True)
-        i = torch.where(neg == v, iota, w_sz).amin(-1, keepdim=True)
+        if last_ties:
+            i = torch.where(neg == v, iota, -1).amax(-1, keepdim=True)
+        else:
+            i = torch.where(neg == v, iota, w_sz).amin(-1, keepdim=True)
         i = torch.where(torch.isinf(v), w_sz, i)
         vals.append(v)
         idxs.append(i)
@@ -113,14 +124,16 @@ def window_topk_plain(query, support, k: int, *, tile: int, width: int,
 
 
 def window_topk(query, support, k: int, *, tile: int, width: int, window: int,
-                mode: str = "plain"):
+                mode: str = "plain", last_ties: bool = False):
     """Window top-k: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors."""
     global launches
     if query.device.type == "cpu" and support.device.type == "cpu":
         return window_topk_plain(
-            query, support, k, tile=tile, width=width, window=window, mode=mode
+            query, support, k, tile=tile, width=width, window=window, mode=mode,
+            last_ties=last_ties,
         )
+    check_last_ties(k, last_ties)
     if not (query.is_cuda and support.is_cuda and query.device == support.device):
         raise ValueError(f"window_topk: tensors on {query.device}, {support.device}")
     if query.dtype != torch.float32 or support.dtype != torch.float32:
@@ -137,7 +150,7 @@ def window_topk(query, support, k: int, *, tile: int, width: int, window: int,
     stream = torch.cuda.current_stream(query.device).cuda_stream
     rc = lib.cbl_win_topk(
         query.data_ptr(), support.data_ptr(), idx.data_ptr(), val.data_ptr(),
-        b, m, ns, k, tile, width, window, ns // tile, MODES[mode], stream,
+        b, m, ns, k, tile, width, window, ns // tile, MODES[mode], int(last_ties), stream,
     )
     launches += 1
     build.check(rc, "cbl_win_topk")

@@ -1,6 +1,8 @@
 """Tile-window KNN on Morton-sorted clouds (counterpart of
-contrastboundary_tpu/ops/knn.py::tile_self_knn and ::tile_cross_knn), and
-the dense exact search of the natural layout (::knn, ::pairwise_sqdist).
+contrastboundary_tpu/ops/knn.py::tile_self_knn and ::tile_cross_knn), the
+windowed KNN of the natural layout (::windowed_knn: each cloud sorted on its
+own Morton curve, then a tile window search) and the dense exact search
+(::knn, ::pairwise_sqdist).
 
 The search follows the reference's width rule (``_EXACT_TOPK_WIDTH``,
 ops/knn.py:29 and :490 there): a window of W ≤ 2048 rows goes through
@@ -34,18 +36,23 @@ wide_calls = 0
 
 
 def window_topk_wide(query, support, k: int, *, tile: int, width: int,
-                     window: int, mode: str = "plain"):
+                     window: int, mode: str = "plain", last_ties: bool = False):
     """Exact window top-k in plain PyTorch for any width, on any device: the
     kernel's distances, then a stable descending sort (ties to the lower
-    window index, as ``lax.top_k``). Same contract as
-    ops/cuda/win_topk.py::window_topk."""
+    window index, as ``lax.top_k``; to the higher with ``last_ties``, k = 1).
+    Same contract as ops/cuda/win_topk.py::window_topk."""
+    win_topk.check_last_ties(k, last_ties)
     b, m, _ = query.shape
     w_sz = width * tile
     neg, self_pos = win_topk.window_neg_d2(
         query, support, tile=tile, width=width, window=window, mode=mode
     )
     kk = min(k, w_sz)
-    val, idx = torch.sort(neg, dim=-1, descending=True, stable=True)
+    if last_ties:
+        val, idx = torch.sort(neg.flip(-1), dim=-1, descending=True, stable=True)
+        idx = w_sz - 1 - idx
+    else:
+        val, idx = torch.sort(neg, dim=-1, descending=True, stable=True)
     val, idx = val[..., :kk], idx[..., :kk].to(torch.int32)
     if kk < k:
         pad = (0, k - kk)
@@ -58,16 +65,14 @@ def window_topk_wide(query, support, k: int, *, tile: int, width: int,
     return idx.reshape(b, m, k), val.reshape(b, m, k)
 
 
-def _window_topk(query, support, k, *, tile, width, window, mode="plain"):
+def _window_topk(query, support, k, *, tile, width, window, mode="plain",
+                 last_ties=False):
     global wide_calls
+    kw = dict(tile=tile, width=width, window=window, mode=mode, last_ties=last_ties)
     if width * tile > EXACT_TOPK_WIDTH:
         wide_calls += 1
-        return window_topk_wide(
-            query, support, k, tile=tile, width=width, window=window, mode=mode
-        )
-    return win_topk.window_topk(
-        query, support, k, tile=tile, width=width, window=window, mode=mode
-    )
+        return window_topk_wide(query, support, k, **kw)
+    return win_topk.window_topk(query, support, k, **kw)
 
 
 def self_width(num_tiles: int, window: int) -> int:
@@ -127,6 +132,74 @@ def tile_cross_knn(query: torch.Tensor, support: torch.Tensor, k: int, *,
     row0 = torch.as_tensor(starts, device=query.device).repeat_interleave(tile)
     idx = torch.where(local < width * tile, row0[None, :, None] + local, n)
     return idx.to(torch.int32), -neg
+
+
+@torch.no_grad()
+def windowed_knn(query: torch.Tensor, support: torch.Tensor, k: int, *,
+                 tile: int = 256, window: int = 4, exclude_self: bool = False,
+                 radius: Optional[float] = None, recall: Optional[float] = 0.95,
+                 ensure_self: bool = False):
+    """KNN inside a Morton tile window (JAX ``windowed_knn``), with the
+    contract of ``knn``: (idx [B, M, k] int32 original support rows, shadow
+    N; d2 [B, M, k] f32 ascending).
+
+    Query and support are each sorted by their own ``serialized_order``
+    (one sort when query is support); sorted query tile g of T = ``tile``
+    rows scores the W = width·T sorted support rows from tile
+    clip(g·gs // gq − window, 0, gs − width), width = min(2·window + 1, gs)
+    (the self width, also across levels: ops/cuda/win_topk.py's start rule).
+    The window-relative slots go through the support's order to original
+    rows and are scattered back to the query's original rows; then
+    ``ensure_self`` (slot 0 the query itself, d2 0), ``radius`` (d2 >
+    float32(radius)² → N) and the shadow N at every +inf d2, in the
+    reference's order. ``exclude_self`` and ``ensure_self`` are the
+    kernel's self modes: they need query is support, whose two sorts are
+    then one. The search is exact; ``recall`` only selects the reference's
+    CPU tie rule: with a recall target its top-1 (k < W) breaks ties to
+    the last window row (``lax.approx_max_k`` on the CPU), every other
+    search to the first. k > W raises, as the reference's ``lax.top_k``
+    does. Where M or N is not a multiple of ``tile`` it is ``knn``, as in
+    the reference (a dispatch by shape)."""
+    b, m, _ = query.shape
+    n = support.shape[1]
+    if m % tile or n % tile:
+        return knn(query, support, k, exclude_self=exclude_self, radius=radius,
+                   recall=recall, ensure_self=ensure_self)
+    if exclude_self and ensure_self:
+        raise ValueError("exclude_self and ensure_self are exclusive")
+    gq, gs = m // tile, n // tile
+    width = self_width(gs, window)
+    w_sz = width * tile
+    if k > w_sz:
+        raise ValueError(f"k={k} > the {w_sz} rows of a window (tile {tile}, width {width})")
+    mode = "exclude_self" if exclude_self else ("ensure_self" if ensure_self else "plain")
+    if mode != "plain" and (query is not support):
+        raise ValueError(f"mode {mode!r} needs query is support")
+    q_ord = serialized_order(query)
+    s_ord = q_ord if query is support else serialized_order(support)
+    q_sorted = batch_gather(query.float(), q_ord)
+    s_sorted = q_sorted if query is support else batch_gather(support.float(), s_ord)
+    local, neg = _window_topk(
+        q_sorted, s_sorted, k, tile=tile, width=width, window=window, mode=mode,
+        last_ties=recall is not None and k == 1 < w_sz,
+    )
+    dev = query.device
+    starts = win_topk.window_start_tiles(gq, gs, width, window) * tile
+    row0 = torch.as_tensor(starts, device=dev).repeat_interleave(tile)
+    valid = local < w_sz
+    rows = torch.where(valid, row0[None, :, None] + local, 0).reshape(b, m * k)
+    orig = torch.gather(s_ord, 1, rows.long()).reshape(b, m, k)
+    scatter = q_ord.long()[..., None].expand(b, m, k)
+    idx = torch.empty((b, m, k), dtype=torch.int32, device=dev).scatter_(
+        1, scatter, torch.where(valid, orig, n).to(torch.int32))
+    d2 = torch.empty((b, m, k), dtype=torch.float32, device=dev).scatter_(1, scatter, -neg)
+    if ensure_self:
+        idx[..., 0] = torch.arange(m, dtype=torch.int32, device=dev)
+        d2[..., 0] = 0.0
+    if radius is not None:
+        r2 = np.float32(radius) * np.float32(radius)
+        idx = torch.where(d2 > float(r2), n, idx)
+    return torch.where(torch.isinf(d2), n, idx).to(torch.int32), d2
 
 
 def pairwise_sqdist(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:

@@ -9,20 +9,29 @@ neighbour index has a window-relative twin for the tile gathers
 row pick of the previous one; with ``fps``, ``bucket_fps``,
 ``serialized`` or ``random`` it is that sampler's pick, sorted by row (a subset of a
 sorted level, in row order, is sorted). With ``k_contrast`` the self and
-contrast searches are one merged search; with ``with_subscene`` the
-kr = 4^l searches over level 0 are added.
+contrast searches are one merged search where the contrast search's tile
+and window are the self search's, else the contrast search is its own
+tile-window search (self excluded) on ``contrast_tile`` and
+``contrast_window``; with ``with_subscene`` the kr = 4^l searches over
+level 0 are added.
 
 ``layout='natural'`` (the ConvNet family with ``sampler='voxel'`` or
 ``random``, the point transformer with ``fps``, ``bucket_fps``,
 ``serialized``, which ``strided`` means there, or ``random``): the levels keep the caller's row order
 (``order0`` None), each level is the sampler's pick of the previous one
-(ops/sampling.py), and every search is the dense exact ops/knn.py::knn over
-global rows with the shadow index N: the pooling search within
-``down_radii``, the self search within ``radii`` (slot 0 the point
-itself), the up, nearest-to-level-0, contrast (self excluded, k − 1) and
-sub-scene searches unbounded. The relative positions ``self_rel`` and
-``down_rel`` are the neighbour's coordinates (read at min(idx, N − 1)) less
-the query's, zero at a shadow slot; the window-relative twins are None.
+(ops/sampling.py), and every search is over global rows with the shadow
+index N: the pooling search within ``down_radii``, the self search within
+``radii`` (slot 0 the point itself), the up, nearest-to-level-0, contrast
+(self excluded, k − 1) and sub-scene searches unbounded. A search is the
+dense exact ops/knn.py::knn, or with ``knn_window`` > 0 and both sizes
+multiples of ``knn_tile`` the windowed ops/knn.py::windowed_knn. With
+``contrast_mode='tile'`` the contrast search of a level whose size is a
+multiple of min(contrast_tile, M_l) is instead a tile-window search in the
+level's own Morton order (``contrast_order``), its indices window-relative
+(``contrast_local`` = (tile, width)), as the sorted layout's. The relative
+positions ``self_rel`` and ``down_rel`` are the neighbour's coordinates
+(read at min(idx, N − 1)) less the query's, zero at a shadow slot; the
+window-relative twins are None.
 """
 from __future__ import annotations
 
@@ -34,7 +43,7 @@ import torch
 
 from ..core.gather import batch_gather, clamped_gather
 from .interpolate import interpolation_weights
-from .knn import cross_width, knn as _knn, tile_cross_knn, tile_self_knn
+from .knn import cross_width, knn as _knn, tile_cross_knn, tile_self_knn, windowed_knn
 from .sampling import (bucket_fps, fps, random_sample, serialized_order, serialized_sample,
                        strided_pick, voxel_sample)
 from .tile_gather import cross_window_gather, cross_window_starts, tile_window_gather
@@ -45,8 +54,7 @@ class PyramidSpec:
     """Static description of the pyramid; field names as in the JAX
     PyramidSpec, whose defaults differ in ``sampler`` and ``layout`` (the
     port's default is the flagship's sorted, strided pyramid). Two layouts
-    are built: sorted (the contrast search shares the self search's tile
-    and window) and natural; the samplers are strided (the sorted
+    are built: sorted and natural; the samplers are strided (the sorted
     layout's inherited order; serialized on the natural one), serialized,
     fps, bucket_fps (``num_buckets`` Morton buckets, halved until they
     divide both level sizes, exact fps at one), voxel (with
@@ -54,9 +62,13 @@ class PyramidSpec:
     permutation of the level, ops/sampling.py::random_sample). ``radii[l]`` bounds the level-l self search,
     ``down_radii[l]`` the level-(l−1) → l pooling search (natural layout;
     None: unbounded); ``voxel_sizes[l]`` is the voxel sampler's cell at
-    level l (level 0 unused). ``knn_recall`` only sets the natural layout's
-    tie rule of its top-1 searches (ops/knn.py::knn): every search of the
-    port is exact."""
+    level l (level 0 unused). ``knn_window`` > 0 makes the natural layout's
+    searches windowed (``knn_tile`` rows a tile); ``contrast_mode='tile'``
+    its contrast searches tile-window searches; ``contrast_tile`` and
+    ``contrast_window`` give their geometry (on the sorted layout too).
+    ``knn_recall`` only sets the tie rule of the natural layout's top-1
+    searches (ops/knn.py::knn, ::windowed_knn): every search of the port
+    is exact."""
 
     strides: Tuple[int, ...] = (1, 4, 4, 4, 4)
     k_self: Tuple[int, ...] = (8, 16, 16, 16, 16)
@@ -73,6 +85,11 @@ class PyramidSpec:
     down_radii: Optional[Tuple[float, ...]] = None
     voxel_sizes: Optional[Tuple[float, ...]] = None
     knn_recall: Optional[float] = 0.95
+    knn_window: int = 0
+    knn_tile: int = 256
+    contrast_mode: str = "dense"
+    contrast_tile: int = 256
+    contrast_window: int = 1
 
     @property
     def num_levels(self) -> int:
@@ -92,10 +109,12 @@ class Pyramid:
     ``*_local`` are window-relative twins with shadow tile·width, and
     ``*_meta`` the matching (tile, width, window), all None in the natural
     layout. ``contrast_idx`` (self excluded; window-relative with
-    ``contrast_local`` = (tile, width) in the sorted layout, global rows
-    with ``contrast_local`` None in the natural one) and ``subscene_idx``
-    (global level-0 rows) are None per level unless the spec asks for
-    them."""
+    ``contrast_local`` = (tile, width) in the sorted layout and in the
+    natural one's tile mode, else global rows with ``contrast_local`` None)
+    and ``subscene_idx`` (global level-0 rows) are None per level unless the
+    spec asks for them. ``contrast_order[l]`` is the [B, N_l] Morton order
+    of a natural level whose contrast search ran in tile mode (its indices
+    are rows of the level taken in that order), None elsewhere."""
 
     points: Tuple
     sample_idx: Tuple
@@ -117,6 +136,7 @@ class Pyramid:
     contrast_idx: Tuple
     contrast_local: Tuple
     subscene_idx: Tuple
+    contrast_order: Tuple
 
 
 SAMPLERS = ("strided", "serialized", "fps", "bucket_fps", "voxel", "random")
@@ -133,6 +153,8 @@ def _check_spec(spec: PyramidSpec):
         raise ValueError("sampler='voxel' requires voxel_sizes")
     if spec.k_contrast is not None and len(spec.k_contrast) < spec.num_levels:
         raise ValueError(f"k_contrast {spec.k_contrast} needs {spec.num_levels} levels")
+    if spec.contrast_mode not in ("dense", "tile"):
+        raise ValueError(f"unknown contrast_mode {spec.contrast_mode!r}")
 
 
 def _sample(points: torch.Tensor, m: int, spec: PyramidSpec, level: int) -> torch.Tensor:
@@ -156,8 +178,8 @@ def _sample(points: torch.Tensor, m: int, spec: PyramidSpec, level: int) -> torc
     return voxel_sample(points, m, spec.voxel_sizes[level])
 
 
-def _tile(spec: PyramidSpec, *sizes: int) -> int:
-    t = min(spec.self_tile, *sizes)
+def _tile(spec: PyramidSpec, *sizes: int, tile: Optional[int] = None) -> int:
+    t = min(spec.self_tile if tile is None else tile, *sizes)
     if any(s % t for s in sizes):
         raise ValueError(f"level sizes {sizes} are not multiples of tile {t}")
     return t
@@ -228,18 +250,30 @@ def build_pyramid(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
     points = batch_gather(points.float(), order0)
 
     contrast_idx = [None] * spec.num_levels
+    contrast_local = [None] * spec.num_levels
+    merge = spec.k_contrast is not None and (spec.self_tile, spec.self_window) == (
+        spec.contrast_tile, spec.contrast_window)
 
     def level_self(p, level):
         t = _tile(spec, p.shape[1])
-        if spec.k_contrast is None:
-            _, li, width = tile_self_knn(
-                p, spec.k_self[level], tile=t, window=spec.self_window,
-                exclude_self=False, ensure_self=True, assume_sorted=True,
+        if merge:
+            s_idx, width, c_idx = _merged_self_contrast(spec, p, level, t)
+            contrast_idx[level], contrast_local[level] = c_idx, (t, width)
+            return s_idx, (t, width)
+        _, li, width = tile_self_knn(
+            p, spec.k_self[level], tile=t, window=spec.self_window,
+            exclude_self=False, ensure_self=True, assume_sorted=True,
+        )
+        if spec.k_contrast is not None:
+            # the contrast search on its own geometry (JAX: when the tile or
+            # window differs from the self search's)
+            tc = _tile(spec, p.shape[1], tile=spec.contrast_tile)
+            _, c_idx, c_width = tile_self_knn(
+                p, spec.k_contrast[level] - 1, tile=tc, window=spec.contrast_window,
+                exclude_self=True, assume_sorted=True,
             )
-            return li, (t, width)
-        s_idx, width, c_idx = _merged_self_contrast(spec, p, level, t)
-        contrast_idx[level] = c_idx
-        return s_idx, (t, width)
+            contrast_idx[level], contrast_local[level] = c_idx, (tc, c_width)
+        return li, (t, width)
 
     pts = [points]
     ident = torch.arange(n, device=dev, dtype=torch.int32)[None].expand(b, n)
@@ -321,17 +355,16 @@ def build_pyramid(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
         up_meta=tuple(up_meta),
         near0_meta=tuple(near0_meta),
         contrast_idx=tuple(contrast_idx),
-        contrast_local=tuple(
-            None if c is None else self_local[l] for l, c in enumerate(contrast_idx)
-        ),
+        contrast_local=tuple(contrast_local),
         subscene_idx=tuple(subscene_idx),
+        contrast_order=(None,) * spec.num_levels,
     )
 
 
 def _build_natural(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
-    """The natural layout (JAX ``build_pyramid`` with layout='natural',
-    knn_window 0 and contrast_mode 'dense'): dense exact searches over
-    global rows."""
+    """The natural layout (JAX ``build_pyramid`` with layout='natural'):
+    searches over global rows, dense or windowed (JAX ``_knn``), and the
+    contrast searches of ``contrast_mode='tile'``."""
     b, n, _ = points.shape
     nl = spec.num_levels
     none = (None,) * nl
@@ -340,6 +373,10 @@ def _build_natural(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
         return radii[l] if radii else None
 
     def knn(query, support, k, **kw):
+        if spec.knn_window > 0 and not (query.shape[1] % spec.knn_tile
+                                        or support.shape[1] % spec.knn_tile):
+            return windowed_knn(query, support, k, tile=spec.knn_tile,
+                                window=spec.knn_window, recall=spec.knn_recall, **kw)
         return _knn(query, support, k, recall=spec.knn_recall, **kw)
 
     ident = torch.arange(n, device=points.device, dtype=torch.int32)[None].expand(b, n)
@@ -362,11 +399,17 @@ def _build_natural(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
         up_w.append(interpolation_weights(u_d2))
         near0_idx.append(knn(points, cur, 1)[0][..., 0])
 
-    contrast_idx = list(none)
+    contrast_idx, contrast_local, contrast_order = list(none), list(none), list(none)
     if spec.k_contrast is not None:
         for l in range(nl):
-            contrast_idx[l] = knn(pts[l], pts[l], spec.k_contrast[l] - 1,
-                                  exclude_self=True)[0]
+            m_l, kc = pts[l].shape[1], spec.k_contrast[l] - 1
+            tile = min(spec.contrast_tile, m_l)
+            if spec.contrast_mode == "tile" and m_l % tile == 0:
+                contrast_order[l], contrast_idx[l], width = tile_self_knn(
+                    pts[l], kc, tile=tile, window=spec.contrast_window, exclude_self=True)
+                contrast_local[l] = (tile, width)
+            else:
+                contrast_idx[l] = knn(pts[l], pts[l], kc, exclude_self=True)[0]
     subscene_idx = list(none)
     if spec.with_subscene:
         for l in range(1, nl):
@@ -391,6 +434,7 @@ def _build_natural(points: torch.Tensor, spec: PyramidSpec) -> Pyramid:
         up_meta=none,
         near0_meta=none,
         contrast_idx=tuple(contrast_idx),
-        contrast_local=none,
+        contrast_local=tuple(contrast_local),
         subscene_idx=tuple(subscene_idx),
+        contrast_order=tuple(contrast_order),
     )

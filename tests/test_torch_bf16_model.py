@@ -47,6 +47,17 @@ from contrastboundary_tpu_torch.eval.step import make_eval_step
 from contrastboundary_tpu_torch.models import load_jax_variables, to_jax_variables
 from test_torch_train import _leaves
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_per_worker():
+    """One torch thread: the suite's six workers with torch's default of a
+    thread a core oversubscribe the cores (as tests/test_torch_main.py)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 HALF = 0.5
 
 

@@ -37,6 +37,17 @@ from contrastboundary_tpu_torch.ops.cuda import pt_attn as pa
 from contrastboundary_tpu_torch.ops.cuda import tile_gather as tg
 from test_torch_train import _leaves
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_per_worker():
+    """One torch thread: the suite's six workers with torch's default of a
+    thread a core oversubscribe the cores (as tests/test_torch_main.py)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 HALF = 0.5
 
 

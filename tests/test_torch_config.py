@@ -181,7 +181,9 @@ def test_flagship_pyramid_spec():
     ref = jax_load_config("s3dis_pt_cbl").pyramid_spec()
     for f in dataclasses.fields(spec):
         assert getattr(spec, f.name) == getattr(ref, f.name), f.name
-    assert (ref.contrast_tile, ref.contrast_window) == (spec.self_tile, spec.self_window)
+    # the flagship's contrast search shares the self search's geometry: one
+    # merged search
+    assert (spec.contrast_tile, spec.contrast_window) == (spec.self_tile, spec.self_window)
     assert load_config("s3dis_pt_cbl", 'arch_out:"multi-Ua-concat-latent"').pyramid_spec() == \
         PyramidSpec()
 
@@ -204,13 +206,8 @@ def test_build_model(name, dtype):
 
 @pytest.mark.parametrize("name,sets,item", [
     ("s3dis_conv_cbl", "model.dtype:bfloat16", "item 7"),
-    ("synthetic_conv_tiny", "model.knn_window:4", "item 7"),
-    ("s3dis_pt_cbl_paper", "model.contrast_mode:tile", "item 7"),
     ("s3dis_pt_cbl_paper", "model.dtype:bfloat16", "item 7"),
     ("s3dis_pt_cbl", 'arch_out:"multi-Ua-sum-latent"', "item 7"),
-    ("s3dis_pt_cbl", "model.knn_recall:0.9", "item 7"),
-    ("s3dis_pt_cbl", "model.contrast_window:2", "item 7"),
-    ("s3dis_pt_cbl", "model.knn_window:4", "item 7"),
     ("s3dis_pt_cbl", "model.save_memory:true", "item 7"),
     ("s3dis_pt", 'arch_out:"mlp-1-xen|contrast-Ua-softnn-latent-label-l2-w.1"', "item 7"),
     ("s3dis_pt_cbl", 'arch_out:"multi-Ua-concat-latent|contrast-Ua-nce-latent-label-l2-w.1"',
@@ -244,6 +241,29 @@ def test_formerly_unported_presets_build(name, sets, sampler, head):
     model = load_config(name, sets).build_model(device="cpu")
     assert hasattr(model, head)
     assert hasattr(model, "cls") == (head == "cls_tower")
+
+
+@pytest.mark.parametrize("name,sets,field,value", [
+    ("synthetic_conv_tiny", "model.knn_window:4", "knn_window", 4),
+    ("s3dis_pt_cbl_paper", "model.contrast_mode:tile", "contrast_mode", "tile"),
+    ("s3dis_pt_cbl", "model.knn_recall:0.9", "knn_recall", 0.9),
+    ("s3dis_pt_cbl", "model.contrast_window:2", "contrast_window", 2),
+    ("s3dis_pt_cbl", "model.knn_window:4", "knn_window", 4),
+])
+def test_pyramid_options_build_with_the_jax_spec(name, sets, field, value):
+    """The pyramid options test_unported_options_raise once held as raising
+    (ROADMAP Queue A item 7b): each builds its model, and its spec, which
+    carries the option, equals JAX's on every field both have."""
+    spec = _spec_equals_jax(name, sets)
+    assert getattr(spec, field) == value
+    model = load_config(name, sets).build_model(device="cpu")
+    assert sum(p.numel() for p in model.parameters()) > 0
+
+
+@pytest.mark.parametrize("name", ["s3dis_pt_cbl", "s3dis_pt_cbl_paper"])
+def test_unknown_contrast_mode_raises(name):
+    with pytest.raises(ValueError, match="contrast_mode"):
+        load_config(name, "model.contrast_mode:global").build_model(device="cpu")
 
 
 @pytest.mark.parametrize("name", PRESETS)

@@ -76,12 +76,18 @@ def test_preset_builds_its_model_and_spec_as_jax(name):
 
 
 def test_randla_preset_raises_naming_the_roadmap_item():
-    """The preset builds with the random sampler; the windowed KNN and a
-    bfloat16 ConvNet, which the port lacks, still raise naming the item."""
+    """The preset builds with the random sampler, and with the windowed KNN
+    (its spec JAX's); a bfloat16 ConvNet, which the port lacks, still
+    raises naming the item."""
     cfg = load_config("s3dis_randla_cbl")
     assert cfg.pyramid_spec().sampler == "random"
     cfg.build_model(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        load_config("s3dis_randla_cbl", "model.knn_window:4").pyramid_spec()
+    windowed = load_config("s3dis_randla_cbl", "model.knn_window:4")
+    spec = windowed.pyramid_spec()
+    ref = jax_load_config("s3dis_randla_cbl", "model.knn_window:4").pyramid_spec()
+    assert spec.knn_window == 4
+    for f in dataclasses.fields(spec):
+        assert getattr(spec, f.name) == getattr(ref, f.name), f.name
+    windowed.build_model(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
         load_config("s3dis_randla_cbl", "model.dtype:bfloat16").build_model(device="cpu")

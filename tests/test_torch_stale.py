@@ -60,6 +60,16 @@ from test_torch_train import (
 from torch_parity import synthetic_crops
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_per_worker():
+    """One torch thread: the suite's six workers with torch's default of a
+    thread a core oversubscribe the cores (as tests/test_torch_main.py)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _bn_variables(rng, c):
     return {
         "params": {"scale": (1 + 0.1 * rng.randn(c)).astype(np.float32),

@@ -41,6 +41,17 @@ from contrastboundary_tpu_torch.train import (
 )
 from torch_parity import synthetic_crops
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_per_worker():
+    """One torch thread: the suite's six workers with torch's default of a
+    thread a core oversubscribe the cores (as tests/test_torch_main.py)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 K_CONTRAST = (36, 24, 24, 24, 24)
 PLANES, BLOCKS = (16, 16, 16, 16, 16), (1, 1, 1, 1, 1)
 

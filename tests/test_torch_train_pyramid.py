@@ -18,6 +18,17 @@ from contrastboundary_tpu_torch.ops import knn
 from contrastboundary_tpu_torch.ops.pyramid import PyramidSpec, build_pyramid
 from torch_parity import synthetic_crops
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_per_worker():
+    """One torch thread: the suite's six workers with torch's default of a
+    thread a core oversubscribe the cores (as tests/test_torch_main.py)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 K_CONTRAST = (36, 24, 24, 24, 24)
 TRAIN_FIELDS = ("self_idx", "contrast_idx", "subscene_idx", "self_local", "contrast_local")
 

@@ -22,6 +22,17 @@ from contrastboundary_tpu.ops.sampling import serialized_order as jax_order
 from contrastboundary_tpu_torch.ops.cuda import win_topk as wt
 from contrastboundary_tpu_torch.ops.knn import cross_width, self_width
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_per_worker():
+    """One torch thread: the suite's six workers with torch's default of a
+    thread a core oversubscribe the cores (as tests/test_torch_main.py)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TILE = 256
 
 
