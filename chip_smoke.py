@@ -404,6 +404,48 @@ is not 0:
            a step (18 + 5), the CBL kernels at width 5; kernel vs plain step;
            the window top-k and CBL calls against their plain versions and
            timed (5 runs).
+45. cbl-width-kernels the CBL kernels at the widths the CBL head's options
+           give them, on phase 8's pyramid (the flagship's contrast
+           neighbours and sub-scene labels of its batch) with seeded
+           random features: cbl_stats_fwd and cbl_stats_bwd at C in {13,
+           20} (levels 0 and 4) and 32, 64, 128, 256, 512 (level i at
+           planes[i], as f_out gives them), each against its plain version
+           as phase 9 holds it (counts exact, the sums rel 1e-5, the
+           backward 1e-4 of scale, its pass-1 coefficients 1e-5, the same
+           bits twice); cbl_tile2_fwd and cbl_tile2_bwd at C in {13, 256,
+           512} (levels 0, 3, 4) as phase 14 holds them; window_gather and
+           window_gather_bwd at the fused [labels | features] widths of the
+           plain route (26, 34 with the nn4 prefix, 45 at level 0; 514 at
+           level 4) as phase 9 holds them; each call timed (L2 flushed,
+           mean of 5) beside its bound, into "cbl_width/<kernel>@C<c>"
+           (launches: the kernel's at that width in one recorded step of
+           phase 46 or 47, the most of those steps, 0 where none runs it;
+           the direct calls under "direct_launches").
+46. cbl-fout-train the sorted flagship with arch_out 'multi-Ua-concat-
+           latent|contrast-Ua-softnn-fout-label-l2-w.1' (the CBL on each
+           level's decoder features) from the checkpoint, as phase 8 runs
+           it: exactly 5 cbl_stats_fwd and 5 cbl_stats_bwd launches a step,
+           at C = 32, 64, 128, 256, 512, the gathers and top-k as phase 8's;
+           5 steps that lower the loss, the median and the peak; kernel vs
+           plain step at phase 8's limits; each CBL call against its plain
+           version and timed (3 runs); then one step with CBL_DENSE=off and
+           impl='pallas': exactly 5 + 5 cbl_tile2 launches at those widths,
+           kernel vs plain step, its calls timed; "cbl_fout/<kernel>".
+47. cbl-options-train two option strings over the flagship, fresh weights:
+           (a) 'multi-Ua-concat-latent-sep|contrast-Ua-nce-latent-
+           label_recur-l2square-mS-mask-nn4-rand8-projmlp-w.1', (b)
+           'multi-Ua-concat-latent|contrast-Ua-softnn-probs-labelkl.5-nst-
+           kl-p2-w.1', each on phase 8's batch: 3 steps that lower the
+           loss, metrics finite; one step with the counts reset: no CBL
+           kernel, window_gather and window_gather_bwd 5 more than phase
+           8's (the plain route's fused gather a stage); kernel vs plain
+           step at phase 8's limits; the 5 fused gathers and their
+           backwards timed (3 runs) into "cbl_options/a/<kernel>" and
+           "cbl_options/b/<kernel>". Then
+           main.py -c s3dis_pt_cbl --mode train with (a) through --set on
+           phase 24's rooms (loop 1: 2 steps, no epoch-end eval), losses
+           finite, no CBL kernel launched, and --mode val on that run (the
+           weights restored bit for bit, 0.3 votes).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 numbers (times are sums over the launches of one run of a path: the numbers
@@ -419,7 +461,9 @@ the s3dis_pt step's kernels per s3dis_pt train step (phase 35's: the
 gathers and the top-k of its batch-BN step, the attention of its stale
 step) as entries named "s3dis_pt/<kernel>", the kernels of the option
 paths per step of phases 41, 43 and 44 as "pt_natural_windowed/<kernel>",
-"conv_windowed/<kernel>" and "contrast_window/<kernel>", and as its last
+"conv_windowed/<kernel>" and "contrast_window/<kernel>", the CBL head's
+options of phases 45-47 as "cbl_width/<kernel>@C<c>", "cbl_fout/<kernel>"
+and "cbl_options/<a or b>/<kernel>", and as its last
 line {"ok": true, "device": {...}}. Without CUDA it exits with 2 before
 doing anything.
 """
@@ -449,6 +493,7 @@ import torch
 from contrastboundary_tpu_torch import main as entry
 from contrastboundary_tpu_torch import parallel
 from contrastboundary_tpu_torch.config import load_config
+from contrastboundary_tpu_torch.core.gather import batch_gather
 from contrastboundary_tpu_torch.data.prepare_scannet import prepare_scannet
 from contrastboundary_tpu_torch.data.synthetic import (
     SyntheticSceneDataset, train_batch, write_scannet_scene,
@@ -649,6 +694,26 @@ PT_WINDOWED_REQUEST = {"window_topk": 17, "fps": 4}
 CONV_WINDOWED = "model.knn_window:3"
 CONV_WINDOWED_STEP = {"window_topk": 26}
 PT_FLAGSHIP, CONTRAST_WINDOW, CONTRAST_WINDOW_TOPK = "s3dis_pt_cbl", "model.contrast_window:2", 23
+# phases 45-47: the CBL head's options over the sorted flagship. The widths
+# the dense and v2 CBL kernels take there, each with the flagship levels of
+# phase 8's pyramid it runs on (f_out: level i at planes[i]; logits or
+# probs: the class count, 13 on S3DIS and 20 on ScanNet); the fused
+# [labels | features] widths of the plain route's window gathers (kl
+# positives over probs 13 + 13, cnt over the latents 2 + 32 with the nn4
+# prefix, kl positives over the latents 13 + 32, cnt over f_out at level 4
+# 2 + 512) as (width, level, nn prefix slots); the option strings of phases
+# 46 and 47
+PLANES = (32, 64, 128, 256, 512)
+DENSE_WIDTH_LEVELS = {13: (0, 4), 20: (0, 4), 32: (0,), 64: (1,), 128: (2,), 256: (3,),
+                      512: (4,)}
+V2_WIDTH_LEVELS = {13: (0,), 256: (3,), 512: (4,)}
+FUSED_GATHERS = ((26, 0, 0), (34, 0, 4), (45, 0, 0), (514, 4, 0))
+FOUT_HEADS = "multi-Ua-concat-latent|contrast-Ua-softnn-fout-label-l2-w.1"
+OPTION_HEADS = (
+    "multi-Ua-concat-latent-sep|contrast-Ua-nce-latent-label_recur-l2square-mS-mask-nn4-rand8-"
+    "projmlp-w.1",
+    "multi-Ua-concat-latent|contrast-Ua-softnn-probs-labelkl.5-nst-kl-p2-w.1",
+)
 # phases 33-34: data parallel (parallel/); the seeds of the global batches
 # of the rank-vs-world-size-1 steps, and the most cards dp-nccl groups
 DP_SEEDS = {"batch": (0, 1), "stale": (0,)}
@@ -1154,8 +1219,11 @@ def random_flax_tree(model, seed: int) -> dict:
     return tree
 
 
-def load_model(bn_mode="batch", dtype=torch.float32):
-    model = PointTransformerSeg(num_classes=NUM_CLASSES, bn_mode=bn_mode, dtype=dtype)
+def load_model(bn_mode="batch", dtype=torch.float32, **head_kw):
+    """The flagship checkpoint (seeded random weights where it is absent)
+    in a PointTransformerSeg; ``head_kw`` are MultiHead options that add no
+    weights (contrast_ftype='f_out')."""
+    model = PointTransformerSeg(num_classes=NUM_CLASSES, bn_mode=bn_mode, dtype=dtype, **head_kw)
     if CKPT.exists():
         return load_jax_variables(model, load_checkpoint(str(CKPT))), True
     print(f"checkpoint {CKPT} is absent: seeded random weights, no accuracy floor",
@@ -1459,11 +1527,13 @@ def buffers(model) -> dict:
 
 
 def run_train(dev, bn_mode="batch", route="dense", dtype=torch.float32,
-              spec=TRAIN_SPEC) -> dict:
-    """Phases 8, 10, 12, 13, 17, 18 and 44: the flagship train step at B x N
-    from the checkpoint, with flax batch BN or stale BN, on one of the CBL
-    routes (the caller selects it with cbl_route_env), float32 or bfloat16,
-    on the flagship's pyramid or ``spec``. The
+              spec=TRAIN_SPEC, contrast=ContrastConfig(), head_kw=None) -> dict:
+    """Phases 8, 10, 12, 13, 17, 18, 44 and 46: the flagship train step at B
+    x N from the checkpoint, with flax batch BN or stale BN, on one of the
+    CBL routes (the caller selects it with cbl_route_env), float32 or
+    bfloat16, on the flagship's pyramid or ``spec``, with the flagship's
+    CBL or ``contrast`` (its impl the route's) and the MultiHead options
+    ``head_kw`` that add no weights. The
     kernel-vs-plain step tolerances of a bfloat16 step (loss 1e-3, gradient
     norm and running statistics 1e-2) allow for the values that the
     kernels' and the plain versions' float32 sums, in their different
@@ -1477,9 +1547,10 @@ def run_train(dev, bn_mode="batch", route="dense", dtype=torch.float32,
     bf16 = dtype == BF16
     what = f"{bn_mode} BN" + ("" if route == "dense" else f", CBL route {route}") + (
         ", bfloat16" if bf16 else "")
-    model, trained = load_model(bn_mode, dtype)
+    model, trained = load_model(bn_mode, dtype, **(head_kw or {}))
     opt = make_optimizer(model.parameters(), TRAIN_LR)
-    cfg = TrainStepConfig(num_classes=NUM_CLASSES, spec=spec, contrast=ContrastConfig(impl=impl))
+    cfg = TrainStepConfig(num_classes=NUM_CLASSES, spec=spec,
+                          contrast=dataclasses.replace(contrast, impl=impl))
     step = make_train_step(model, cfg, opt, device=dev)
     rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
     batch = train_batch(rooms, B, N, np.random.default_rng(0))
@@ -1550,7 +1621,8 @@ def run_train(dev, bn_mode="batch", route="dense", dtype=torch.float32,
     loss_k, gn_k = step_against_plain(model, opt, step, batch, snap0, m, bf16)
     return dict(calls=calls, launches=launches, model=model, step=step, peak=peak, med=med,
                 metrics=metrics, stage_inputs=stage_inputs, no_path=no_path, loss=loss_k,
-                grad_norm=gn_k, busy_ms=busy_ms, by_dtype=by_dtype)
+                grad_norm=gn_k, busy_ms=busy_ms, by_dtype=by_dtype, opt=opt, snap0=snap0,
+                batch=batch, cfg=cfg)
 
 
 def step_against_plain(model, opt, step, batch, snap0, m, bf16=False) -> tuple:
@@ -1562,6 +1634,7 @@ def step_against_plain(model, opt, step, batch, snap0, m, bf16=False) -> tuple:
     loss_k, gn_k, stats_k = float(m["loss"]), grad_norm(model), buffers(model)
     require(np.isfinite(loss_k) and np.isfinite(gn_k), f"loss {loss_k}, grad norm {gn_k}")
     restore(model, opt, snap0)
+    step.count -= 1  # the same update count: the same dropout and rand<k> keys
     with plain_kernels():
         m = step(batch)
     loss_p, gn_p, stats_p = float(m["loss"]), grad_norm(model), buffers(model)
@@ -3808,6 +3881,283 @@ def contrast_window_train(dev, dense_med: float, batch_peak: int) -> list:
     return prefixed(summary, "contrast_window")
 
 
+def flagship_levels(dev) -> tuple:
+    """Phase 8's training pyramid (TRAIN_SPEC on its B x N batch) and the
+    batch's labels in the pyramid's row order."""
+    rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
+    batch = train_batch(rooms, B, N, np.random.default_rng(0))
+    pyr = build_pyramid(torch.as_tensor(batch["points"], device=dev), TRAIN_SPEC)
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    return pyr, batch_gather(labels, pyr.order0)
+
+
+def stats_cotangent(stats, label_soft):
+    """The cotangent of the dense route's stage loss (losses/contrast.py's
+    masked mean of -log(pos / under + eps)) with respect to the stats."""
+    with torch.enable_grad():
+        s = stats.detach().requires_grad_(True)
+        pos, under, pos_cnt, valid_cnt = s.unbind(-1)[1:5]
+        loss = -torch.log(pos / under.clamp_min(1e-12) + 1e-12)
+        mask = ((pos_cnt > 0) & (pos_cnt < valid_cnt) & (label_soft.sum(-1) > 0)).float()
+        (g,) = torch.autograd.grad((loss * mask).sum() / mask.sum().clamp_min(1.0), s)
+    return g
+
+
+def width_counts(calls: dict) -> dict:
+    """The launches of a recorded step, by kernel and feature width (the
+    last axis of the call's first tensor): {(kernel, C): n}."""
+    counts = {}
+    for name, cs in calls.items():
+        for c in cs:
+            key = (name, int(c[0][0].shape[-1]))
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def fill_width_launches(width_summary: list, steps: list) -> None:
+    """Phase 45's entries get the launches of their kernel at their width
+    in the recorded steps of phases 46-47 (``steps``: width_counts of each;
+    the most of any one step), 0 where no step of them runs it."""
+    for entry_ in width_summary:
+        kernel, c = entry_["name"].split("/", 1)[1].split("@C")
+        entry_["launches"] = max(step.get((kernel, int(c)), 0) for step in steps)
+
+
+def width_entries(summary: list, c: int) -> list:
+    """Phase 45's entries of one width: named <kernel>@C<c>, their
+    launches on the main path filled in by main() from phases 46-47."""
+    for entry in summary:
+        entry["name"] = f"cbl_width/{entry['name']}@C{c}"
+        entry["direct_launches"], entry["launches"] = entry["launches"], 0
+    return summary
+
+
+@torch.no_grad()
+def cbl_width_kernels(dev) -> list:
+    """Phase 45."""
+    pyr, labels = flagship_levels(dev)
+    rng = np.random.default_rng(45)
+    soft = [cbl_losses.subscene_labels(labels, pyr.subscene_idx[l], NUM_CLASSES)
+            for l in range(len(PLANES))]
+
+    def stage(l):
+        tile, width = pyr.contrast_local[l]
+        return pyr.contrast_idx[l], tile, width, (width - 1) // 2
+
+    print(f"card: {card_line()}; levels {[p.shape[1] for p in pyr.points]}, contrast "
+          f"geometry {[pyr.contrast_local[l] for l in range(len(PLANES))]}", flush=True)
+    summary = []
+    # (kernel names, widths and levels, forward, backward, the backward's cotangent)
+    routes = (
+        (("cbl_stats_fwd", "cbl_stats_bwd"), DENSE_WIDTH_LEVELS, cd.cbl_stats_fwd,
+         cd.cbl_stats_bwd, lambda stats, l: stats_cotangent(stats, soft[l])),
+        (("cbl_tile2_fwd", "cbl_tile2_bwd"), V2_WIDTH_LEVELS, c2.cbl_tile2_fwd,
+         c2.cbl_tile2_bwd,
+         lambda stats, l: torch.as_tensor(rng.standard_normal(B).astype(np.float32),
+                                          device=dev)),
+    )
+    for names, width_levels, fwd, bwd, cotangent in routes:
+        for c, levels in width_levels.items():
+            calls = {name: [] for name in names}
+            for l in levels:
+                li, tile, width, window = stage(l)
+                m = li.shape[1]
+                feats = torch.as_tensor(rng.standard_normal((B, m, c), dtype=np.float32),
+                                        device=dev)
+                args = (feats, cd.row_meta(soft[l]), li, 1.0, tile, width, window)
+                stats = fwd(*args)
+                bwd_args = args[:3] + (stats, cotangent(stats, l)) + args[3:]
+                dx = bwd(*bwd_args)
+                require(dx.shape == feats.shape and bool(torch.isfinite(dx).all()),
+                        f"{names[1]} C={c} L{l}: {tuple(dx.shape)}")
+                calls[names[0]].append((args, {}, stats))
+                calls[names[1]].append((bwd_args, {}, dx))
+                k = li.shape[-1]
+                if fwd is cd.cbl_stats_fwd:
+                    plans = (f"fwd plan {cd.fwd_plan(B, m, k, tile, width, c)}, scatter rows "
+                             f"{cd.bwd_plan(B, m, tile, c)[1]}")
+                else:
+                    plans = (f"{int(stats[..., 6].sum())} masked rows, plan "
+                             f"{tuple(c2.fwd_plan(B, m, k, c))}, scatter rows "
+                             f"{c2.bwd_plan(B, m, k, c, tile).scatter_rows}")
+                print(f"  {names[0]} C={c} level {l}: M={m}, K={k}, window {tile} x {width}, "
+                      f"{plans}", flush=True)
+            max_err = dict.fromkeys(calls, 0.0)
+            direct = {name: len(cs) for name, cs in calls.items()}
+            summary += width_entries(time_calls(calls, dev, direct, max_err, names, reps=5), c)
+    for c, l, nn in FUSED_GATHERS:
+        li, tile, width, _ = stage(l)
+        if nn:
+            li = torch.cat([li, li[..., :nn]], -1)
+        m = li.shape[1]
+        x = torch.as_tensor(rng.standard_normal((B, m, c), dtype=np.float32), device=dev)
+        starts = torch.as_tensor(window_starts(m // tile, width), dtype=torch.int32, device=dev)
+        out = tg.window_gather(x, li, starts, tile, width)
+        g = torch.as_tensor(rng.standard_normal(tuple(out.shape), dtype=np.float32), device=dev)
+        dx = tg.window_gather_bwd(g, li, starts, tile, width, m)
+        calls = {"window_gather": [((x, li, starts, tile, width), {}, out)],
+                 "window_gather_bwd": [((g, li, starts, tile, width, m), {}, dx)]}
+        max_err = dict.fromkeys(calls, 0.0)
+        summary += width_entries(time_calls(calls, dev, dict.fromkeys(calls, 1), max_err,
+                                            tuple(calls), reps=5), c)
+        del x, out, g, dx, calls
+        torch.cuda.empty_cache()
+    return summary
+
+
+def cbl_widths(calls) -> list:
+    """The feature widths of recorded CBL kernel calls, in call order."""
+    return [int(c[0][0].shape[-1]) for c in calls]
+
+
+def cbl_fout_train(dev, dense_med: float, batch_peak: int, batch_launches: dict) -> tuple:
+    """Phase 46: its entries and the width_counts of its two steps."""
+    cfg = load_config(PT_FLAGSHIP, f'arch_out:"{FOUT_HEADS}"')
+    contrast = cfg.contrast
+    require(contrast.ftype == "f_out" and contrast.flagship_options, f"contrast {contrast}")
+    print(f"{PT_FLAGSHIP} with arch_out {FOUT_HEADS}: {contrast}; the checkpoint's weights (f_out "
+          f"adds none); card: {card_line()}", flush=True)
+    train = run_train(dev, contrast=contrast, head_kw=dict(contrast_ftype="f_out"))
+    launches = train["launches"]
+    for name in ("cbl_stats_fwd", "cbl_stats_bwd"):
+        widths = cbl_widths(train["calls"][name])
+        require(sorted(widths) == list(PLANES), f"{name} at widths {widths}, not {PLANES}")
+    for name in PATH_KERNELS:
+        require(launches[name] == batch_launches[name],
+                f"{name}: {launches[name]} launches vs phase train's {batch_launches[name]}")
+    print(f"f_out step median {train['med'] * 1e3:.3f} ms, peak {train['peak']} B beside phase "
+          f"train's {dense_med * 1e3:.3f} ms, {batch_peak} B; CBL kernel widths "
+          f"{cbl_widths(train['calls']['cbl_stats_fwd'])}", flush=True)
+    max_err = {name: 0.0 for name in WRAPPERS}
+    summary = time_calls(train["calls"], dev, launches, max_err,
+                         ("cbl_stats_fwd", "cbl_stats_bwd"), reps=3)
+    steps = [width_counts(train["calls"])]
+
+    model, opt, snap0, batch = train["model"], train["opt"], train["snap0"], train["batch"]
+    del train
+    with cbl_route_env("pallas"):
+        step_cfg = TrainStepConfig(num_classes=NUM_CLASSES, spec=TRAIN_SPEC,
+                                   contrast=dataclasses.replace(contrast, impl="pallas"))
+        step = make_train_step(model, step_cfg, opt, device=dev)
+        restore(model, opt, snap0)
+        reset_counts()
+        with recording() as calls:
+            m = step(batch)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        v2 = {k: counts[k] for k in CBL_KERNELS}
+        print(f"launches in one f_out step on the v2 route: {v2}", flush=True)
+        require(v2 == {"cbl_stats_fwd": 0, "cbl_stats_bwd": 0, "cbl_tile2_fwd": STAGES,
+                       "cbl_tile2_bwd": STAGES}, f"v2 route launches {v2}")
+        require(sorted(cbl_widths(calls["cbl_tile2_fwd"])) == list(PLANES),
+                f"v2 widths {cbl_widths(calls['cbl_tile2_fwd'])}")
+        step_against_plain(model, opt, step, batch, snap0, m)
+        summary += time_calls(calls, dev, counts, max_err, ("cbl_tile2_fwd", "cbl_tile2_bwd"),
+                              reps=3)
+        steps.append(width_counts(calls))
+    del calls, model, opt, step
+    torch.cuda.empty_cache()
+    return prefixed(summary, "cbl_fout"), steps
+
+
+def option_train(dev, arch_out: str, batch_launches: dict, seed: int) -> tuple:
+    """Phase 47's step of one option string: fresh weights from ``seed``,
+    phase 8's batch; the CBL's fused gathers' calls timed. Returns their
+    entries and the step's width_counts."""
+    cfg = load_config(PT_FLAGSHIP, f'arch_out:"{arch_out}"')
+    contrast = cfg.contrast
+    require(not contrast.flagship_options, f"{contrast} is the CBL kernels' option point")
+    model = cfg.build_model(device=dev, generator=torch.Generator().manual_seed(seed))
+    opt = make_optimizer(model.parameters(), TRAIN_LR)
+    step = make_train_step(model, TrainStepConfig(num_classes=NUM_CLASSES, spec=TRAIN_SPEC,
+                                                  contrast=contrast), opt, device=dev)
+    rooms = SyntheticSceneDataset(num_rooms=16, points_per_room=120_000, seed=0, split="train")
+    batch = train_batch(rooms, B, N, np.random.default_rng(0))
+    print(f"{PT_FLAGSHIP} with arch_out {arch_out}: {contrast}; fresh weights (seed {seed}); "
+          f"card: {card_line()}", flush=True)
+    snap0 = snapshot(model, opt)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    restore(model, opt, snap0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = timed_steps(step, batch, 3)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(np.isfinite(losses)), f"losses {losses}")
+    require(losses[-1] < losses[0], f"3 steps on one batch did not lower the loss: {losses}")
+    print(f"option step: {[round(x * 1e3, 3) for x in secs]} ms, losses {losses}, "
+          f"max_memory_allocated {peak} B", flush=True)
+    restore(model, opt, snap0)
+    reset_counts()
+    with recording() as calls:
+        m = step(batch)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"launches in one option step: {counts}; metrics "
+          f"{ {k: round(float(v), 6) for k, v in m.items() if k != 'confusion'} }", flush=True)
+    require(all(np.isfinite(float(v)) for k, v in m.items() if k != "confusion"), f"metrics {m}")
+    require(not any(counts[k] for k in CBL_KERNELS), f"a CBL kernel was launched: {counts}")
+    for name in PATH_KERNELS:
+        extra = STAGES if name != "window_topk" else 0  # the CBL's fused gather a stage
+        require(counts[name] == batch_launches[name] + extra,
+                f"{name}: {counts[name]} launches vs phase train's {batch_launches[name]} + {extra}")
+    step_against_plain(model, opt, step, batch, snap0, m)
+    # the gathers the plain route adds: [labels | features] rows a stage
+    n_lab = 2 if contrast.pos == "cnt" else NUM_CLASSES
+    width = n_lab + (cfg.model.base_fdim if contrast.project or contrast.ftype == "latent"
+                     else NUM_CLASSES)
+    fused = {"window_gather": [c for c in calls["window_gather"] if c[0][0].shape[-1] == width],
+             "window_gather_bwd": [c for c in calls["window_gather_bwd"]
+                                   if c[0][0].shape[-1] == width]}
+    require(all(len(v) == STAGES for v in fused.values()),
+            f"fused gathers of width {width}: { {k: len(v) for k, v in fused.items()} }")
+    max_err = {name: 0.0 for name in WRAPPERS}
+    summary = time_calls(fused, dev, dict.fromkeys(fused, STAGES), max_err, tuple(fused), reps=3)
+    counts = width_counts(calls)
+    del calls, fused, model, opt, step
+    torch.cuda.empty_cache()
+    return summary, counts
+
+
+def option_entry(root: Path) -> None:
+    """Phase 47's entry: main.py --mode train with OPTION_HEADS[0] on phase
+    24's rooms (2 steps), then --mode val on that run."""
+    exp = root / "exp_cbl_options"
+    sets = (f"data.data_root:{root / 'data'};{ENTRY_SETS};data.loop:1;eval.num_votes:0;"
+            f"{ENTRY_LOG};arch_out:\"{OPTION_HEADS[0]}\"")
+    print(f"main.py -c {PT_FLAGSHIP} --mode train --set {sets}: cuts batch 16 -> 2, epochs 200 -> "
+          f"1, loop 30 -> 1 (2 steps), no epoch-end eval", flush=True)
+    _, built, secs, total = run_entry(["-c", PT_FLAGSHIP, "--mode", "train", "--set", sets,
+                                       "--exp_dir", str(exp)])
+    (model, *_), = built
+    require(model.multihead.sep_head and model.multihead.project == "mlp",
+            "main.py built another head")
+    steps, losses = entry_losses(exp)
+    print(f"train: {secs:.3f} s, losses {losses} at steps {steps}, launches {total}", flush=True)
+    require(steps == [1, 2] and all(np.isfinite(losses)), f"losses {losses} at steps {steps}")
+    require(not any(total[k] for k in CBL_KERNELS), f"a CBL kernel was launched: {total}")
+    m, built, secs, _ = run_entry(
+        ["-c", PT_FLAGSHIP, "--mode", "val", "--model_path", "auto", "--extra_ops", "",
+         "--set", sets.replace("eval.num_votes:0", "eval.num_votes:0.3"), "--exp_dir", str(exp)])
+    (restored, *_), = built
+    live, back = model.state_dict(), restored.state_dict()
+    require(live.keys() == back.keys() and all(torch.equal(live[k], back[k]) for k in live),
+            "--mode val restored other weights")
+    print(f"--mode val: {secs:.3f} s, {len(back)} tensors restored bit for bit; full mIoU "
+          f"{m['full']['mIoU']:.4f} OA {m['full']['OA']:.4f}", flush=True)
+    require(np.isfinite(m["full"]["OA"]), f"val metrics {m['full']}")
+
+
+def cbl_options_train(dev, root: Path, batch_launches: dict) -> tuple:
+    """Phase 47: its entries and the width_counts of its two steps."""
+    summary, steps = [], []
+    for i, arch_out in enumerate(OPTION_HEADS):  # strings (a) and (b)
+        entries, counts = option_train(dev, arch_out, batch_launches, seed=i)
+        summary += prefixed(entries, "ab"[i])
+        steps.append(counts)
+    option_entry(root)
+    return prefixed(summary, "cbl_options"), steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4108,7 +4458,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         with phase("contrast-window-train"), cbl_route_env("dense"):
             windowed_summary += contrast_window_train(dev, dense_med, batch_peak)
+        torch.cuda.empty_cache()
+        with phase("cbl-width-kernels"):
+            width_summary = cbl_width_kernels(dev)
+        torch.cuda.empty_cache()
+        with phase("cbl-fout-train"), cbl_route_env("dense"):
+            fout_summary, fout_steps = cbl_fout_train(dev, dense_med, batch_peak,
+                                                      batch_launches)
+        torch.cuda.empty_cache()
+        with phase("cbl-options-train"), cbl_route_env("dense"):
+            options_summary, option_steps = cbl_options_train(dev, root, batch_launches)
     torch.cuda.empty_cache()
+    fill_width_launches(width_summary, fout_steps + option_steps)
 
     summary = []
     for entry in train_summary:
@@ -4124,6 +4485,7 @@ def main() -> int:
     summary.append(fps_summary)  # per natural train step
     summary += pt_base_summary  # per s3dis_pt train step (batch BN; the attention's stale)
     summary += windowed_summary  # per step of phases 41, 43 and 44
+    summary += width_summary + fout_summary + options_summary  # phases 45-47
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

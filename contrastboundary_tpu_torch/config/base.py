@@ -12,12 +12,12 @@ pyramid options (the windowed KNN ``knn_window``, the natural layout's
 tile contrast search ``contrast_mode='tile'``, a ``contrast_window`` of
 its own, any ``knn_recall``: every search of the port is exact, and the
 recall only selects the reference's CPU tie rule of the top-1 searches);
-the flagship MultiHead or the plain mlp head (its latent tower, dropout,
-losses and class weights), and the softnn CBL with cnt or kl positives
-(config/dsl.py). Every other option raises NotImplementedError naming the
-ROADMAP Queue A item that ports it (item 7): bfloat16 on the natural
-layout, other heads (and the plain head with a contrast head) and CBL
-options, remat.
+the flagship MultiHead with its contrast branch (``sep``, the contrast
+feature source and projection) or the plain mlp head (its latent tower,
+dropout, losses and class weights), and every CBL option (config/dsl.py).
+Every other option raises NotImplementedError naming the ROADMAP Queue A
+item that ports it (item 7): bfloat16 on the natural layout, the main
+head's other options (and the plain head with a contrast head), remat.
 """
 from __future__ import annotations
 
@@ -237,8 +237,12 @@ class Config:
             raise NotImplementedError(
                 f"arch_out {self.arch_out!r}: the plain mlp head with a contrast head is not "
                 f"ported ({OPTIONS_ITEM})")
+        contrast = self.contrast
         head_kw = dict(use_multihead=multi, mlp_depth=mlp.get("depth", 1),
-                       mlp_drop=mlp.get("drop"))
+                       mlp_drop=mlp.get("drop"),
+                       contrast_project=contrast.project if contrast else "",
+                       contrast_ftype=contrast.ftype if contrast else "latent",
+                       multi_sep_head=heads.get("multi", {}).get("sep_head", False))
         if m.dtype not in DTYPES:
             raise ValueError(f"model.dtype {m.dtype!r} is not one of {sorted(DTYPES)}")
         if m.arch == "convnet":

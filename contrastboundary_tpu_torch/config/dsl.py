@@ -5,31 +5,25 @@ Strings like 'pospool|multi-Ua-concat-latent|contrast-Ua-softnn-latent-
 label-l2-w.1' select the backbone and the heads; stage specs like 'Ua' or
 'D012_U34' select stages. The port parses every string the JAX package
 parses, and raises where the JAX package raises (ValueError for an unknown
-token, NotImplementedError for the sample sources it does not wire). A
-parsed option that the port's ContrastConfig (losses/contrast.py) or model
-does not have raises NotImplementedError naming the ROADMAP Queue A item
-that ports it; an option left at the reference's default is not one. The
-flagship's 'multi-Ua-concat-latent|contrast-Ua-softnn-latent-label-l2-w.1'
-parses to the port's ``ContrastConfig()`` and the flagship MultiHead; the
-plain head's 'mlp-<depth>-<loss>...' to the JAX package's dict.
+token, NotImplementedError for the sample sources it does not wire). Every
+contrast segment parses to the port's ContrastConfig (losses/contrast.py),
+equal to the JAX package's on every field. A MultiHead option that the
+port's model does not have (any but the flagship's and ``sep``) raises
+NotImplementedError naming the ROADMAP Queue A item that ports it; an
+option left at the reference's default is not one. The flagship's
+'multi-Ua-concat-latent|contrast-Ua-softnn-latent-label-l2-w.1' parses to
+the port's ``ContrastConfig()`` and the flagship MultiHead; the plain
+head's 'mlp-<depth>-<loss>...' to the JAX package's dict.
 """
 from __future__ import annotations
 
 import re
 from typing import List, Optional, Tuple
 
-from ..losses.contrast import DISTS, ContrastConfig
+from ..losses.contrast import ContrastConfig
 
 # ROADMAP Queue A item of the options the port's heads lack
 OPTIONS_ITEM = "ROADMAP Queue A item 7"
-
-# the reference's ContrastConfig options that the port's lacks, at their
-# defaults: a token that sets one to another value raises
-_CONTRAST_DEFAULTS = dict(
-    contrast="softnn", project="", ftype="latent",
-    label_infer="soft", extra_pos_nn=0, extra_neg_rand=0, margin="", separate_pos=False,
-    mask_mode=False, power=1.0,
-)
 
 
 def parse_stage(spec: str, num_layers: int) -> List[Tuple[str, int]]:
@@ -128,12 +122,6 @@ def parse_contrast_ops(ops: str, num_layers: int = 5) -> ContrastConfig:
             stages = tuple(i for _, i in parse_stage(t, num_layers))
         else:
             raise ValueError(f"unknown contrast token {t!r} in {ops!r}")
-    for key, default in _CONTRAST_DEFAULTS.items():
-        value = kw.pop(key, default)
-        if value != default:
-            raise _unported("contrast", key, value)
-    if kw["dist"] not in DISTS:
-        raise _unported("contrast", "dist", kw["dist"])
     kw["stages"] = stages if stages is not None else tuple(range(num_layers))
     return ContrastConfig(**kw)
 
@@ -183,8 +171,8 @@ _CONDITION_RE = re.compile(r"^(concat|sum|max)(\d+|A)$")
 
 
 def flagship_multi(num_layers: int = 5) -> dict:
-    """The one MultiHead the port's model has: a latent tower on every up
-    stage, concatenated ('multi-Ua-concat-latent')."""
+    """The MultiHead options the port's model has: a latent tower on every
+    up stage, concatenated ('multi-Ua-concat-latent'), and ``sep``."""
     return {"stages": tuple(range(num_layers)), "combine": "concat", "ftype": "latent",
             "branch_loss": "", "branch_weight": 1.0, "condition": "", "sep_head": False}
 
@@ -192,9 +180,10 @@ def flagship_multi(num_layers: int = 5) -> dict:
 def parse_multi_ops(ops: str, num_layers: int = 5) -> dict:
     """Parse 'multi-Ua-concat-latent' → {'stages', 'combine', 'ftype',
     'branch_loss', 'branch_weight', 'condition', 'sep_head'}, the JAX
-    package's dict. Any value other than the flagship's (flagship_multi;
-    the branch weight counts only with a branch loss) raises
-    NotImplementedError: the port's MultiHead has no other."""
+    package's dict. ``sep`` (the contrast branch's own towers) is taken;
+    any other value than the flagship's (flagship_multi; the branch weight
+    counts only with a branch loss) raises NotImplementedError: the port's
+    MultiHead has no other."""
     tokens = ops.split("-")
     if tokens and tokens[0] == "multi":
         tokens = tokens[1:]
@@ -221,7 +210,7 @@ def parse_multi_ops(ops: str, num_layers: int = 5) -> dict:
             raise ValueError(f"unknown multi token {t!r} in {ops!r}")
     flagship = flagship_multi(num_layers)
     for key, value in out.items():
-        if key == "branch_weight" and not out["branch_loss"]:
+        if key == "sep_head" or (key == "branch_weight" and not out["branch_loss"]):
             continue
         if value != flagship[key]:
             raise _unported("multi head", key, value)

@@ -95,6 +95,18 @@
 //      latency for every 4, and that block takes the longest.
 // Bound of the backward: bytes (features, meta, li, the m lane of the stats
 // and the cotangent read once, dx written once).
+//
+// Widths: the kernels are instantiated for rows of C = 32, 64, 128, 256 and
+// 512 floats; the wrapper pads any other width up to 512 with zero channels
+// (+0 in every sum: the bits of the distances stay) and cuts dx back. The
+// description above is C = 32's, whose instances are unchanged. A wider
+// row is read in float4 chunks in channel order everywhere: the forward's
+// staged window takes 4 C + 12 bytes a row (up to 1,660 rows at C = 32,
+// 112 at C = 512; wider windows go through L2), the backward's first pass
+// (cbl_bwd_rows_wide_kernel) holds no row in registers and gives each lane
+// the chunks gl, gl + 8, ..., and the scatter's lane groups are C / 4 lanes
+// (a block holds at most 16384 floats of accumulator: 64 rows at C = 256,
+// 32 at 512).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -127,6 +139,22 @@ __device__ __forceinline__ float sq_norm(const float (&v)[C]) {
   return acc;
 }
 
+// acc + |t|^2 of one float4 chunk, its channels in order
+__device__ __forceinline__ float add_sq(float acc, float4 t) {
+  acc = __fadd_rn(acc, __fmul_rn(t.x, t.x));
+  acc = __fadd_rn(acc, __fmul_rn(t.y, t.y));
+  acc = __fadd_rn(acc, __fmul_rn(t.z, t.z));
+  return __fadd_rn(acc, __fmul_rn(t.w, t.w));
+}
+
+// acc + q . t of one float4 chunk, its channels in order
+__device__ __forceinline__ float add_dot(float acc, float4 q, float4 t) {
+  acc = __fadd_rn(acc, __fmul_rn(q.x, t.x));
+  acc = __fadd_rn(acc, __fmul_rn(q.y, t.y));
+  acc = __fadd_rn(acc, __fmul_rn(q.z, t.z));
+  return __fadd_rn(acc, __fmul_rn(q.w, t.w));
+}
+
 // ---- forward: a block per query tile (or part of one), its window staged in
 // shared memory once ------------------------------------------------------
 
@@ -134,46 +162,61 @@ constexpr int kFwdLanes = 8;          // lanes a query row
 constexpr int kFwdMaxThreads = 512;   // 64 rows at a time
 constexpr int kSmemLimit = 232448;    // dynamic shared memory a block can have
 
+// The kernels take rows of C = 32, 64, 128, 256 or 512 floats (NV = C / 4
+// float4 chunks, a multiple of 8); the wrapper pads other widths with zero
+// channels, which adds +0 to every sum of the distances and leaves its bits
+// as they are, and cuts the gradient back. The chunks of a row are read in
+// order and each sum runs in channel order at every width.
+template <int C>
+struct Width {
+  static_assert(C == 32 || C == 64 || C == 128 || C == 256 || C == 512,
+                "rows of 32 to 512 floats, a power of two");
+  static constexpr int NV = C / 4;
+};
+
 // Shared image of a window of W rows: the rows as float4 chunks (chunk i of
-// row r at r * 8 + (i ^ (r & 7)), so that 8 lanes reading one chunk of 8
+// row r at r * NV + (i ^ (r & 7)), so that 8 lanes reading one chunk of 8
 // consecutive rows hit 8 bank groups), then (argmax, validity) of each row,
 // then |s|^2 of each row, summed in channel order once.
-inline size_t fwd_smem(int w_sz) { return (size_t)w_sz * (128 + 8 + 4); }
+inline size_t fwd_smem(int w_sz, int c) { return (size_t)w_sz * (4 * c + 8 + 4); }
 
-__device__ __forceinline__ int chunk_at(int r, int i) { return r * 8 + (i ^ (r & 7)); }
+template <int NV>
+__device__ __forceinline__ int chunk_at(int r, int i) { return r * NV + (i ^ (r & 7)); }
 
 // The window's rows as the forward reads them: staged in shared memory, or
 // through L2 from the features and meta (|s|^2 then summed with each dot
 // product, in the same channel order).
+template <int C>
 struct SharedWindow {
   static constexpr bool kStaged = true;
+  static constexpr int C_ = C;
   const float4* win;
   const float2* mw;
   const float* s2w;
-  __device__ float4 chunk(int r, int i) const { return win[chunk_at(r, i)]; }
+  __device__ float4 chunk(int r, int i) const {
+    return win[chunk_at<Width<C>::NV>(r, i)];
+  }
   __device__ float2 meta(int r) const { return mw[r]; }
   __device__ float s2(int r) const { return s2w[r]; }
 };
 
+template <int C>
 struct GlobalWindow {
   static constexpr bool kStaged = false;
+  static constexpr int C_ = C;
   const float4* f4;
   const float* mt;
   long long base;  // the window's first row
-  __device__ float4 chunk(int r, int i) const { return f4[(base + r) * 8 + i]; }
+  __device__ float4 chunk(int r, int i) const {
+    return f4[(base + r) * Width<C>::NV + i];
+  }
   __device__ float2 meta(int r) const {
     return *reinterpret_cast<const float2*>(mt + (base + r) * 8);
   }
   __device__ float s2(int r) const {
     float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 v = chunk(r, i);
-      acc = __fadd_rn(acc, __fmul_rn(v.x, v.x));
-      acc = __fadd_rn(acc, __fmul_rn(v.y, v.y));
-      acc = __fadd_rn(acc, __fmul_rn(v.z, v.z));
-      acc = __fadd_rn(acc, __fmul_rn(v.w, v.w));
-    }
+#pragma unroll 8  // whole at C = 32
+    for (int i = 0; i < Width<C>::NV; ++i) acc = add_sq(acc, chunk(r, i));
     return acc;
   }
 };
@@ -203,22 +246,15 @@ __device__ __forceinline__ float slot_chunk(
     d[j] = 0.f;
     s2[j] = 0.f;
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  using W = Width<Win::C_>;
+#pragma unroll 8  // whole at C = 32
+  for (int i = 0; i < W::NV; ++i) {
     const float4 qc = win.chunk(qw, i);
 #pragma unroll
     for (int j = 0; j < S; ++j) {
       const float4 t = win.chunk(w[j], i);
-      d[j] = __fadd_rn(d[j], __fmul_rn(qc.x, t.x));
-      d[j] = __fadd_rn(d[j], __fmul_rn(qc.y, t.y));
-      d[j] = __fadd_rn(d[j], __fmul_rn(qc.z, t.z));
-      d[j] = __fadd_rn(d[j], __fmul_rn(qc.w, t.w));
-      if constexpr (!Win::kStaged) {
-        s2[j] = __fadd_rn(s2[j], __fmul_rn(t.x, t.x));
-        s2[j] = __fadd_rn(s2[j], __fmul_rn(t.y, t.y));
-        s2[j] = __fadd_rn(s2[j], __fmul_rn(t.z, t.z));
-        s2[j] = __fadd_rn(s2[j], __fmul_rn(t.w, t.w));
-      }
+      d[j] = add_dot(d[j], qc, t);
+      if constexpr (!Win::kStaged) s2[j] = add_sq(s2[j], t);
     }
   }
   float mloc = kNegInf;
@@ -300,7 +336,7 @@ __device__ __forceinline__ void fwd_rows(const Win& win,
 
 // STAGED: the window in shared memory (smem >= fwd_smem); else read through
 // L2 (no dynamic shared memory).
-template <int S, bool STAGED>
+template <int C, int S, bool STAGED>
 __global__ void __launch_bounds__(kFwdMaxThreads, 2)
     cbl_stats_fwd_kernel(const float* __restrict__ f,
                          const float* __restrict__ meta,
@@ -314,32 +350,33 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 2)
   const int start = min(max(row0 / tile - window, 0), m / tile - width);
   const long long base = (long long)b * m + (long long)start * tile;
   const float4* f4 = reinterpret_cast<const float4*>(f);
+  constexpr int NV = Width<C>::NV;
   if constexpr (STAGED) {
     float4* win = fwd_shared;
-    float2* mw = reinterpret_cast<float2*>(win + w_sz * 8);
+    float2* mw = reinterpret_cast<float2*>(win + w_sz * NV);
     float* s2w = reinterpret_cast<float*>(mw + w_sz);
-    // stage the window: each row once, its |s|^2 in channel order
+    // stage the window: each row once, its |s|^2 in channel order, 8 chunks
+    // of it loaded together at a time
     for (int r = threadIdx.x; r < w_sz; r += blockDim.x) {
-      float4 v[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = f4[(base + r) * 8 + i];
       float s2 = 0.f;
+      for (int i0 = 0; i0 < NV; i0 += 8) {
+        float4 v[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        s2 = __fadd_rn(s2, __fmul_rn(v[i].x, v[i].x));
-        s2 = __fadd_rn(s2, __fmul_rn(v[i].y, v[i].y));
-        s2 = __fadd_rn(s2, __fmul_rn(v[i].z, v[i].z));
-        s2 = __fadd_rn(s2, __fmul_rn(v[i].w, v[i].w));
-        win[chunk_at(r, i)] = v[i];
+        for (int i = 0; i < 8; ++i) v[i] = f4[(base + r) * NV + i0 + i];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s2 = add_sq(s2, v[i]);
+          win[chunk_at<NV>(r, i0 + i)] = v[i];
+        }
       }
       s2w[r] = s2;
       mw[r] = *reinterpret_cast<const float2*>(meta + (base + r) * 8);
     }
     __syncthreads();
-    fwd_rows<S>(SharedWindow{win, mw, s2w}, li, stats, k, w_sz, row0,
+    fwd_rows<S>(SharedWindow<C>{win, mw, s2w}, li, stats, k, w_sz, row0,
                 start * tile, base, rows_pb, inv_t);
   } else {
-    fwd_rows<S>(GlobalWindow{f4, meta, base}, li, stats, k, w_sz, row0,
+    fwd_rows<S>(GlobalWindow<C>{f4, meta, base}, li, stats, k, w_sz, row0,
                 start * tile, base, rows_pb, inv_t);
   }
 }
@@ -354,6 +391,21 @@ constexpr int kMaxK = 256;  // slots a row (pass 1's shared memory)
 // dynamic shared memory of the pass-1 kernel: each row's slot coefficients
 // and support rows
 inline size_t rows_smem(int k) { return (size_t)kRowsPerBlock * k * 8; }
+
+// The coefficient cd of a valid member slot (mv > 0) from |q|^2, |s|^2 and
+// q . s, each summed in channel order: 0 below the cancellation floor.
+__device__ __forceinline__ float slot_cd(float q2, float s2, float qs, float qa,
+                                         float sa, float mv, float mhat,
+                                         float dpos, float dunder, float inv_t) {
+  const float sc = __fadd_rn(q2, s2);
+  const float d2 = fmaxf(__fsub_rn(sc, __fmul_rn(2.f, qs)), 0.f);
+  const float posmv = (fabsf(__fsub_rn(qa, sa)) < 0.5f ? 1.f : 0.f) * mv;
+  const float dist = sqrtf(__fadd_rn(d2, 1e-12f));
+  const float e = __fmul_rn(expf(__fmul_rn(__fsub_rn(-dist, mhat), inv_t)), mv);
+  const float coef =
+      __fmul_rn(__fmul_rn(__fadd_rn(__fmul_rn(dpos, posmv), dunder), e), -inv_t);
+  return d2 > __fmul_rn(1e-5f, sc) ? __fdiv_rn(coef, dist) : 0.f;
+}
 
 template <int C>
 __global__ void __launch_bounds__(kRowThreads)
@@ -420,15 +472,7 @@ __global__ void __launch_bounds__(kRowThreads)
           s2 = __fadd_rn(s2, __fmul_rn(sv[c], sv[c]));
           qs = __fadd_rn(qs, __fmul_rn(qv[c], sv[c]));
         }
-        const float sc = __fadd_rn(q2, s2);
-        const float d2 = fmaxf(__fsub_rn(sc, __fmul_rn(2.f, qs)), 0.f);
-        const float posmv = (fabsf(__fsub_rn(qa, sa)) < 0.5f ? 1.f : 0.f) * mv;
-        const float dist = sqrtf(__fadd_rn(d2, 1e-12f));
-        const float e =
-            __fmul_rn(expf(__fmul_rn(__fsub_rn(-dist, mhat), inv_t)), mv);
-        const float coef = __fmul_rn(
-            __fmul_rn(__fadd_rn(__fmul_rn(dpos, posmv), dunder), e), -inv_t);
-        if (d2 > __fmul_rn(1e-5f, sc)) cdv = __fdiv_rn(coef, dist);
+        cdv = slot_cd(q2, s2, qs, qa, sa, mv, mhat, dpos, dunder, inv_t);
       }
     }
     cd_row[kk] = cdv;
@@ -458,7 +502,110 @@ __global__ void __launch_bounds__(kRowThreads)
                     __fsub_rn(__fmul_rn(cd_sum, q4.w), acc.w));
 }
 
-template <int S, bool STAGED>
+// Pass 1 at C > 32: the same work and roundings, with no row held in
+// registers. The lanes split the slots as above; each lane reads the query
+// row and a slot row chunk by chunk (the query's chunks from L1) and sums
+// |s|^2 and q . s in channel order. Then lane gl owns the float4 chunks gl,
+// gl + 8, ... of the row and, one chunk at a time, sums cd * s over the
+// row's slots in slot order (cd summed with the first chunk).
+template <int C>
+__global__ void __launch_bounds__(kRowThreads)
+    cbl_bwd_rows_wide_kernel(const float* __restrict__ f,
+                             const float* __restrict__ meta,
+                             const int32_t* __restrict__ li,
+                             const float* __restrict__ stats,
+                             const float* __restrict__ gstats,
+                             float* __restrict__ cd, int32_t* __restrict__ lands,
+                             float* __restrict__ dx, int rows, int m, int k,
+                             int tile, int width, int window, float inv_t) {
+  constexpr int NV = Width<C>::NV;
+  constexpr int PL = NV / kRowLanes;  // float4 chunks a lane in part B
+  extern __shared__ float4 rows_shared[];
+  const int lr = threadIdx.x / kRowLanes, gl = threadIdx.x % kRowLanes;
+  const unsigned mask = 0xffu << (threadIdx.x & 31 & ~(kRowLanes - 1));
+  const int row = blockIdx.x * kRowsPerBlock + lr;
+  if (row >= rows) return;  // group-uniform; the groups meet by __syncwarp
+  float* cd_s = reinterpret_cast<float*>(rows_shared) + lr * k;
+  int* sr_s = reinterpret_cast<int*>(rows_shared) + (kRowsPerBlock + lr) * k;
+  const int b = row / m;
+  const int q = row - b * m;
+  int start = q / tile - window;
+  start = max(start, 0);
+  start = min(start, m / tile - width);
+  const int base = b * m + start * tile;  // the window's first support row
+  const int w_sz = width * tile;
+  const float4* f4 = reinterpret_cast<const float4*>(f);
+  const float4* qrow = f4 + (size_t)row * NV;
+  float* cd_row = cd + (size_t)row * k;
+  int32_t* lands_row = lands + (size_t)row * k;
+  float4* dq = reinterpret_cast<float4*>(dx) + (size_t)row * NV + gl;
+  const float dpos = gstats[(size_t)row * 8 + 1];
+  const float dunder = gstats[(size_t)row * 8 + 2];
+  if (dpos == 0.f && dunder == 0.f) {  // every cd is 0
+    for (int kk = gl; kk < k; kk += kRowLanes) {
+      cd_row[kk] = 0.f;
+      lands_row[kk] = -1;
+    }
+#pragma unroll
+    for (int p = 0; p < PL; ++p) dq[p * kRowLanes] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  float q2 = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < NV; ++i) q2 = add_sq(q2, qrow[i]);
+  const float qa = meta[(size_t)row * 8];
+  const float mhat = stats[(size_t)row * 8];
+  for (int kk = gl; kk < k; kk += kRowLanes) {
+    const int j = li[(size_t)row * k + kk];
+    sr_s[kk] = j >= 0 && j < w_sz ? base + j : -1;
+  }
+  for (int kk = gl; kk < k; kk += kRowLanes) {
+    const int sr = sr_s[kk];
+    float cdv = 0.f;
+    if (sr >= 0) {
+      const float mv = meta[(size_t)sr * 8 + 1];
+      const float sa = meta[(size_t)sr * 8];
+      if (mv > 0.f) {
+        const float4* srow = f4 + (size_t)sr * NV;
+        float s2 = 0.f, qs = 0.f;
+#pragma unroll 8
+        for (int i = 0; i < NV; ++i) {
+          const float4 sv = srow[i];
+          s2 = add_sq(s2, sv);
+          qs = add_dot(qs, qrow[i], sv);
+        }
+        cdv = slot_cd(q2, s2, qs, qa, sa, mv, mhat, dpos, dunder, inv_t);
+      }
+    }
+    cd_row[kk] = cdv;
+    lands_row[kk] = cdv != 0.f ? sr - b * m : -1;
+    cd_s[kk] = cdv;
+  }
+  __syncwarp(mask);
+  float cd_sum = 0.f;
+  for (int p = 0; p < PL; ++p) {
+    const int piece = gl + p * kRowLanes;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int kk = 0; kk < k; ++kk) {
+      const float cdv = cd_s[kk];
+      if (cdv == 0.f) continue;
+      const float4 sv = f4[(size_t)sr_s[kk] * NV + piece];
+      if (p == 0) cd_sum = __fadd_rn(cd_sum, cdv);
+      acc.x = __fadd_rn(acc.x, __fmul_rn(cdv, sv.x));
+      acc.y = __fadd_rn(acc.y, __fmul_rn(cdv, sv.y));
+      acc.z = __fadd_rn(acc.z, __fmul_rn(cdv, sv.z));
+      acc.w = __fadd_rn(acc.w, __fmul_rn(cdv, sv.w));
+    }
+    const float4 q4 = qrow[piece];
+    dq[p * kRowLanes] = make_float4(__fsub_rn(__fmul_rn(cd_sum, q4.x), acc.x),
+                                    __fsub_rn(__fmul_rn(cd_sum, q4.y), acc.y),
+                                    __fsub_rn(__fmul_rn(cd_sum, q4.z), acc.z),
+                                    __fsub_rn(__fmul_rn(cd_sum, q4.w), acc.w));
+  }
+}
+
+template <int C, int S, bool STAGED>
 int fwd_launch(const float* f, const float* meta, const int32_t* li,
                float* stats, int b, int m, int k, int tile, int width,
                int window, float inv_t, int blocks, int threads, int smem,
@@ -466,31 +613,58 @@ int fwd_launch(const float* f, const float* meta, const int32_t* li,
   static bool configured = false;
   if (STAGED && !configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        cbl_stats_fwd_kernel<S, true>,
+        cbl_stats_fwd_kernel<C, S, true>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (e != cudaSuccess) return (int)e;
     // two windows of the flagship's width to an SM
-    e = cudaFuncSetAttribute(cbl_stats_fwd_kernel<S, true>,
+    e = cudaFuncSetAttribute(cbl_stats_fwd_kernel<C, S, true>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  cbl_stats_fwd_kernel<S, STAGED><<<dim3(blocks, b), threads, smem, s>>>(
+  cbl_stats_fwd_kernel<C, S, STAGED><<<dim3(blocks, b), threads, smem, s>>>(
       f, meta, li, stats, m, k, tile, width, window, m / blocks, inv_t);
   return (int)cudaGetLastError();
 }
 
-template <int S>
+template <int C, int S>
 int fwd(const float* f, const float* meta, const int32_t* li, float* stats,
         int b, int m, int k, int tile, int width, int window, float inv_t,
         int blocks, int threads, int smem, cudaStream_t s) {
-  return smem > 0 ? fwd_launch<S, true>(f, meta, li, stats, b, m, k, tile,
-                                        width, window, inv_t, blocks, threads,
-                                        smem, s)
-                  : fwd_launch<S, false>(f, meta, li, stats, b, m, k, tile,
-                                         width, window, inv_t, blocks, threads,
-                                         0, s);
+  return smem > 0 ? fwd_launch<C, S, true>(f, meta, li, stats, b, m, k, tile,
+                                           width, window, inv_t, blocks,
+                                           threads, smem, s)
+                  : fwd_launch<C, S, false>(f, meta, li, stats, b, m, k, tile,
+                                            width, window, inv_t, blocks,
+                                            threads, 0, s);
+}
+
+template <int C>
+int fwd_by_slots(const float* f, const float* meta, const int32_t* li,
+                 float* stats, int b, int m, int k, int tile, int width,
+                 int window, float inv_t, int blocks, int threads, int smem,
+                 cudaStream_t s) {
+  const int spl = (k + kFwdLanes - 1) / kFwdLanes;
+  if (spl <= 3)
+    return fwd<C, 3>(f, meta, li, stats, b, m, k, tile, width, window, inv_t,
+                     blocks, threads, smem, s);
+  if (spl <= 5)
+    return fwd<C, 5>(f, meta, li, stats, b, m, k, tile, width, window, inv_t,
+                     blocks, threads, smem, s);
+  return fwd<C, 8>(f, meta, li, stats, b, m, k, tile, width, window, inv_t,
+                   blocks, threads, smem, s);
+}
+
+// pass 1 at C: a whole row in registers at C = 32, wider rows chunk by chunk
+// (the wide kernel at C = 32 gives the same bits, 1.4% slower over the
+// flagship's five calls on an H100: PERF.md)
+template <int C>
+constexpr auto rows_kernel() {
+  if constexpr (C == 32)
+    return cbl_bwd_rows_kernel<32>;
+  else
+    return cbl_bwd_rows_wide_kernel<C>;
 }
 
 template <int C>
@@ -498,20 +672,19 @@ int bwd(const float* f, const float* meta, const int32_t* li,
         const float* stats, const float* gstats, float* cd, int32_t* lands,
         float* dx, int b, int m, int k, int tile, int width, int window,
         float inv_t, int rows, cudaStream_t s) {
+  constexpr auto kernel = rows_kernel<C>();
   static bool configured = false;
   cudaError_t e;
   if (!configured) {
-    e = cudaFuncSetAttribute(cbl_bwd_rows_kernel<C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)rows_smem(kMaxK));
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int n = b * m;
-  cbl_bwd_rows_kernel<C>
-      <<<(n + kRowsPerBlock - 1) / kRowsPerBlock, kRowThreads, rows_smem(k), s>>>(
-          f, meta, li, stats, gstats, cd, lands, dx, n, m, k, tile, width,
-          window, inv_t);
+  kernel<<<(n + kRowsPerBlock - 1) / kRowsPerBlock, kRowThreads, rows_smem(k), s>>>(
+      f, meta, li, stats, gstats, cd, lands, dx, n, m, k, tile, width, window,
+      inv_t);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_slot_scatter<C, false>(f, lands, cd, nullptr, nullptr, dx, b, m,
@@ -520,8 +693,9 @@ int bwd(const float* f, const float* meta, const int32_t* li,
 
 }  // namespace
 
-// The feature width is the latent width base_fdim = 32 (the wrapper refuses
-// other widths). blocks (a cloud), threads and smem come from
+// c: the row width, 32, 64, 128, 256 or 512 floats (the wrapper pads the
+// features to it with zero channels). blocks (a cloud), threads and smem
+// come from
 // ops/cuda/cbl_dense.py::fwd_plan: a block serves M / blocks query rows of
 // one tile (a power-of-two divisor of it), 8 lanes a row; smem holds the
 // tile's window (fwd_smem), or is 0 for a window read through L2; the
@@ -532,28 +706,33 @@ extern "C" int cbl_stats_fwd(const float* f, const float* meta,
                              int k, int c, int tile, int width, int window,
                              float inv_t, int blocks, int threads, int smem,
                              void* stream) {
-  if (c != 32 || k < 1 || blocks < 1 || m % blocks || tile % (m / blocks) ||
+  if (k < 1 || blocks < 1 || m % blocks || tile % (m / blocks) ||
       threads < 32 || threads > kFwdMaxThreads || threads % 32 ||
       window >= width ||
-      (smem != 0 && (smem < (int)fwd_smem(width * tile) || smem > kSmemLimit)))
+      (smem != 0 && (smem < (int)fwd_smem(width * tile, c) || smem > kSmemLimit)))
     return (int)cudaErrorInvalidValue;
-  const int spl = (k + kFwdLanes - 1) / kFwdLanes;
   cudaStream_t s = (cudaStream_t)stream;
-  if (spl <= 3)
-    return fwd<3>(f, meta, li, stats, b, m, k, tile, width, window, inv_t,
-                  blocks, threads, smem, s);
-  if (spl <= 5)
-    return fwd<5>(f, meta, li, stats, b, m, k, tile, width, window, inv_t,
-                  blocks, threads, smem, s);
-  return fwd<8>(f, meta, li, stats, b, m, k, tile, width, window, inv_t,
-                blocks, threads, smem, s);
+  switch (c) {
+#define CBL_FWD_WIDTH(C)                                                     \
+  case C:                                                                    \
+    return fwd_by_slots<C>(f, meta, li, stats, b, m, k, tile, width, window, \
+                           inv_t, blocks, threads, smem, s);
+    CBL_FWD_WIDTH(32)
+    CBL_FWD_WIDTH(64)
+    CBL_FWD_WIDTH(128)
+    CBL_FWD_WIDTH(256)
+    CBL_FWD_WIDTH(512)
+#undef CBL_FWD_WIDTH
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // stats: the forward's output (lane 0, m, is read); cd and lands: scratch
 // [B, M, K] f32 and int32 (pass 1 writes each slot's coefficient and, where
 // it is not 0, the support row it lands on); dx written whole
-// (uninitialised on entry); rows: the scatter's rows
-// a block, a power-of-two divisor of the tile, at most 256
+// (uninitialised on entry); c as for the forward; rows: the scatter's rows
+// a block, a power-of-two divisor of the tile, at most scatter_max_rows(c)
 // (ops/cuda/cbl_dense.py::bwd_plan). The wrapper raises before M * K reaches
 // 2^23 (a slot and its 8-bit row share one int) and for K > 256.
 extern "C" int cbl_stats_bwd(const float* f, const float* meta,
@@ -562,9 +741,21 @@ extern "C" int cbl_stats_bwd(const float* f, const float* meta,
                              int32_t* lands, float* dx, int b, int m, int k,
                              int c, int tile, int width, int window,
                              float inv_t, int rows, void* stream) {
-  if (c != 32 || k > kMaxK || rows < 1 || rows > kScatterMaxRows ||
-      tile % rows)
+  if (k > kMaxK || rows < 1 || rows > kScatterMaxRows || tile % rows)
     return (int)cudaErrorInvalidValue;
-  return bwd<32>(f, meta, li, stats, gstats, cd, lands, dx, b, m, k, tile,
-                 width, window, inv_t, rows, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (c) {
+#define CBL_BWD_WIDTH(C)                                                     \
+  case C:                                                                    \
+    return bwd<C>(f, meta, li, stats, gstats, cd, lands, dx, b, m, k, tile, \
+                  width, window, inv_t, rows, s);
+    CBL_BWD_WIDTH(32)
+    CBL_BWD_WIDTH(64)
+    CBL_BWD_WIDTH(128)
+    CBL_BWD_WIDTH(256)
+    CBL_BWD_WIDTH(512)
+#undef CBL_BWD_WIDTH
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -46,8 +46,10 @@
 // them; the function reads only the K listed rows of each query.
 //
 // v2 design: blocks of 256 threads, 8 lanes (a row group) a row; the
-// wrapper pads the channels with zeros to C = 32, 64 or 128 (CPL = C / 32),
-// which leaves every distance's bits unchanged; every load of a lane's slots
+// wrapper pads the channels with zeros to C = 32, 64, 128, 256 or 512 (CPL
+// = C / 32), which leaves every distance's bits unchanged; up to C = 128 a
+// lane holds the query row in registers, a wider one is read where it is
+// used (QueryRow); every load of a lane's slots
 // is unconditional (a safe row stands in for one that names none), so that
 // they are in flight together. Launch geometry: ops/cuda/cbl_tile2.py::
 // fwd_plan and ::bwd_plan.
@@ -93,8 +95,7 @@
 //   dx element is written once, the same bits on every run, and the
 //   neighbour part is the plain version's sum order (one index_add_ in slot
 //   order).
-// Limits: C <= 128 (the wrapper refuses wider rows, as the previous design
-// did); any K below 2^23 (the scatter's quotient), longer rows in chunks;
+// Limits: C <= 512 (the wrapper refuses wider rows); any K below 2^23 (the scatter's quotient), longer rows in chunks;
 // any tile, width and window with M % tile == 0; B * M below 2^30.
 //
 // Bound: bytes, counted from the loss mask of the call's data
@@ -232,13 +233,26 @@ __device__ __forceinline__ float2 label_counts(const V2& a, int r, float qa,
   return make_float2(pc, vc);
 }
 
-template <int CPL>
-__device__ __forceinline__ void load_row(const V2& a, long long r,
-                                         float4 (&v)[8 * CPL]) {
-  const float4* p = reinterpret_cast<const float4*>(a.f) + r * (8 * CPL);
+// The query row as the lanes read it: held whole in registers up to C = 128
+// (CPL <= 4); a wider row is read from memory (L1) where it is used.
+template <int CPL, bool HELD = (CPL <= 4)>
+struct QueryRow {
+  float4 v[8 * CPL];
+  __device__ __forceinline__ QueryRow(const V2& a, long long r) {
+    const float4* p = reinterpret_cast<const float4*>(a.f) + r * (8 * CPL);
 #pragma unroll
-  for (int i = 0; i < 8 * CPL; ++i) v[i] = p[i];
-}
+    for (int i = 0; i < 8 * CPL; ++i) v[i] = p[i];
+  }
+  __device__ __forceinline__ float4 operator[](int i) const { return v[i]; }
+};
+
+template <int CPL>
+struct QueryRow<CPL, false> {
+  const float4* __restrict__ p;
+  __device__ __forceinline__ QueryRow(const V2& a, long long r)
+      : p(reinterpret_cast<const float4*>(a.f) + r * (8 * CPL)) {}
+  __device__ __forceinline__ float4 operator[](int i) const { return p[i]; }
+};
 
 __device__ __forceinline__ float4 sq_diff(float4 q, float4 s) {
   const float x = __fsub_rn(q.x, s.x), y = __fsub_rn(q.y, s.y);
@@ -258,7 +272,7 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 // the 32 sums go by a halving tree (which is the shuffle butterfly's: each
 // of its additions takes the same two operands).
 template <int CPL>
-__device__ __forceinline__ float row_dist(const float4 (&q)[8 * CPL],
+__device__ __forceinline__ float row_dist(const QueryRow<CPL>& q,
                                           const float4* __restrict__ s) {
   float4 a[8];
 #pragma unroll
@@ -287,7 +301,7 @@ template <int CPL, int S>
 __device__ __forceinline__ void slot_chunk(const V2& a, const int32_t* lr,
                                            long long base, long long cloud,
                                            int qr, int c0, int lane, float qa,
-                                           const float4 (&qv)[8 * CPL],
+                                           const QueryRow<CPL>& qv,
                                            int (&sr)[S], float (&sv)[S],
                                            float (&d)[S], unsigned& pos) {
   const int w_sz = a.width * a.tile;
@@ -321,7 +335,7 @@ __device__ __forceinline__ float group_max(float x, unsigned gmask) {
 template <int CPL, int S>
 __device__ __forceinline__ float chunks_max(const V2& a, const int32_t* lr, long long base,
                                             long long cloud, int qr, int lane, float qa,
-                                            const float4 (&qv)[8 * CPL], unsigned gmask) {
+                                            const QueryRow<CPL>& qv, unsigned gmask) {
   float mx = kNeg;
   for (int c0 = 0; c0 < a.k; c0 += kLanes * S) {
     int sr[S];
@@ -341,8 +355,7 @@ template <int CPL, int S, bool V1>
 __device__ __forceinline__ void fwd_masked_row(const V2& a, int r, int lane,
                                                unsigned gmask, float temperature,
                                                float* __restrict__ stats) {
-  float4 qv[8 * CPL];
-  load_row<CPL>(a, r, qv);
+  const QueryRow<CPL> qv(a, r);
   const float2 qm = meta2(a, r);
   const long long base = window_base(a, r);
   const long long cloud = (long long)(r / a.m) * a.m;
@@ -520,9 +533,8 @@ __device__ __forceinline__ void bwd_row(const V2& a, int r, int lane,
                                         int32_t* __restrict__ lands,
                                         float* __restrict__ dx) {
   constexpr int NV = 8 * CPL;  // float4 pieces a row; lane l: l + 8 i
-  constexpr int AHEAD = 8 / CPL;  // slot rows a lane loads before it adds
-  float4 qv[8 * CPL];
-  load_row<CPL>(a, r, qv);
+  constexpr int AHEAD = CPL < 8 ? 8 / CPL : 1;  // slot rows a lane loads before it adds
+  const QueryRow<CPL> qv(a, r);
   const float qa = a.meta[(long long)r * 8];
   const long long base = window_base(a, r);
   const long long cloud = (long long)(r / a.m) * a.m;
@@ -664,6 +676,10 @@ int by_width(int c, int k, const Launch& launch) {
       return by_slots<2>(k, launch);
     case 128:
       return by_slots<4>(k, launch);
+    case 256:
+      return by_slots<8>(k, launch);
+    case 512:
+      return by_slots<16>(k, launch);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -704,7 +720,8 @@ struct BwdLaunch {
 bool v2_args_ok(int b, int m, int k, int c, int tile, int width, int label_rows,
                 int row_rows) {
   return b >= 1 && m > 0 && k >= 0 && k < (1 << 23) &&
-         (c == 32 || c == 64 || c == 128) && tile > 0 && m % tile == 0 &&
+         (c == 32 || c == 64 || c == 128 || c == 256 || c == 512) && tile > 0 &&
+         m % tile == 0 &&
          width >= 1 && width <= m / tile && (long long)b * m < (1LL << 30) &&
          label_rows >= 1 && row_rows >= kDealChunk && row_rows <= kMaxDealt &&
          row_rows % kDealChunk == 0;
@@ -831,7 +848,7 @@ int split(const float* fused, float* f, float* meta, int rows, int ncls, int c, 
 
 }  // namespace
 
-// v2 forward: features padded to C = 32, 64 or 128 channels (zeros beyond
+// v2 forward: features padded to C = 32, 64, 128, 256 or 512 channels (zeros beyond
 // the caller's width); label_rows: flat rows a block of the label pass;
 // row_rows: rows dealt to a block of the kernel over the rows of the mask, a
 // multiple of 8, at most 1024 (ops/cuda/cbl_tile2.py::fwd_plan).

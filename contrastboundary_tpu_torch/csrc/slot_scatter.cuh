@@ -71,7 +71,8 @@ __global__ void __launch_bounds__(cbl_window_sort::kThreads)
                         float* __restrict__ dx, int m, int k, int tile,
                         int width, int window, int rows) {
   using namespace cbl_window_sort;
-  static_assert(C == 32 || C == 64 || C == 128, "C / 4 lanes a row group");
+  static_assert(C == 32 || C == 64 || C == 128 || C == 256 || C == 512,
+                "C / 4 lanes a row group, at least two groups a block");
   constexpr int NV = C / 4;           // float4 pieces of a row
   constexpr int LPG = NV;             // lanes a row group, a float4 each
   constexpr int NB = kThreads / LPG;  // buckets = lane groups

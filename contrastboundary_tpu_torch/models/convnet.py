@@ -76,7 +76,9 @@ class ConvNetSeg(nn.Module):
                  bn_eps: float = 1e-6, bn_mode: str = "batch",
                  in_features: str = "1-rgb-Z", fea_dim: int = 3,
                  generator: Optional[torch.Generator] = None, use_multihead: bool = True,
-                 mlp_depth: int = 1, mlp_drop: Optional[float] = None):
+                 mlp_depth: int = 1, mlp_drop: Optional[float] = None,
+                 contrast_project: str = "", contrast_ftype: str = "latent",
+                 multi_sep_head: bool = False):
         super().__init__()
         if aggregation not in AGGREGATORS:
             raise ValueError(f"unknown aggregation {aggregation!r}")
@@ -114,7 +116,9 @@ class ConvNetSeg(nn.Module):
             up_dims[l] = d
         self.use_multihead, self.mlp_depth = use_multihead, mlp_depth
         if use_multihead:
-            self.multihead = MultiHead(up_dims, num_classes, base_fdim)
+            self.multihead = MultiHead(up_dims, num_classes, base_fdim,
+                                       project=contrast_project, contrast_ftype=contrast_ftype,
+                                       sep_head=multi_sep_head)
         else:
             for i in range(mlp_depth):
                 d = self._conv(self._seg_head(i), d, fdim)
@@ -211,12 +215,14 @@ class ConvNetSeg(nn.Module):
             up = batch_gather(x, pyramid.up_idx[l + 1][..., 0])
             x = self._apply_conv(f"up_conv{l}", torch.cat([up, down_feats[l]], -1))
             up_feats[l] = x
+        contrast = stage_logits = ()
         if self.use_multihead:
-            logits, latents = self.multihead(up_feats, pyramid)
+            logits, latents, contrast, stage_logits = self.multihead(up_feats, pyramid)
         else:
             for i in range(self.mlp_depth):
                 x = self._apply_conv(self._seg_head(i), x)
             logits, latents = apply_plain_head(self, x, dropout_key), ()
         if not (self.training or with_latents):
             return logits
-        return ModelOutput(logits=logits, latents=latents)
+        return ModelOutput(logits=logits, latents=latents, contrast_feats=contrast,
+                           stage_logits=stage_logits)

@@ -14,11 +14,17 @@ the kernel's order. The backward takes the forward's max-shift m̂ (stats lane
 0), held constant, and runs as two passes: the per-row slot coefficients cd
 and the row-local part dq (``cbl_bwd_cd_plain``), then the transposed sum of
 cd·(s − q) onto the support rows in ascending slot order.
+
+The kernels take rows of 32, 64, 128, 256 or 512 floats: the wrappers pad
+any other width up to 512 with zero channels (``padded_channels``; +0 in
+every sum, the bits of the distances stay) and cut the gradient back. The
+plain versions take every width as it is.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ...core.masking import EPS, INF, masked_global_mean
 from ...kernels import build
@@ -29,8 +35,13 @@ from .win_topk import window_start_tiles
 fwd_launches = 0
 bwd_launches = 0
 
-CHANNELS = 32  # the feature width the kernels are built for (base_fdim)
+CHANNELS = 32  # the flagship's feature width (base_fdim), the plans' default
+# the row widths the dense and v2 CBL kernels are built for: other widths up
+# to 512 are padded with zero channels to the next one (padded_channels)
+WIDTHS = (32, 64, 128, 256, 512)
+MAX_CHANNELS = WIDTHS[-1]  # the widest row they take
 MAX_SCATTER_ROWS = 256  # rows a block of the backward's scatter (8-bit row)
+SCATTER_FLOATS = 16384  # accumulator floats a scatter block (csrc/slot_scatter.cuh)
 MIN_SCATTER_ROWS = 16
 # blocks the scatter splits a level's rows into, at least where the tile
 # allows: the fastest split of each flagship level on an H100 (rows a block
@@ -53,6 +64,21 @@ def self_window_starts(m: int, tile: int, width: int, window: int) -> np.ndarray
     """Window start tiles of the self geometry over M rows."""
     g = m // tile
     return window_start_tiles(g, g, width, window)
+
+
+def padded_channels(c: int, widest: int = MAX_CHANNELS) -> int:
+    """The row width the CBL kernels read for C feature channels: the least
+    of WIDTHS that holds C, up to ``widest``. The extra channels are zeros,
+    which add +0 to every sum of the distances and leave their bits as they
+    are."""
+    if not 0 < c <= widest:
+        raise ValueError(f"feature width {c}: the CBL kernels take 1 to {widest}")
+    return next(w for w in WIDTHS if c <= w)
+
+
+def scatter_max_rows(channels: int) -> int:
+    """Rows a block of the backward's scatter holds at this row width."""
+    return min(MAX_SCATTER_ROWS, SCATTER_FLOATS // channels)
 
 
 def _check(features, meta, li, tile, width):
@@ -155,37 +181,40 @@ def scatter_slot_ranges(m: int, k: int, tile: int, width: int, window: int) -> n
     return np.stack([lo, hi], 1) * (k * tile)
 
 
-def bwd_plan(b: int, m: int, tile: int):
-    """Launch geometry of the backward → (pass-1 blocks of 256 threads, 8
-    lanes a row; scatter rows a block; scatter grid (blocks, clouds)). The
-    scatter's rows are a power-of-two divisor of the tile, at most 256,
-    halved (down to 16) while it would have fewer than MIN_SCATTER_BLOCKS
-    blocks."""
-    rows = min(tile & -tile, MAX_SCATTER_ROWS)
+def bwd_plan(b: int, m: int, tile: int, c: int = CHANNELS):
+    """Launch geometry of the backward at C feature channels → (pass-1
+    blocks of 256 threads, 8 lanes a row; scatter rows a block; scatter
+    grid (blocks, clouds)). The scatter's rows are a power-of-two divisor
+    of the tile, at most ``scatter_max_rows`` of the kernel's row width
+    (256 up to 64 channels, 16384 floats wider), halved (down to 16) while
+    it would have fewer than MIN_SCATTER_BLOCKS blocks."""
+    rows = min(tile & -tile, scatter_max_rows(padded_channels(c)))
     while rows > MIN_SCATTER_ROWS and (m // rows) * b < MIN_SCATTER_BLOCKS:
         rows //= 2
     return -(-b * m * 8 // 256), rows, ((m // tile) * (tile // rows), b)
 
 
-def fwd_smem(width: int, tile: int) -> int:
-    """Dynamic shared bytes of a forward block: the window's rows (C floats),
-    their (argmax, validity) and |s|²."""
-    return width * tile * (4 * CHANNELS + 8 + 4)
+def fwd_smem(width: int, tile: int, c: int = CHANNELS) -> int:
+    """Dynamic shared bytes of a forward block: the window's rows (the
+    kernel's row width for C channels), their (argmax, validity) and |s|²."""
+    return width * tile * (4 * padded_channels(c) + 8 + 4)
 
 
-def fwd_plan(b: int, m: int, k: int, tile: int, width: int):
-    """Launch geometry of the forward → (blocks a cloud, threads a block,
-    dynamic shared bytes). A block serves M / blocks query rows of one tile
+def fwd_plan(b: int, m: int, k: int, tile: int, width: int, c: int = CHANNELS):
+    """Launch geometry of the forward at C feature channels → (blocks a
+    cloud, threads a block, dynamic shared bytes). A block serves M /
+    blocks query rows of one tile
     (a power-of-two divisor of it, at most 256), 8 lanes a row, 64 rows at
     a time; the rows are halved (down to 32) while a level has fewer blocks
     than half the card's SMs (the split a sweep of 32–256 rows timed
     fastest at the flagship's levels on an H100). Every row's K slots are
     split among its 8 lanes. The window is staged in shared memory where it
-    fits (``fwd_smem``); a wider one (over 1,660 rows) is read through L2,
-    with 0 dynamic shared bytes, and gives the same bits. Both paths stay:
-    forced through L2, the flagship's five launches take 1.72x the staged
-    path's time on an H100 (scripts/ab_torch_kernels.py)."""
-    smem = fwd_smem(width, tile)
+    fits (``fwd_smem``); a wider one (at 32 channels, over 1,660 rows; at
+    512, over 112) is read through L2, with 0 dynamic shared bytes, and
+    gives the same bits. Both paths stay: forced through L2, the flagship's
+    five launches take 1.72x the staged path's time on an H100
+    (scripts/ab_torch_kernels.py)."""
+    smem = fwd_smem(width, tile, c)
     if smem > SMEM_LIMIT:
         smem = 0
     rows = min(tile & -tile, FWD_MAX_ROWS)
@@ -213,10 +242,10 @@ def _cuda_args(features, meta, li, tile, width):
     if features.dtype != torch.float32 or meta.dtype != torch.float32:
         raise TypeError("cbl_stats takes float32 features and meta")
     _check(features, meta, li, tile, width)
-    if features.shape[-1] != CHANNELS:
-        raise ValueError(f"feature width {features.shape[-1]} != {CHANNELS}")
-    return (features.contiguous(), meta.contiguous(),
-            li.to(torch.int32).contiguous())
+    c = features.shape[-1]
+    channels = padded_channels(c)
+    f = features if channels == c else F.pad(features, (0, channels - c))
+    return f.contiguous(), meta.contiguous(), li.to(torch.int32).contiguous()
 
 
 def cbl_stats_fwd(features, meta, li, temperature: float, tile: int,
@@ -231,7 +260,7 @@ def cbl_stats_fwd(features, meta, li, temperature: float, tile: int,
         raise ValueError(f"window={window} >= width={width}: the query tile must lie in its window")
     b, m, c = f.shape
     k = lii.shape[-1]
-    blocks, threads, smem = fwd_plan(b, m, k, tile, width)
+    blocks, threads, smem = fwd_plan(b, m, k, tile, width, c)
     stats = torch.empty((b, m, 8), dtype=torch.float32, device=f.device)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = build.library().cbl_stats_fwd(
@@ -246,7 +275,8 @@ def cbl_stats_fwd(features, meta, li, temperature: float, tile: int,
 def cbl_stats_bwd_passes(features, meta, li, stats, g_stats, temperature: float,
                          tile: int, width: int, window: int):
     """The backward kernel on CUDA tensors → (dfeatures, cd): the pass-1
-    coefficients come back from their scratch tensor."""
+    coefficients come back from their scratch tensor; the gradient is cut
+    back to the features' width."""
     global bwd_launches
     f, mt, lii = _cuda_args(features, meta, li, tile, width)
     for name, x in (("stats", stats), ("stats cotangent", g_stats)):
@@ -258,7 +288,7 @@ def cbl_stats_bwd_passes(features, meta, li, stats, g_stats, temperature: float,
         raise ValueError(f"M·K = {m * k} slots a cloud (limit 2^23), K = {k} (limit {MAX_K})")
     st = stats.float().contiguous()
     gs = g_stats.float().contiguous()
-    _, rows, _ = bwd_plan(b, m, tile)
+    _, rows, _ = bwd_plan(b, m, tile, c)
     cd = torch.empty((b, m, k), dtype=torch.float32, device=f.device)
     lands = torch.empty((b, m, k), dtype=torch.int32, device=f.device)
     dx = torch.empty_like(f)
@@ -270,7 +300,8 @@ def cbl_stats_bwd_passes(features, meta, li, stats, g_stats, temperature: float,
     )
     bwd_launches += 1
     build.check(rc, "cbl_stats_bwd")
-    return dx, cd
+    c_in = features.shape[-1]
+    return (dx if c == c_in else dx[..., :c_in].contiguous()), cd
 
 
 def cbl_stats_bwd(features, meta, li, stats, g_stats, temperature: float, tile: int,

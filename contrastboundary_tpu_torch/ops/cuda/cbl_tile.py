@@ -29,6 +29,8 @@ from .cbl_tile2 import (
     BwdPlan, _check_card, bwd_plan, check_geometry, grad_plain, padded_channels, stats_plain,
 )
 
+MAX_CHANNELS = 128  # feature columns the split takes (padded to 32, 64 or 128)
+
 # kernel launches made by the wrappers below (plain-version calls not counted)
 fwd_launches = 0
 bwd_launches = 0
@@ -54,7 +56,7 @@ def split_plain(fused, ncls: int):
     meta[..., 0] = arg
     meta[..., 1] = (total > 0).float()
     c = fused.shape[-1] - ncls
-    return F.pad(fused[..., ncls:], (0, padded_channels(c) - c)), meta
+    return F.pad(fused[..., ncls:], (0, padded_channels(c, MAX_CHANNELS) - c)), meta
 
 
 def _split(fused, ncls: int):
@@ -90,6 +92,7 @@ def launch_plan(b: int, m: int, k: int, columns: int, ncls: int, tile: int) -> B
     wrappers ask for it on every call."""
     if ncls < 1:
         raise ValueError(f"ncls={ncls}: the label columns are at least one")
+    padded_channels(columns - ncls, MAX_CHANNELS)
     return bwd_plan(b, m, k, columns - ncls, tile)
 
 

@@ -13,11 +13,12 @@ the statistics first: one forward and one backward launch a stage. The
 kernel's forward writes lanes 0-2 only on the rows of the loss mask and
 the fill (0, 0, 0) elsewhere; no output reads them there.
 
-The kernels take rows of 32, 64 or 128 channels: other widths up to 128
-are padded with zero channels (``padded_channels``), which leaves every
-distance's bits unchanged, and the gradient is cut back. ``fwd_plan`` and
-``bwd_plan`` give the launch geometry; every shape the plain versions take
-(C <= 128) has one.
+The kernels take rows of 32, 64, 128, 256 or 512 channels: other widths
+up to 512 are padded with zero channels (``cbl_dense.padded_channels``), which leaves
+every distance's bits unchanged, and the gradient is cut back. Up to 128
+channels a lane holds the query row in registers; wider rows are read where
+they are used. ``fwd_plan`` and ``bwd_plan`` give the launch geometry;
+every shape the plain versions take (C <= 512) has one.
 
 The plain versions walk the K slots in a loop of [B, M] and [B, M, C] ops
 in the kernel's order: distances summed per lane of 32 channels, then by a
@@ -37,14 +38,13 @@ import torch.nn.functional as F
 from ...core.masking import EPS, INF
 from ...kernels import build
 from . import tile_gather as _tg
-from .cbl_dense import row_meta, self_window_starts
+from .cbl_dense import padded_channels, row_meta, self_window_starts
 
 # kernel launches made by the wrappers below (plain-version calls not counted)
 fwd_launches = 0
 bwd_launches = 0
 
 LOG_EPS = 1e-12
-MAX_CHANNELS = 128  # the widest row the kernels take (padded to 32, 64 or 128)
 LANES = 8  # lanes a query row
 THREADS = 256  # threads a block: 32 row groups
 MAX_LABEL_ROWS = 128  # flat rows a block of the forward's label pass
@@ -71,13 +71,6 @@ def check_geometry(x, li, tile: int, width: int):
         raise ValueError(f"rows {tuple(x.shape)} vs li {tuple(li.shape)}")
     if m % tile or width > m // tile:
         raise ValueError(f"M={m} vs tile={tile}, width={width}")
-
-
-def padded_channels(c: int) -> int:
-    """The kernels' row width for C channels: 32, 64 or 128."""
-    if not 0 < c <= MAX_CHANNELS:
-        raise ValueError(f"feature width {c}: the CBL tile kernels take 1 to {MAX_CHANNELS}")
-    return 32 if c <= 32 else 64 if c <= 64 else 128
 
 
 def lane_slots(k: int, channels: int):

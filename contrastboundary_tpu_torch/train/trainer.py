@@ -3,7 +3,8 @@ make_train_step): pyramid, features and labels into its row order (Morton
 order on the sorted layout, the caller's on the natural one), the model in
 train mode, the main loss (cross-entropy, optionally class-weighted, the
 binary sigmoid cross-entropy or none, times its weight) plus the 5-stage
-CBL, backward, the optimizer's update, and the confusion of the step's
+CBL on the MultiHead's contrast features (its ``rand<k>`` rows keyed by the
+update count), backward, the optimizer's update, and the confusion of the step's
 predictions; and ``Trainer``, the minimal epoch loop over it
 (::Trainer)."""
 from __future__ import annotations
@@ -26,6 +27,7 @@ from .state import set_learning_rate
 
 MAIN_LOSSES = ("xen", "sigmoid", "none")
 DROPOUT_SEED = 17  # the JAX trainer's: rngs={'dropout': fold_in(PRNGKey(17), step)}
+CBL_SEED = 13  # the JAX trainer's key of the rand<k> rows: fold_in(PRNGKey(13), step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +52,12 @@ def dropout_key(step: int) -> threefry.Key:
     """The dropout key of the update ``step`` (updates applied before it),
     the JAX trainer's ``fold_in(PRNGKey(17), state.step)``."""
     return threefry.fold_in(threefry.prng_key(DROPOUT_SEED), step)
+
+
+def cbl_key(step: int) -> threefry.Key:
+    """The key of the CBL's ``rand<k>`` rows at the update ``step``, the
+    JAX trainer's ``fold_in(PRNGKey(13), state.step)``."""
+    return threefry.fold_in(threefry.prng_key(CBL_SEED), step)
 
 
 def main_loss(cfg: TrainStepConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -101,9 +109,12 @@ def make_train_step(model: torch.nn.Module, cfg: TrainStepConfig,
         total = cfg.main_weight * ce
         metrics = {"ce": ce}
         if cfg.contrast is not None:
-            cb, per_stage = cbl_loss(
-                out.latents, pyramid, labels, cfg.num_classes, cfg.contrast, cfg.ignore_label
-            )
+            # the MultiHead's contrast branch where it has one, else the latents
+            feats = (out.contrast_feats if any(f is not None for f in out.contrast_feats)
+                     else out.latents)
+            rand_key = cbl_key(step.count) if cfg.contrast.extra_neg_rand else None
+            cb, per_stage = cbl_loss(feats, pyramid, labels, cfg.num_classes, cfg.contrast,
+                                     cfg.ignore_label, key=rand_key)
             total = total + cb
             metrics["cbl"] = cb
             metrics.update(per_stage)

@@ -1,8 +1,10 @@
-"""JAX's threefry random stream, bit for bit, for the two places the port
+"""JAX's threefry random stream, bit for bit, for the three places the port
 draws from it: the ``random`` sampler's row permutation
 (``jax.random.permutation(PRNGKey(level), n)``, a constant of the level,
-computed on the host) and flax's ``nn.Dropout`` mask under the trainer's
-``fold_in(PRNGKey(17), step)`` (drawn on the tensor's device).
+computed on the host), flax's ``nn.Dropout`` mask under the trainer's
+``fold_in(PRNGKey(17), step)`` and the CBL's ``rand<k>`` rows
+(``jax.random.randint`` under ``fold_in(PRNGKey(13), step)``), both drawn
+on the tensor's device.
 
 The layout is the one JAX uses with ``jax_threefry_partitionable`` on (its
 default): the bits of a shape are ``x0 ^ x1`` of threefry2x32(key, (hi(i),
@@ -84,17 +86,38 @@ def flax_fold(key: Key, *suffix) -> Key:
     return fold_in(key, int.from_bytes(m.digest()[:4], byteorder="big"))
 
 
-def random_bits32(key: Key, shape, device=None):
+def random_bits32(key: Key, shape, device=None, rows=None):
     """``jax.random.bits(key, shape, uint32)``: on the host (``device``
     None) an int64 numpy array, else an int64 tensor on ``device``; the
-    values are the uint32 bits."""
-    n = math.prod(shape)
+    values are the uint32 bits. ``rows`` = (r0, r1) computes only those
+    rows of the leading axis (each element's bits depend on its flat index
+    alone)."""
+    shape = tuple(shape)
+    r0, r1 = rows if rows is not None else (0, shape[0] if shape else 1)
+    per = math.prod(shape[1:])
+    lo, n = r0 * per, (r1 - r0) * per
     if device is None:
-        i = np.arange(n, dtype=np.int64)
+        i = np.arange(lo, lo + n, dtype=np.int64)
     else:
-        i = torch.arange(n, dtype=torch.int64, device=device)
+        i = torch.arange(lo, lo + n, dtype=torch.int64, device=device)
     y0, y1 = threefry2x32(key, i >> 32, i & MASK)
-    return (y0 ^ y1).reshape(tuple(shape))
+    return (y0 ^ y1).reshape(((r1 - r0),) + shape[1:] if shape else ())
+
+
+def randint(key: Key, shape, minval: int, maxval: int, device=None, rows=None):
+    """``jax.random.randint(key, shape, minval, maxval, int32)`` as int64:
+    two 32-bit draws from ``split(key)``, then minval + ((hi mod span) ·
+    (2³² mod span) + lo mod span) mod span, every product and sum modulo
+    2³² as the uint32 arithmetic is (span = maxval − minval, 1 where
+    maxval <= minval). ``rows`` as for ``random_bits32``."""
+    k1, k2 = split(key)
+    hi = random_bits32(k1, shape, device, rows)
+    lo = random_bits32(k2, shape, device, rows)
+    span = maxval - minval if maxval > minval else 1
+    mult = (1 << 16) % span
+    mult = (mult * mult & MASK) % span
+    offset = ((hi % span) * mult & MASK) + lo % span
+    return minval + (offset & MASK) % span
 
 
 def uniform(key: Key, shape, device=None):

@@ -58,7 +58,6 @@ DSL_CASES = PUBLISHED_OP_STRINGS + [
     "multi-Ua-concat-latent|contrast-Ua-softnn-latent-label-nn4-rand8-w.1",
     "multi-Ua-concat-latent-loss|contrast-Ua-softnn-latent-label-l2-w.1",
 ]
-PORT_CONTRAST = {f.name for f in dataclasses.fields(ContrastConfig)}
 # the 19 presets of each package, registered when their module is imported
 for _presets in ("contrastboundary_tpu.config.s3dis", "contrastboundary_tpu_torch.config.s3dis"):
     importlib.import_module(_presets)
@@ -121,30 +120,25 @@ def test_yaml_files_equal_jax(tmp_path):
 
 
 def _port_has(heads: dict) -> bool:
-    """Whether the port has every option of JAX's parsed heads (the plain
-    mlp head's every option among them)."""
+    """Whether the port has every option of JAX's parsed heads (every
+    contrast option, ``sep`` and the plain mlp head's every option among
+    them)."""
     multi = heads.get("multi")
     if multi is not None:
         flagship = dsl.flagship_multi()
         for k, v in multi.items():
-            if not (k == "branch_weight" and not multi["branch_loss"]) and v != flagship[k]:
+            skip = k == "sep_head" or (k == "branch_weight" and not multi["branch_loss"])
+            if not skip and v != flagship[k]:
                 return False
-    c = heads.get("contrast")
-    if c is not None:
-        ref = jax_dsl.ContrastConfig()
-        for f in dataclasses.fields(c):
-            if f.name not in PORT_CONTRAST and getattr(c, f.name) != getattr(ref, f.name):
-                return False
-        if c.dist not in ("l2", "norml2"):
-            return False
     return True
 
 
 def _port_view(heads: dict) -> dict:
+    """JAX's parsed heads with its ContrastConfig as the port's, every field
+    carried over (the two have the same fields)."""
     out = dict(heads)
     if "contrast" in out:
-        c = out["contrast"]
-        out["contrast"] = ContrastConfig(**{k: getattr(c, k) for k in PORT_CONTRAST})
+        out["contrast"] = ContrastConfig(**dataclasses.asdict(out["contrast"]))
     return out
 
 
@@ -210,13 +204,41 @@ def test_build_model(name, dtype):
     ("s3dis_pt_cbl", 'arch_out:"multi-Ua-sum-latent"', "item 7"),
     ("s3dis_pt_cbl", "model.save_memory:true", "item 7"),
     ("s3dis_pt", 'arch_out:"mlp-1-xen|contrast-Ua-softnn-latent-label-l2-w.1"', "item 7"),
-    ("s3dis_pt_cbl", 'arch_out:"multi-Ua-concat-latent|contrast-Ua-nce-latent-label-l2-w.1"',
-     "item 7"),
+    ("s3dis_pt_cbl", 'arch_out:"multi-Ua-concat-latent-loss"', "item 7"),
+    ("s3dis_pt_cbl", 'arch_out:"multi-Ua-concatmlp-latent"', "item 7"),
 ])
 def test_unported_options_raise(name, sets, item):
     cfg = load_config(name, sets)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
         cfg.build_model(device="cpu")
+
+
+@pytest.mark.parametrize("arch_out,modules", [
+    ("multi-Ua-concat-latent|contrast-Ua-nce-latent-label-l2-w.1", ()),
+    ("multi-Ua-concat-latent-sep|contrast-Ua-nce-latent-label_recur-l2square-mS-mask-nn4-rand8-"
+     "projmlp-w.1", ("sep_latent4", "project4.fc0")),
+    ("multi-Ua-concat-latent|contrast-Ua-softnn-probs-labelkl.5-nst-kl-p2-w.1", ("branch_cls4",)),
+    ("multi-Ua-concat-latent|contrast-Ua-softnn-fout-label-l2-w.1", ()),
+    ("multi-Ua-concat-latent-sep|contrast-Ua-softnn-logits-label-max-l2-projlinear-w.1",
+     ("sep_latent0", "sep_cls0", "project0")),
+    ("multi-Ua-concat-latent|contrast-Ua-softnn-latent-label-l2-projmlp2-p.5-w.1",
+     ("project2.fc1",)),
+])
+def test_contrast_options_build_with_the_jax_config(arch_out, modules):
+    """The CBL options test_unported_options_raise once held as raising
+    (ROADMAP Queue A item 7c): each builds its model, with the MultiHead's
+    contrast-branch modules the options name, and parses to a
+    ContrastConfig equal to JAX's on every field."""
+    sets = f'arch_out:"{arch_out}";model.planes:[8,16,24,32,40];model.blocks:[1,1,1,1,1]'
+    cfg = load_config("s3dis_pt_cbl", sets)
+    ref = jax_load_config("s3dis_pt_cbl", sets).contrast
+    assert dataclasses.asdict(cfg.contrast) == dataclasses.asdict(ref)
+    model = cfg.build_model(device="cpu")
+    names = dict(model.multihead.named_modules())
+    assert all(m in names for m in modules), sorted(names)
+    head = model.multihead
+    assert (head.contrast_ftype, head.project) == (ref.ftype, ref.project)
+    assert head.sep_head == cfg.heads["multi"]["sep_head"]
 
 
 def _spec_equals_jax(name, sets=None):

@@ -7,7 +7,9 @@ forward and backward and fused-attention forward and backward kernels
 layers), at the shapes the reference trains beyond the flagship's (the
 attention at C = 512 with K in {8, 32, 48}, CBL windows wider than shared
 memory holds), and the scalar-read gather path's (row, channel) counter,
-which csrc/tile_gather.cu steps without a division. No card is needed."""
+which csrc/tile_gather.cu steps without a division; the CBL kernels' plans
+at every width the CBL head's options give them (13 to 512 channels, the
+rows padded to the kernels' 32, 64, 128, 256 or 512). No card is needed."""
 import re
 from pathlib import Path
 
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 
 from contrastboundary_tpu_torch.ops.cuda import cbl_dense
+from contrastboundary_tpu_torch.ops.cuda import cbl_tile2 as c2
 from contrastboundary_tpu_torch.ops.cuda import pt_attn
 from contrastboundary_tpu_torch.ops.cuda import tile_gather as tg
 
@@ -245,6 +248,71 @@ def test_cbl_fwd_plan_serves_a_window_beyond_shared_memory():
         assert blocks * rows == m and tile % rows == 0 and rows & (rows - 1) == 0
         assert threads % 32 == 0 and threads <= cbl_dense.FWD_MAX_THREADS
         assert np.all(_fwd_coverage(b, m, k, tile, blocks, threads) == 1)
+
+
+# (C, M, K, tile, width) of the CBL kernels at the widths the CBL head's
+# options give them on the flagship pyramid: the class counts (13, 20) at
+# levels 0 and 4, each level's planes (f_out), and a width between two of
+# the kernels' (300)
+WIDE_CBL_CALLS = [(13, 65536, 35, 256, 3), (20, 256, 23, 256, 1), (64, 16384, 23, 256, 3),
+                  (128, 4096, 23, 256, 3), (256, 1024, 23, 256, 3), (512, 256, 23, 256, 1),
+                  (300, 1024, 23, 256, 3)]
+SCATTER_STATIC_SMEM = 11344  # the ACTIVE scatter's static shared bytes (ptxas)
+
+
+def _source(name):
+    return (Path(cbl_dense.__file__).resolve().parents[2] / "csrc" / name).read_text()
+
+
+def test_cbl_kernel_widths_match_the_sources():
+    """The row widths the wrappers pad to are the C entries' instances:
+    csrc/cbl_dense.cu's forward and backward dispatch, the scatter's
+    static_assert, csrc/cbl_tile2.cu's by_width."""
+    dense = _source("cbl_dense.cu")
+    for macro in ("CBL_FWD_WIDTH", "CBL_BWD_WIDTH"):
+        got = tuple(int(c) for c in re.findall(rf"^\s*{macro}\((\d+)\)", dense, re.M))
+        assert got == cbl_dense.WIDTHS, macro
+    scatter = re.search(r"static_assert\(((?:C == \d+(?: \|\|\s*)?)+)",
+                        _source("slot_scatter.cuh")).group(1)
+    assert tuple(int(c) for c in re.findall(r"\d+", scatter)) == cbl_dense.WIDTHS
+    by_width = _source("cbl_tile2.cu").split("int by_width(")[1].split("default:")[0]
+    assert tuple(int(c) for c in re.findall(r"case (\d+):", by_width)) == cbl_dense.WIDTHS
+
+
+@pytest.mark.parametrize("c,m,k,tile,width", WIDE_CBL_CALLS)
+def test_cbl_plans_at_every_width(c, m, k, tile, width):
+    """The dense kernels' plans at a width: the row width padded up to the
+    next kernel width; the window staged in shared memory where it fits
+    (else through L2: 0 bytes), every (row, slot) served once; the
+    backward's scatter rows a power-of-two divisor of the tile within the
+    width's accumulator, its shared memory within the SM's. The v2
+    kernels' plans: the same padding, four slots a lane beyond 32 channels,
+    the scatter's rows within the width's accumulator."""
+    b = 2
+    kc = cbl_dense.padded_channels(c)
+    assert kc in cbl_dense.WIDTHS and c <= kc < 2 * max(c, 32)
+    blocks, threads, smem = cbl_dense.fwd_plan(b, m, k, tile, width, c)
+    need = cbl_dense.fwd_smem(width, tile, c)
+    assert need == width * tile * (4 * kc + 12)
+    assert smem == (need if need <= cbl_dense.SMEM_LIMIT else 0)
+    assert threads % 32 == 0 and threads <= cbl_dense.FWD_MAX_THREADS
+    assert np.all(_fwd_coverage(b, m, k, tile, blocks, threads) == 1)
+    p1_blocks, rows, (sblocks, clouds) = cbl_dense.bwd_plan(b, m, tile, c)
+    assert p1_blocks * 256 == b * m * 8 and clouds == b and sblocks * rows == m
+    assert rows & (rows - 1) == 0 and tile % rows == 0
+    assert cbl_dense.MIN_SCATTER_ROWS <= rows <= cbl_dense.scatter_max_rows(kc)
+    assert rows * kc <= cbl_dense.SCATTER_FLOATS
+    assert (2 * rows * kc + 2 * 4096) * 4 + SCATTER_STATIC_SMEM <= 227 * 1024
+    v2 = c2.bwd_plan(b, m, k, c, tile)
+    assert v2.pass1.channels == kc and v2.pass1.slots == (4 if kc > 32 else v2.pass1.slots)
+    assert v2.scatter_rows * kc <= c2.SCATTER_FLOATS and tile % v2.scatter_rows == 0
+    assert v2.scatter_smem + SCATTER_STATIC_SMEM <= 227 * 1024
+
+
+def test_cbl_widths_beyond_the_kernels_are_refused():
+    for c in (0, 513):
+        with pytest.raises(ValueError, match="1 to 512"):
+            cbl_dense.padded_channels(c)
 
 
 def _check_attn_plan(plan, b, m, k, c, kind, min_rows):
